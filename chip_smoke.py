@@ -15,18 +15,29 @@ Phases (any failure exits non-zero and prints no result line):
    ``suite.paper_twins`` at scale 1: 263,743 rows, 4 rows at 15 % density);
 3. hold each kernel against its plain PyTorch version on the card, on the
    same inputs: fp32 within 1e-5, bf16 within 3e-2 (both sum in fp32; they
-   differ only in summation order and one final rounding);
+   differ only in summation order and one final rounding) — K1 and K2 also
+   with the split of long groups forced at small piece sizes.  K1/K2 skip
+   padding (value 0 at column 0), which the plain versions sum as 0·x[0]:
+   with the finite x used here the two agree;
 4. the main path: ``spmv``/``spmm`` on both RgCSR matrices with the default
    ``impl`` (and K3 for the Hybrid comparison format), held against a
    float64 scipy product within 1e-4, with the launch counters set to 0
    just before and read just after, and the plan cache showing one miss
    per matrix and hits after;
-5. times (one pair of CUDA events around many back-to-back launches, over
-   their count; median of repeats after warmup) of each kernel, its plain
-   version and one PyTorch sparse call computing the same function, beside
-   the least time the card could take (bytes over 3.35 TB/s, flops over
-   67 TFLOP/s fp32): ``bound_ms`` for the plan's stored slots, as the kernel
-   reads them, and ``nnz_bound_ms`` for the matrix's nonzeros alone;
+5. times (``core/timing.py``: one pair of CUDA events around many
+   back-to-back launches, over their count; median of repeats after
+   warmup) of each kernel, its plain version and one PyTorch sparse call
+   computing the same function (CSR with int64 and with int32 indices;
+   ``library_ms`` is the faster) — the card's time with the host's enqueue
+   hidden behind a spin kernel (``ms``), the same after an L2 flush before
+   each call (``cold_ms``), and what a caller of the launcher waits per
+   call in a loop (``wait_ms``); whole calls of the main path with what
+   their caller waits, their card time and their host time; all
+   beside the least time the card could take (bytes over 3.35 TB/s, flops
+   over 67 TFLOP/s fp32): ``bound_ms`` for what the kernel must read — for
+   K1/K2 the slot rows of live segments that the plan's ``seg_slots``
+   counts, for K3 the plan's stored slots — plus x, y and the plan's
+   metadata, and ``nnz_bound_ms`` for the matrix's nonzeros alone;
 6. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -242,7 +253,7 @@ def main() -> int:
             failures.append(f"{kernel} {label}")
 
     def k1_check(label, plan, xv, dtype=torch.float32, tol=FP32_TOL,
-                 x_tile=None, key=None):
+                 x_tile=None, key=None, piece_rows=None):
         plan = dataclasses.replace(plan, values2d=plan.values2d.to(dtype))
         xp = xv.to(dtype)
         want, scale = (rgcsr_spmv_plain(
@@ -251,9 +262,7 @@ def main() -> int:
             for v, xs in ((plan.values2d, xp),
                           (plan.values2d.float().abs(), xp.float().abs())))
         if x_tile is None:
-            got = rgcsr_spmv_launch(plan.values2d, plan.columns2d,
-                                    plan.step_group, plan.group_step_ptr, xp,
-                                    chunks_per_step=plan.chunks_per_step)
+            got = rgcsr_spmv_launch(plan, xp, piece_rows=piece_rows)
         else:   # the reference's x column tile; K1 reads x whole
             got = ops.rgcsr_spmv(plan, xp, x_tile=x_tile)
             want = want.reshape(-1)[: plan.n_rows]
@@ -261,12 +270,11 @@ def main() -> int:
         hold("rgcsr_spmv", label, got, want, scale, tol, key)
 
     def k2_check(label, plan, xv, dtype=torch.float32, tol=FP32_TOL,
-                 key=None):
-        vals = plan.values2d.to(dtype)
+                 key=None, piece_rows=None):
+        plan = dataclasses.replace(plan, values2d=plan.values2d.to(dtype))
+        vals = plan.values2d
         xv = xv.to(dtype)
-        got = rgcsr_spmm_launch(vals, plan.columns2d, plan.step_group,
-                                plan.group_step_ptr, xv,
-                                chunks_per_step=plan.chunks_per_step)
+        got = rgcsr_spmm_launch(plan, xv, piece_rows=piece_rows)
         want, scale = (rgcsr_spmm_plain(
             v, plan.columns2d, plan.step_group, xs, n_groups=plan.n_groups,
             chunks_per_step=plan.chunks_per_step).float()
@@ -283,9 +291,36 @@ def main() -> int:
                                xp.float().abs())
         hold("ell_spmv", label, got, want, scale, tol, key)
 
+    t1 = time.perf_counter()
     fem_plan = ops.make_plan(fem)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
     raj_plan = ops.make_plan(raj)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for p in (fem_plan, raj_plan):   # the work lists of the main path
+        p.work_list("rgcsr_spmv", n_sm=n_sm, part_bytes=p.group_size * 4)
+        p.work_list("rgcsr_spmm", n_sm=n_sm,
+                    part_bytes=p.group_size * D_SPMM * 4)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
     raj_adapt = ops.make_plan(raj, ordering="adaptive", spill_threshold=64)
+    log(f"host build: block plans with seg_slots fem2d_2048 {t2 - t1:.3f} s, "
+        f"raj1_full {t3 - t2:.3f} s; K1+K2 work lists of both "
+        f"{t4 - t3:.3f} s ({n_sm} SMs)")
+    for name, p in (("fem2d_2048", fem_plan), ("raj1_full", raj_plan)):
+        for kernel, part in (("rgcsr_spmv", 4), ("rgcsr_spmm", 4 * D_SPMM)):
+            w = p.work_list(kernel, n_sm=n_sm,
+                            part_bytes=p.group_size * part)
+            what = ("units" if kernel == "rgcsr_spmv" else
+                    f"pieces ({w.n_direct} of one-piece groups), d{D_SPMM}")
+            log(f"  {name} {kernel}: piece_rows {w.piece_rows}, "
+                f"{w.items.shape[0]} {what}, "
+                f"{w.combine.shape[0]} split groups, {w.n_parts} partial "
+                f"rows; live slot rows "
+                f"{int(p.seg_slots.sum())} x 32 of {p.stored_slots} x "
+                f"{p.group_size} stored")
     fem_ell_plan = ops.make_ell_plan(fem_ell)
     raj_ell_plan = ops.make_ell_plan(raj_ell)
     x_cut = torch.from_numpy(rng.standard_normal(cut_csr.shape[1])
@@ -317,6 +352,25 @@ def main() -> int:
              xm["raj1_full"], key="raj1_full")
     k2_check(f"raj1_full adaptive spill64 d{D_SPMM} fp32", raj_adapt,
              xm["raj1_full"])
+    # the split forced at small pieces (fem2d's groups are one step deep,
+    # so there every piece size keeps the direct path)
+    for p in (8, 64):
+        k1_check(f"fem2d_2048 block cps1 pieces{p} fp32", fem_plan,
+                 x["fem2d_2048"], piece_rows=p)
+        k1_check(f"raj1_full block cps1 pieces{p} fp32", raj_plan,
+                 x["raj1_full"], piece_rows=p)
+        k1_check(f"raj1_full block cps1 pieces{p} bf16", raj_plan,
+                 x["raj1_full"], torch.bfloat16, BF16_TOL, piece_rows=p)
+        k1_check(f"raj1_full adaptive spill64 pieces{p} fp32", raj_adapt,
+                 x["raj1_full"], piece_rows=p)
+        k2_check(f"fem2d_2048 block cps1 pieces{p} d{D_SPMM} fp32",
+                 fem_plan, xm["fem2d_2048"], piece_rows=p)
+        k2_check(f"raj1_full block cps1 pieces{p} d{D_SPMM} fp32", raj_plan,
+                 xm["raj1_full"], piece_rows=p)
+        k2_check(f"raj1_full block cps1 pieces{p} d{D_SPMM} bf16", raj_plan,
+                 xm["raj1_full"], torch.bfloat16, BF16_TOL, piece_rows=p)
+        k2_check(f"raj1_full adaptive spill64 pieces{p} d{D_SPMM} fp32",
+                 raj_adapt, xm["raj1_full"], piece_rows=p)
     log(f"phase 3 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. the main path
@@ -375,23 +429,45 @@ def main() -> int:
 
     warnings.filterwarnings("ignore", message="Sparse")   # beta notices
 
-    def sparse_csr(a):
+    def sparse_csr(a, index_dtype=np.int64):
         return torch.sparse_csr_tensor(
-            torch.from_numpy(a.indptr.astype(np.int64)),
-            torch.from_numpy(a.indices.astype(np.int64)),
+            torch.from_numpy(a.indptr.astype(index_dtype)),
+            torch.from_numpy(a.indices.astype(index_dtype)),
             torch.from_numpy(a.data), size=a.shape).to(dev)
 
-    def ms(fn, calls):
-        return time_us(fn, calls=calls, device=dev) / 1e3
+    def ms(fn, calls, **kw):
+        """Per call: the time a caller waits (no keyword), the card's time
+        with the host hidden (``hold=True``), or from HBM after an L2 flush
+        (``cold=True``) — see ``core/timing.py``."""
+        return time_us(fn, calls=calls, device=dev, **kw) / 1e3
 
     def bound(nbytes, flops):
         tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
         return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
+    def library_times(a, operand, calls):
+        """The PyTorch CSR product on ``a`` with int64 and int32 indices:
+        card time warm and cold, per index type."""
+        out = {}
+        for tag, dt in (("int64", np.int64), ("int32", np.int32)):
+            a_t = sparse_csr(a, dt)
+            try:
+                out[tag] = (ms(lambda: a_t @ operand, calls, hold=True),
+                            ms(lambda: a_t @ operand, calls, cold=True))
+            except RuntimeError as err:     # a yardstick only
+                log(f"library {tag} indices: {err}")
+            del a_t
+        return out
+
     def entry(kernel, shape, run, plain, library, nbytes, flops, nnz_bytes,
-              nnz_flops, calls=20):
-        """``nbytes``/``flops``: the plan's stored slots, as the kernel reads
-        them; ``nnz_bytes``/``nnz_flops``: the matrix's nonzeros alone."""
+              nnz_flops, calls=50):
+        """``nbytes``/``flops``: what the kernel must read and compute;
+        ``nnz_bytes``/``nnz_flops``: the matrix's nonzeros alone;
+        ``library``: times of the PyTorch CSR call by index type.  ``ms``
+        and ``library_ms`` are card times with the host hidden (inputs warm
+        in L2 where they fit), ``cold_ms`` and ``library_cold_ms`` the same
+        after an L2 flush, ``wait_ms`` what a caller of the launcher waits
+        per call in a loop."""
         b_ms, b_by = bound(nbytes, flops)
         torch.cuda.reset_peak_memory_stats()
         e = {"name": f"{kernel}@{shape}", "route": "cuda",
@@ -399,88 +475,120 @@ def main() -> int:
              "replaces": KERNEL_META[kernel][1],
              "launches": launches[shape][kernel],
              "max_abs_err": errs[(kernel, shape)],
-             "ms": ms(run, calls), "plain_ms": ms(plain, 2),
+             "ms": ms(run, calls, hold=True),
+             "cold_ms": ms(run, calls, cold=True),
+             "wait_ms": ms(run, calls),
+             "plain_ms": ms(plain, 2, hold=True),
              "bound_ms": b_ms, "bound_by": b_by,
              "nnz_bound_ms": bound(nnz_bytes, nnz_flops)[0],
-             "library_ms": ms(library, calls)}
+             "library_ms": min(v[0] for v in library.values()),
+             "library_cold_ms": min(v[1] for v in library.values()),
+             **{f"library_{k}_ms": v[0] for k, v in library.items()}}
         e["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        log(f"time {e['name']}: kernel {e['ms']:.4f} ms, plain "
+        log(f"time {e['name']}: kernel {e['ms']:.4f} ms (cold "
+            f"{e['cold_ms']:.4f}, caller waits {e['wait_ms']:.4f}), plain "
             f"{e['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), nnz "
             f"bound {e['nnz_bound_ms']:.4f} ms, library "
-            f"{e['library_ms']:.4f} ms, peak {e['peak_gib']:.2f} GiB")
+            + ", ".join(f"{k} {v[0]:.4f} ms (cold {v[1]:.4f})"
+                        for k, v in library.items())
+            + f", peak {e['peak_gib']:.2f} GiB")
         entries.append(e)
+
+    def live_slots(plan):
+        """Slots of the live segments (what K1 and K2 must read) and slots
+        that are not padding (the products the result needs)."""
+        live = int(plan.seg_slots.sum()) * 32
+        real = int(((plan.values2d != 0) | (plan.columns2d != 0)).sum())
+        return live, real
+
+    def metadata_bytes(plan, part_bytes, kernel):
+        """The work list K1 (units) or K2 (tiles) reads, its combine list
+        and the segment counts the combine reads."""
+        w = plan.work_list(kernel, n_sm=n_sm, part_bytes=part_bytes)
+        return plan.seg_slots.nbytes + w.items.nbytes + w.combine.nbytes
 
     for name, (m, a) in mats.items():
         plan = fem_plan if name == "fem2d_2048" else raj_plan
-        vals, cols = plan.values2d, plan.columns2d
-        sg, ptr = plan.step_group, plan.group_step_ptr
+        vals, cols, sg = plan.values2d, plan.columns2d, plan.step_group
         cps = plan.chunks_per_step
-        slots = vals.numel()
-        plan_bytes = vals.nbytes + cols.nbytes + ptr.nbytes
+        live, real = live_slots(plan)
+        g_rows = plan.n_groups * plan.group_size
         xv, xmv = x[name], xm[name]
         nnz_bytes = a.nnz * 8                     # fp32 value + int32 column
-        slow = name == "raj1_full"                # block plan: long groups
-        a_t = sparse_csr(a)
         entry("rgcsr_spmv", name,
-              lambda: rgcsr_spmv_launch(vals, cols, sg, ptr, xv,
-                                        chunks_per_step=cps),
+              lambda: rgcsr_spmv_launch(plan, xv),
               lambda: rgcsr_spmv_plain(vals, cols, sg, xv,
                                        n_groups=plan.n_groups,
                                        chunks_per_step=cps),
-              lambda: a_t @ xv,
-              plan_bytes + xv.nbytes + plan.n_groups * plan.group_size * 4,
-              2 * slots, nnz_bytes + xv.nbytes + a.shape[0] * 4, 2 * a.nnz,
-              calls=5 if slow else 50)
+              library_times(a, xv, 50),
+              live * 8 + xv.nbytes + g_rows * 4
+              + metadata_bytes(plan, plan.group_size * 4, "rgcsr_spmv"),
+              2 * live, nnz_bytes + xv.nbytes + a.shape[0] * 4, 2 * a.nnz)
         entry("rgcsr_spmm", name,
-              lambda: rgcsr_spmm_launch(vals, cols, sg, ptr, xmv,
-                                        chunks_per_step=cps),
+              lambda: rgcsr_spmm_launch(plan, xmv),
               lambda: rgcsr_spmm_plain(vals, cols, sg, xmv,
                                        n_groups=plan.n_groups,
                                        chunks_per_step=cps),
-              lambda: a_t @ xmv,
-              plan_bytes + xmv.nbytes
-              + plan.n_groups * plan.group_size * D_SPMM * 4,
-              2 * slots * D_SPMM,
+              library_times(a, xmv, 10),
+              live * 8 + xmv.nbytes + g_rows * D_SPMM * 4
+              + metadata_bytes(plan, plan.group_size * D_SPMM * 4,
+                               "rgcsr_spmm"),
+              2 * real * D_SPMM,
               nnz_bytes + xmv.nbytes + a.shape[0] * D_SPMM * 4,
-              2 * a.nnz * D_SPMM, calls=2 if slow else 10)
+              2 * a.nnz * D_SPMM, calls=10)
         ep = ell_plans[name]
         head = a if name == "fem2d_2048" else ell_head_csr(a, raj_hyb.k1)
-        head_t = a_t if name == "fem2d_2048" else sparse_csr(head)
         entry("ell_spmv", name,
               lambda: ell_spmv_launch(ep.values2d, ep.columns2d, xv),
               lambda: ell_spmv_plain(ep.values2d, ep.columns2d, xv),
-              lambda: head_t @ xv,
+              library_times(head, xv, 50),
               ep.values2d.nbytes + ep.columns2d.nbytes + xv.nbytes
               + ep.values2d.shape[1] * 4,
               2 * ep.values2d.numel(),
-              head.nnz * 8 + xv.nbytes + a.shape[0] * 4, 2 * head.nnz,
-              calls=50)
-        del a_t, head_t
-    # whole calls as a user makes them (x padding, plan-cache lookup and the
-    # adaptive epilogue included), and Raj1's adaptive plan with spill — the
-    # remedy for its pathology, not on the default path
+              head.nnz * 8 + xv.nbytes + a.shape[0] * 4, 2 * head.nnz)
+    def host_ms(fn, calls):
+        """Host time per call to enqueue ``calls`` back-to-back calls."""
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = (time.perf_counter() - t) * 1e3 / calls
+        torch.cuda.synchronize()
+        return t
+
+    # whole calls as a user makes them (plan-cache lookup and the adaptive
+    # epilogue included): what a caller waits per call in a loop, the card's
+    # time with the host hidden, and the host's time to enqueue each; and
+    # Raj1's adaptive plan with spill — the remedy for its pathology, not
+    # on the default path
+    def call_line(what, fn, calls):
+        log(f"call {what}: caller waits {ms(fn, calls):.4f} ms, card "
+            f"{ms(fn, calls, hold=True):.4f} ms, host "
+            f"{host_ms(fn, calls):.4f} ms per call")
+
     for name, (m, _) in mats.items():
-        slow = name == "raj1_full"
-        log(f"call spmv {name}: "
-            f"{ms(lambda: spmv(m, x[name]), 5 if slow else 50):.4f} ms; "
-            f"spmm d{D_SPMM}: "
-            f"{ms(lambda: spmm(m, xm[name]), 2 if slow else 10):.4f} ms")
+        call_line(f"spmv {name}", lambda: spmv(m, x[name]), 50)
+        call_line(f"spmm d{D_SPMM} {name}", lambda: spmm(m, xm[name]), 10)
     p, xr, xmr = raj_adapt, x["raj1_full"], xm["raj1_full"]
-    arrays = (p.values2d, p.columns2d, p.step_group, p.group_step_ptr)
     epilogue_bytes = sum(t.nbytes for t in (
         p.gather_idx, p.grouped_mask, p.spill_values, p.spill_rows,
         p.spill_columns))
-    k_ms = ms(lambda: rgcsr_spmv_launch(*arrays, xr), 50)
-    call_ms = ms(lambda: ops.rgcsr_spmv(p, xr), 50)
-    b_ms = bound(p.values2d.nbytes + p.columns2d.nbytes + epilogue_bytes
-                 + xr.nbytes + p.n_groups * p.group_size * 4 + p.n_rows * 4,
-                 0)[0]
-    log(f"time rgcsr_spmv@raj1_full adaptive spill64: kernel {k_ms:.4f} ms, "
-        f"whole call {call_ms:.4f} ms, bound of the whole call {b_ms:.4f} ms")
-    k_ms = ms(lambda: rgcsr_spmm_launch(*arrays, xmr), 20)
-    call_ms = ms(lambda: ops.rgcsr_spmm(p, xmr), 20)
+    b_ms = bound(live_slots(p)[0] * 8
+                 + metadata_bytes(p, p.group_size * 4, "rgcsr_spmv")
+                 + epilogue_bytes + xr.nbytes
+                 + p.n_groups * p.group_size * 4 + p.n_rows * 4, 0)[0]
+    fn = lambda: rgcsr_spmv_launch(p, xr)   # noqa: E731
+    log(f"time rgcsr_spmv@raj1_full adaptive spill64: kernel "
+        f"{ms(fn, 50, hold=True):.4f} ms (cold {ms(fn, 50, cold=True):.4f}"
+        f"), bound of the whole call {b_ms:.4f} ms")
+    call_line("rgcsr_spmv raj1_full adaptive spill64",
+              lambda: ops.rgcsr_spmv(p, xr), 50)
+    fn = lambda: rgcsr_spmm_launch(p, xmr)   # noqa: E731
     log(f"time rgcsr_spmm@raj1_full adaptive spill64 d{D_SPMM}: kernel "
-        f"{k_ms:.4f} ms, whole call {call_ms:.4f} ms")
+        f"{ms(fn, 20, hold=True):.4f} ms")
+    call_line(f"rgcsr_spmm raj1_full adaptive spill64 d{D_SPMM}",
+              lambda: ops.rgcsr_spmm(p, xmr), 20)
     log(f"phase 5 in {time.perf_counter() - t0:.1f} s")
 
     for kernel in KERNEL_META:

@@ -22,8 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
-__all__ = ["KERNELS", "BUILD_DIR", "build", "cuda_device", "symbol",
-           "function", "check", "launches"]
+__all__ = ["KERNELS", "BUILD_DIR", "build", "cuda_device", "sm_count",
+           "symbol", "function", "check", "launches"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -39,6 +39,7 @@ launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[tuple, object] = {}
+_sm_counts: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -126,6 +127,16 @@ def cuda_device(name: str, tensors):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: tensors must be contiguous")
     return next(iter(devices))
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev``, asked once."""
+    n = _sm_counts.get(dev.index)
+    if n is None:
+        import torch
+        n = _sm_counts[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return n
 
 
 def symbol(name: str, value_dtype, x_dtype) -> str:

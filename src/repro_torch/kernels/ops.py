@@ -8,9 +8,14 @@ reshaped into the ``(S, G)`` slot-major tile the kernels consume, plus the
 **step table** (``step_group``/``step_first``).  With ``chunks_per_step > 1``
 every group's slot count is padded up to a multiple of ``8·chunks_per_step``
 (DESIGN.md §3); the padding is exact zeros with ghost column 0.  Plan arrays
-are byte-equal to the reference's; the port adds ``group_step_ptr``, the
-per-group step range the CUDA kernels walk, because GPU blocks do not run
-in the order of a step table.
+are byte-equal to the reference's; the port adds two derived fields of its
+own: ``group_step_ptr``, the per-group step range the CUDA kernels walk,
+because GPU blocks do not run in the order of a step table, and
+``seg_slots``, how many leading slot rows of each 32-lane segment of each
+group hold anything but padding, so that the kernels skip trailing padding.
+
+``RgCSRPlan.work_list`` cuts long groups into pieces for K1 or K2, built
+once per plan, kernel and piece size (see :class:`WorkList`).
 
 ``PlanCache`` is the process-wide memo: SpMV-heavy paths fetch plans
 through ``get_plan`` instead of rebuilding host-side layouts per call.
@@ -41,11 +46,143 @@ from repro_torch.kernels.rgcsr_spmv import (CHUNKS_PER_STEP_CHOICES, LANES,
 
 __all__ = ["RgCSRPlan", "make_plan", "rgcsr_spmv", "rgcsr_spmm",
            "EllPlan", "make_ell_plan", "ell_spmv", "plan_from_numpy",
-           "PlanCache", "PLAN_CACHE", "get_plan"]
+           "PlanCache", "PLAN_CACHE", "get_plan", "WorkList", "SEGMENT"]
+
+# Lanes of one warp: the unit in which seg_slots counts live slot rows.
+SEGMENT = 32
+# The piece-size rule aims at this many pieces' worth of slot rows per SM,
+CTAS_PER_SM = 16
+# and cuts no piece shorter than this (a multiple of every step, 8·cps):
+# splitting a short group buys little and costs the combine launch.
+MIN_PIECE_ROWS = 64
+# Largest fp32 partial workspace the piece-size rule allows (K2: pieces of
+# split groups × G × d × 4 bytes).
+WORKSPACE_BYTES = 64 << 20
 
 
 def _pad_to(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _seg_slots(values2d, columns2d, step_group, group_step_ptr,
+               rows_per_step: int, n_groups: int):
+    """``(n_groups, G/32)`` int32 on the plan's device: for each 32-lane
+    segment of each group, the number of leading slot rows in which some
+    lane of the segment holds a slot that is not padding (value 0 with
+    column 0).  Every slot row past the count is padding in all 32 lanes."""
+    s, g = values2d.shape
+    dev = values2d.device
+    live = ((values2d != 0) | (columns2d != 0)).reshape(
+        s, g // SEGMENT, SEGMENT).any(-1)
+    ends = torch.arange(1, s + 1, device=dev)[:, None] * live  # row + 1
+    row_group = step_group.long().repeat_interleave(rows_per_step)
+    last = torch.zeros((n_groups, g // SEGMENT), dtype=torch.int64,
+                       device=dev)
+    last.scatter_reduce_(0, row_group[:, None].expand_as(ends), ends, "amax")
+    starts = group_step_ptr[:-1].long() * rows_per_step
+    return (last - starts[:, None]).clamp_min_(0).int()
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkList:
+    """The work of K1 or K2 on one plan, cut into pieces of at
+    most ``piece_rows`` slot rows of one group (``piece_rows`` is a multiple
+    of the plan's step, so a piece is whole steps).  A group of one piece
+    writes its output directly; each piece of a longer group writes an fp32
+    partial row (``n_parts`` of them).
+
+    ``items``, on the plan's device, is what the kernel reads:
+
+    - K1 (``"rgcsr_spmv"``): ``(n_units, 4)`` int32, one record per warp, in
+      group order: the (piece, 32-lane segment) pairs K1 runs — every
+      segment of a one-piece group (its dead segments write zeros) and, of a
+      split group's pieces, only the segments with slot rows in the piece —
+      each as ``(first slot row of the plan, live slot rows, first lane,
+      destination)``.  The live rows stop at the segment's ``seg_slots``
+      count; the destination is the first output row ``g·G + lane`` of the
+      segment, or ``~(part·G + lane)`` (negative) for a partial row.  One
+      16-byte record, so a warp starts its loads after one dependent load.
+    - K2 (``"rgcsr_spmm"``): ``(n_pieces, 2 + G/32)`` int32, one per CTA:
+      each piece's first slot row of the plan, its destination (``g·G`` or
+      ``~(part·G)``) and the live slot rows of each segment in the piece (0
+      where the segment has none).  The ``n_direct`` pieces of one-piece
+      groups come first, then the pieces of split groups, each in group
+      order: K2 runs the two with different loops.
+
+    ``combine`` ``(n_split, 2)`` int32: each group of several pieces and
+    its first partial row; the combine sums the group's partials in a fixed
+    order and rounds once.
+    """
+
+    piece_rows: int
+    items: Any
+    n_direct: int
+    combine: Any
+    n_parts: int
+
+
+_WORK_KERNELS = ("rgcsr_spmv", "rgcsr_spmm")
+
+
+def _pieces(group_rows: np.ndarray, piece_rows: int) -> np.ndarray:
+    """Pieces per group; a group with no rows is still one piece, whose
+    CTA writes the group's zero rows."""
+    return np.maximum(1, -(-group_rows // piece_rows))
+
+
+def _n_parts(group_rows: np.ndarray, piece_rows: int) -> int:
+    n = _pieces(group_rows, piece_rows)
+    return int(n[n > 1].sum())
+
+
+def _piece_rows(group_rows: np.ndarray, rows_per_step: int, n_sm: int,
+                part_bytes: int) -> int:
+    """The piece-size rule: the plan's total slot rows over
+    ``CTAS_PER_SM · n_sm``, rounded up to a whole step and to at least
+    ``MIN_PIECE_ROWS``, then doubled while the partial workspace
+    (``part_bytes`` per piece of a split group) would pass
+    ``WORKSPACE_BYTES``."""
+    target = CTAS_PER_SM * max(n_sm, 1) * rows_per_step
+    p = max(1, -(-int(group_rows.sum()) // target)) * rows_per_step
+    p = max(p, MIN_PIECE_ROWS)
+    while _n_parts(group_rows, p) * part_bytes > WORKSPACE_BYTES:
+        p *= 2
+    return p
+
+
+def _work_list(kernel: str, group_rows: np.ndarray, seg_slots: np.ndarray,
+               piece_rows: int, device) -> WorkList:
+    n = _pieces(group_rows, piece_rows)
+    group = np.repeat(np.arange(len(n), dtype=np.int64), n)
+    piece = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    split = n > 1
+    parts = np.where(split, n, 0)
+    first_part = np.cumsum(parts) - parts
+    part = np.where(split[group], first_part[group] + piece, -1)
+    first_row = piece * piece_rows
+    # live slot rows of each segment in each piece
+    g_size = seg_slots.shape[1] * SEGMENT
+    piece_end = np.minimum(first_row + piece_rows, group_rows[group])
+    rows = np.clip(np.minimum(seg_slots[group], piece_end[:, None])
+                   - first_row[:, None], 0, None)
+    row0 = np.concatenate([[0], np.cumsum(group_rows)])[group] + first_row
+    dst = np.where(part < 0, group * g_size, ~(part * g_size))
+    if kernel == "rgcsr_spmv":
+        # the (piece, segment) pairs with rows, or of a one-piece group
+        p, seg = np.nonzero((part[:, None] < 0) | (rows > 0))
+        lane0 = seg * SEGMENT
+        items = np.stack([row0[p], rows[p, seg], lane0,
+                          np.where(dst[p] < 0, dst[p] - lane0,
+                                   dst[p] + lane0)], 1)
+    else:
+        order = np.argsort(part >= 0, kind="stable")   # one-piece groups first
+        items = np.concatenate([row0[:, None], dst[:, None], rows], 1)[order]
+    combine = np.stack([np.flatnonzero(split), first_part[split]], 1)
+    return WorkList(piece_rows=piece_rows,
+                    items=_tensor(items.astype(np.int32), device),
+                    n_direct=int((part < 0).sum()),
+                    combine=_tensor(combine.astype(np.int32), device),
+                    n_parts=int(parts.sum()))
 
 
 def _group_step_ptr(step_group: np.ndarray, step_first: np.ndarray,
@@ -76,7 +213,10 @@ class RgCSRPlan:
     ``step_group``/``step_first`` form the coarsened step table: step ``s``
     covers slot rows ``[R·s, R·(s+1))`` of ``values2d``/``columns2d``
     (``R = 8·chunks_per_step``) and belongs to group ``step_group[s]``.
-    ``group_step_ptr`` is the same table as one step range per group.
+    ``group_step_ptr`` is the same table as one step range per group, and
+    ``seg_slots[g, j]`` counts the leading slot rows of group ``g`` in which
+    lanes ``[32j, 32j+32)`` hold anything but padding; both are derived on
+    the plan's device when not given.
 
     **Adaptive plans** (``ordering='adaptive'``, DESIGN.md §5): groups hold
     length-sorted rows instead of consecutive ones, so the kernel's output
@@ -104,8 +244,9 @@ class RgCSRPlan:
     spill_values: Any = None       # (nnz_spill,)
     spill_rows: Any = None         # (nnz_spill,) int32 original row ids
     spill_columns: Any = None      # (nnz_spill,) int32
-    # --- the port's own: (n_groups + 1,) int32 step range of each group ---
-    group_step_ptr: Any = None
+    # --- the port's own, derived when not given ---
+    group_step_ptr: Any = None     # (n_groups + 1,) int32 step range
+    seg_slots: Any = None          # (n_groups, G/32) int32 live slot rows
 
     def __post_init__(self):
         if self.group_step_ptr is None:
@@ -113,6 +254,60 @@ class RgCSRPlan:
                                   _host(self.step_first), self.n_groups)
             object.__setattr__(self, "group_step_ptr",
                                _tensor(ptr, self.values2d.device))
+        if self.seg_slots is None:
+            object.__setattr__(self, "seg_slots", _seg_slots(
+                self.values2d, self.columns2d, self.step_group,
+                self.group_step_ptr, self.rows_per_step, self.n_groups))
+        object.__setattr__(self, "_work", {})
+
+    @property
+    def rows_per_step(self) -> int:
+        return self.chunks_per_step * SUBLANES
+
+    def work_list(self, kernel: str, *, n_sm: int, part_bytes: int,
+                  piece_rows: int | None = None) -> WorkList:
+        """``kernel``'s work list (``"rgcsr_spmv"`` or ``"rgcsr_spmm"``) on
+        a card of ``n_sm`` SMs, whose partial rows take ``part_bytes`` each:
+        built on the host at the first call, after a check that the plan's
+        arrays are what the kernels take, and kept with the plan.
+        ``piece_rows`` (a multiple of ``rows_per_step``) forces the piece
+        size instead of the rule of :func:`_piece_rows`."""
+        cache = self._work
+        key = (kernel, n_sm, part_bytes, piece_rows)
+        work = cache.get(key)
+        if work is not None:
+            return work
+        r = self.rows_per_step
+        if kernel not in _WORK_KERNELS:
+            raise ValueError(f"no work list for kernel {kernel!r}")
+        if piece_rows is not None and (piece_rows < r or piece_rows % r):
+            raise ValueError(f"piece_rows must be a positive multiple of "
+                             f"{r} (8·chunks_per_step), got {piece_rows}")
+        if "rows" not in cache:
+            self._check_kernel_arrays()
+            cache["rows"] = np.diff(_host(self.group_step_ptr).astype(
+                np.int64)) * r
+            cache["seg_slots"] = _host(self.seg_slots)
+        p = piece_rows or _piece_rows(cache["rows"], r, n_sm, part_bytes)
+        work = cache[key] = _work_list(kernel, cache["rows"],
+                                       cache["seg_slots"], p,
+                                       self.values2d.device)
+        return work
+
+    def _check_kernel_arrays(self) -> None:
+        s, g = self.values2d.shape
+        if (tuple(self.columns2d.shape) != (s, g)
+                or self.columns2d.dtype != torch.int32
+                or self.group_step_ptr.dtype != torch.int32
+                or tuple(self.seg_slots.shape) != (self.n_groups, g // SEGMENT)
+                or self.seg_slots.dtype != torch.int32 or g % LANES
+                or s != self.num_steps * self.rows_per_step):
+            raise ValueError(
+                f"plan arrays do not match the kernels (values2d "
+                f"{tuple(self.values2d.shape)}, columns2d "
+                f"{tuple(self.columns2d.shape)} {self.columns2d.dtype}, "
+                f"seg_slots {tuple(self.seg_slots.shape)}, {self.num_steps} "
+                f"steps of {self.rows_per_step})")
 
     @property
     def num_steps(self) -> int:
@@ -318,11 +513,12 @@ def _make_adaptive_plan(m: RgCSR, *, chunks_per_step: int,
 def plan_from_numpy(fields: Dict[str, Any], *, device="cuda") -> RgCSRPlan:
     """A plan from the fields of ``repro.kernels.ops.RgCSRPlan``, with every
     array field given as a numpy array (``None`` where the reference has
-    none); ``group_step_ptr`` is derived from the step table."""
+    none); the port's own ``group_step_ptr`` and ``seg_slots`` are derived
+    from the step table and the slots, never taken from ``fields``."""
     dev = resolve_device(device)
     kwargs = {}
     for f in dataclasses.fields(RgCSRPlan):
-        if f.name == "group_step_ptr" or f.name not in fields:
+        if f.name in ("group_step_ptr", "seg_slots") or f.name not in fields:
             continue
         v = fields[f.name]
         if isinstance(v, np.ndarray):
@@ -474,10 +670,7 @@ def rgcsr_spmv(plan: RgCSRPlan, x, *, x_tile: int | None = None):
     segment sum); block plans slice the contiguous rows.
     """
     _check_operand(plan, x, 1, "rgcsr_spmv")
-    y = rgcsr_spmv_launch(plan.values2d, plan.columns2d, plan.step_group,
-                          plan.group_step_ptr, _gatherable(x),
-                          chunks_per_step=plan.chunks_per_step)
-    y_flat = y.reshape(-1)
+    y_flat = rgcsr_spmv_launch(plan, _gatherable(x)).reshape(-1)
     if plan.ordering != "adaptive":
         return y_flat[: plan.n_rows]
     return _adaptive_finish_spmv(y_flat, x, plan)
@@ -490,10 +683,7 @@ def rgcsr_spmm(plan: RgCSRPlan, x, *, d_tile: int = LANES):
     kernel masks the d edge, so X is not padded.
     """
     _check_operand(plan, x, 2, "rgcsr_spmm")
-    y = rgcsr_spmm_launch(plan.values2d, plan.columns2d, plan.step_group,
-                          plan.group_step_ptr, _gatherable(x),
-                          chunks_per_step=plan.chunks_per_step,
-                          d_tile=d_tile)
+    y = rgcsr_spmm_launch(plan, _gatherable(x), d_tile=d_tile)
     if plan.ordering != "adaptive":
         return y[: plan.n_rows]
     return _adaptive_finish_spmm(y, x, plan)

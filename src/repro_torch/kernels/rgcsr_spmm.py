@@ -3,14 +3,31 @@ its plain PyTorch version.
 
 Replaces ``repro.kernels.rgcsr_spmm.rgcsr_spmm_kernel`` (the Pallas TPU
 kernel), the kernel behind the pruned-weight ``SparseLinear`` layer.  On the
-H100 it is bound by bytes: per stored slot it gathers one d-wide row of X
-for 2·d flops.  One CTA per (group, d-chunk); lanes run along d so X row
-reads and Y row writes are coalesced; each pass stages eight slot rows of
-the group in shared memory; sums are fp32 in slot order (see the CUDA
-source).  The chunk is ``d_tile`` columns, capped at 128 and at ``d``
-rounded up to 32; the kernel masks the d edge, so X is not padded.
+H100 it is bound by bytes: per live slot it gathers one d-wide row of X for
+2·d flops.  Its design, set out in the CUDA source:
 
-Each launch adds one to ``_build.launches["rgcsr_spmm"]``; the plain
+- long groups are split as in K1: one CTA per (piece, d-chunk) of the
+  plan's work list; the piece size is also capped so that the fp32 partial
+  workspace (pieces of split groups × G × d × 4 bytes) stays within
+  ``ops.WORKSPACE_BYTES``; a last launch, the combine K1 also uses, sums
+  the partials in a fixed order and rounds once — no atomics;
+- lanes run along d, so X row reads and Y row writes are coalesced; the
+  chunk is ``d_tile`` columns, capped at 128 and at ``d`` rounded up to 32,
+  and the kernel masks the d edge, so X is not padded;
+- eight slot rows per stage are staged in shared memory with ``cp.async``
+  (one buffer: a second was measured slower); a segment's slot rows past
+  its ``seg_slots`` count are never read from memory, and no slot row past
+  the row block's last live row is staged or computed on;
+- the pieces of one-piece groups and of split groups go out as two
+  launches with two loops.  In the first, a warp issues the gathers of its
+  16 rows for a slot row together, and padding inside the live rows is
+  summed as ``0·X[0]``, as the TPU kernel does.  In the second, a warp
+  skips each of its rows whose staged slots are all padding and gathers a
+  live row's eight slot rows together.  Either way the result differs from
+  the TPU kernel's only where ``X[0]`` is not finite.
+
+Each launcher call adds one to ``_build.launches["rgcsr_spmm"]``, whether
+it sends out one launch or several (two loops and the combine); the plain
 version, taken for CPU tensors, does not count.
 """
 from __future__ import annotations
@@ -28,7 +45,9 @@ MAX_D_CHUNK = 128
 
 __all__ = ["rgcsr_spmm_launch", "rgcsr_spmm_plain"]
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p, ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 # Gathered X elements one plain-version pass holds, to bound its memory.
 _PLAIN_CHUNK_ELEMS = 1 << 24
@@ -56,43 +75,55 @@ def rgcsr_spmm_plain(values2d, columns2d, step_group, x, *,
     return out.to(values2d.dtype)
 
 
-def rgcsr_spmm_launch(values2d, columns2d, step_group, group_step_ptr, x, *,
-                      chunks_per_step: int = 1, d_tile: int = LANES):
-    """``(n_groups·G, d)`` result rows of one RgCSR plan times ``x``.
+def rgcsr_spmm_launch(plan, x, *, d_tile: int = LANES,
+                      piece_rows: int | None = None):
+    """``(n_groups·G, d)`` result rows of ``plan`` (an ``ops.RgCSRPlan``)
+    times ``x``.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, or
-    raise when it cannot take them.
+    raise when it cannot take them.  ``piece_rows`` forces the size of the
+    pieces that long groups are split into (a multiple of
+    ``8·chunks_per_step``); by default the plan's rule picks it from its
+    slot rows, the card's SM count and the workspace cap.
     """
-    n_groups = group_step_ptr.shape[0] - 1
-    tensors = (values2d, columns2d, step_group, group_step_ptr, x)
+    vals, cols = plan.values2d, plan.columns2d
+    tensors = (vals, cols, plan.group_step_ptr, plan.seg_slots, x)
     dev = _build.cuda_device("rgcsr_spmm", tensors)
     if dev is None:
-        return rgcsr_spmm_plain(values2d, columns2d, step_group, x,
-                                n_groups=n_groups,
-                                chunks_per_step=chunks_per_step)
-    rows_per_step = chunks_per_step * SUBLANES
-    s, g = values2d.shape
-    if (columns2d.shape != (s, g) or columns2d.dtype != torch.int32
-            or group_step_ptr.dtype != torch.int32 or x.dim() != 2
-            or g % LANES or s != step_group.shape[0] * rows_per_step):
-        raise ValueError("rgcsr_spmm: plan arrays do not match "
-                         f"(values2d {tuple(values2d.shape)}, columns2d "
-                         f"{tuple(columns2d.shape)} {columns2d.dtype}, "
-                         f"{step_group.shape[0]} steps of {rows_per_step})")
+        return rgcsr_spmm_plain(vals, cols, plan.step_group, x,
+                                n_groups=plan.n_groups,
+                                chunks_per_step=plan.chunks_per_step)
+    if x.dim() != 2:
+        raise ValueError(f"rgcsr_spmm: X must be 2-D, got {tuple(x.shape)}")
+    if vals.data_ptr() % 16 or cols.data_ptr() % 16:
+        raise ValueError("rgcsr_spmm: values2d and columns2d must start on "
+                         "a 16-byte boundary (the kernel stages them with "
+                         "16-byte copies)")
     if d_tile < 32 or d_tile % 32:
         raise ValueError(f"rgcsr_spmm: d_tile must be a multiple of 32, "
                          f"got {d_tile}")
-    d = x.shape[1]
+    g, d = vals.shape[1], x.shape[1]
+    if g * d >= 2**31:
+        raise ValueError(f"rgcsr_spmm: G·d must stay below 2^31 (the "
+                         f"combine's 32-bit indices), got {g}·{d}")
     d_chunk = min(d_tile, MAX_D_CHUNK, -(-max(d, 1) // 32) * 32)
-    y = torch.empty((n_groups * g, d), dtype=values2d.dtype, device=dev)
+    work = plan.work_list("rgcsr_spmm", n_sm=_build.sm_count(dev),
+                          part_bytes=g * d * 4, piece_rows=piece_rows)
+    y = torch.empty((plan.n_groups * g, d), dtype=vals.dtype, device=dev)
+    # the fp32 partial workspace, none when no group is split
+    ws = (torch.empty((work.n_parts, g, d), dtype=torch.float32, device=dev)
+          if work.n_parts else None)
     fn = _build.function(
-        "rgcsr_spmm", _build.symbol("rgcsr_spmm", values2d.dtype, x.dtype),
+        "rgcsr_spmm", _build.symbol("rgcsr_spmm", vals.dtype, x.dtype),
         _ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(values2d.data_ptr(), columns2d.data_ptr(),
-                 group_step_ptr.data_ptr(), x.data_ptr(), y.data_ptr(),
-                 n_groups, g, rows_per_step, d, d_chunk // 32, stream)
+        err = fn(vals.data_ptr(), cols.data_ptr(), plan.seg_slots.data_ptr(),
+                 work.items.data_ptr(), work.items.shape[0], work.n_direct,
+                 work.combine.data_ptr(), work.combine.shape[0],
+                 x.data_ptr(), y.data_ptr(),
+                 None if ws is None else ws.data_ptr(), g, work.piece_rows,
+                 d, d_chunk // 32, stream)
     _build.check(err, "rgcsr_spmm")
     _build.launches["rgcsr_spmm"] += 1
     return y

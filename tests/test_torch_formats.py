@@ -171,6 +171,7 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files.extend(sorted((REPO / "scripts").glob("torch_*.py")))
     assert len(files) > 10
     for path in files:
         bad = {r for r in _imported_roots(path)

@@ -8,7 +8,11 @@ installed::
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: fp32 within rtol = atol = 1e-5, bf16 within 3e-2; kernel and
-plain version both sum in fp32 and differ only in summation order.
+plain version both sum in fp32 and differ only in summation order.  K1 and
+K2 skip padding slots (value 0 at column 0) that the plain version sums as
+``0·x[0]``; the two differ there only where ``x[0]`` is not finite, and
+these tests use finite x.  ``piece_rows`` forces the split of long groups
+at each piece size.
 """
 import dataclasses
 
@@ -42,41 +46,109 @@ def _cuda_plan(a, dev, **kw):
     return ops.make_plan(from_dense(a, "rgcsr", device=dev), **kw)
 
 
+# Piece sizes, in steps of the plan: 1 (the smallest), 2, 3, None (the
+# plan's rule) and 10**4 (no group split).
+PIECES = [1, 2, 3, None, 10**4]
+
+
+def _piece_rows(plan, steps):
+    return None if steps is None else steps * plan.rows_per_step
+
+
+def _stored_zeros(seed, n=400, m=300):
+    """A skewed matrix whose format holds explicit zeros: some at column 0
+    (indistinguishable from padding, so skipped) and some elsewhere."""
+    a = skewed(seed, n=n, m=m)
+    a[::5, 0] = 1.0
+    a[::3, 7] = 1.0
+    return a
+
+
+def _with_stored_zeros(m):
+    vals = m.values.clone()
+    for col in (0, 7):
+        nz = torch.nonzero((m.columns == col) & (vals != 0)).flatten()
+        vals[nz[::2]] = 0.0
+    return dataclasses.replace(m, values=vals)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("steps", PIECES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("cps,ordering,spill", [(1, "block", 0),
                                                 (4, "block", 0),
-                                                (2, "adaptive", 6)])
-def test_k1_cuda_matches_plain(cuda, cps, ordering, spill, dtype, tol):
+                                                (2, "adaptive", 6),
+                                                (1, "adaptive", 0)])
+def test_k1_cuda_matches_plain(cuda, cps, ordering, spill, dtype, tol,
+                               steps):
+    """With long groups split at every piece size (finite x: skipped
+    padding would differ only where x[0] is not)."""
     plan = _cuda_plan(skewed(13, n=700, m=650), cuda, chunks_per_step=cps,
                       ordering=ordering, spill_threshold=spill)
     plan = dataclasses.replace(plan, values2d=plan.values2d.to(dtype))
-    x_pad = torch.from_numpy(_x(14, 768)).to(cuda, dtype)
-    args = (plan.values2d, plan.columns2d, plan.step_group)
+    x = torch.from_numpy(_x(14, 768)).to(cuda, dtype)
     before = launch_counts()["rgcsr_spmv"]
-    got = rgcsr_spmv_launch(*args, plan.group_step_ptr, x_pad,
-                            chunks_per_step=cps)
+    got = rgcsr_spmv_launch(plan, x, piece_rows=_piece_rows(plan, steps))
     assert launch_counts()["rgcsr_spmv"] == before + 1
-    want = rgcsr_spmv_plain(*args, x_pad, n_groups=plan.n_groups,
-                            chunks_per_step=cps)
+    want = rgcsr_spmv_plain(plan.values2d, plan.columns2d, plan.step_group,
+                            x, n_groups=plan.n_groups, chunks_per_step=cps)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,d_tile", [(1, 128), (64, 128), (129, 128),
-                                      (100, 64)])
-def test_k2_cuda_matches_plain(cuda, d, d_tile):
+@pytest.mark.parametrize("steps", PIECES)
+@pytest.mark.parametrize("d,d_tile,dtype,tol", [
+    (1, 128, torch.float32, 1e-5), (64, 128, torch.float32, 1e-5),
+    (129, 128, torch.float32, 1e-5), (100, 64, torch.float32, 1e-5),
+    (64, 128, torch.bfloat16, 3e-2)])
+def test_k2_cuda_matches_plain(cuda, d, d_tile, dtype, tol, steps):
     plan = _cuda_plan(skewed(15, n=400, m=300), cuda, chunks_per_step=2)
-    x = torch.from_numpy(_x(16, 300, d)).to(cuda)
-    args = (plan.values2d, plan.columns2d, plan.step_group)
+    plan = dataclasses.replace(plan, values2d=plan.values2d.to(dtype))
+    x = torch.from_numpy(_x(16, 300, d)).to(cuda, dtype)
     before = launch_counts()["rgcsr_spmm"]
-    got = rgcsr_spmm_launch(*args, plan.group_step_ptr, x,
-                            chunks_per_step=2, d_tile=d_tile)
+    got = rgcsr_spmm_launch(plan, x, d_tile=d_tile,
+                            piece_rows=_piece_rows(plan, steps))
     assert launch_counts()["rgcsr_spmm"] == before + 1
-    want = rgcsr_spmm_plain(*args, x, n_groups=plan.n_groups,
-                            chunks_per_step=2)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    want = rgcsr_spmm_plain(plan.values2d, plan.columns2d, plan.step_group,
+                            x, n_groups=plan.n_groups, chunks_per_step=2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", PIECES)
+def test_k1_k2_cuda_with_stored_zeros(cuda, steps):
+    """Stored zeros at column 0 are skipped like padding, those elsewhere
+    are summed; with finite x both match the plain version, which sums
+    every slot."""
+    m = _with_stored_zeros(from_dense(_stored_zeros(25), "rgcsr",
+                                      device=cuda))
+    plan = ops.make_plan(m)
+    x = torch.from_numpy(_x(26, 300, 5)).to(cuda)
+    args = (plan.values2d, plan.columns2d, plan.step_group)
+    kw = dict(n_groups=plan.n_groups, chunks_per_step=1)
+    p = _piece_rows(plan, steps)
+    x1 = x[:, 0].contiguous()
+    torch.testing.assert_close(rgcsr_spmv_launch(plan, x1, piece_rows=p),
+                               rgcsr_spmv_plain(*args, x1, **kw),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rgcsr_spmm_launch(plan, x, piece_rows=p),
+                               rgcsr_spmm_plain(*args, x, **kw),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, None])
+def test_split_launches_are_bitwise_repeatable(cuda, steps):
+    """No atomics: two calls give the same bits, split or not."""
+    plan = _cuda_plan(skewed(27, n=900, m=700), cuda)
+    p = _piece_rows(plan, steps)
+    x = torch.from_numpy(_x(28, 700, 33)).to(cuda)
+    x1 = x[:, 0].contiguous()
+    assert torch.equal(rgcsr_spmv_launch(plan, x1, piece_rows=p),
+                       rgcsr_spmv_launch(plan, x1, piece_rows=p))
+    assert torch.equal(rgcsr_spmm_launch(plan, x, piece_rows=p),
+                       rgcsr_spmm_launch(plan, x, piece_rows=p))
 
 
 @pytest.mark.gpu
@@ -123,13 +195,15 @@ def test_main_path_on_cuda_goes_through_the_kernels(cuda):
 
 
 @pytest.mark.gpu
-def test_time_us_times_back_to_back_launches(cuda):
-    """A positive device time per call; each repeat makes ``calls`` calls
+@pytest.mark.parametrize("mode", [{}, {"hold": True}, {"cold": True}])
+def test_time_us_times_back_to_back_launches(cuda, mode):
+    """A positive time per call, by default (what a caller waits), with the
+    card held and after an L2 flush; each repeat makes ``calls`` calls
     after the warmup."""
     plan = ops.make_ell_plan(from_dense(rand_sparse(23, 300, 300, 0.02),
                                         "ellpack", device=cuda))
     x = torch.from_numpy(_x(24, 300)).to(cuda)
     before = launch_counts()["ell_spmv"]
-    t = time_us(ops.ell_spmv, plan, x, repeats=3, warmup=1, calls=4)
+    t = time_us(ops.ell_spmv, plan, x, repeats=3, warmup=1, calls=4, **mode)
     assert 0 < t < 1e6
     assert launch_counts()["ell_spmv"] == before + 1 + 3 * 4

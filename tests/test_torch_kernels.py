@@ -173,12 +173,16 @@ def test_launchers_refuse_tensors_neither_on_cpu_nor_cuda():
     vals = torch.empty(8, 128, **meta)
     cols = torch.empty(8, 128, dtype=torch.int32, **meta)
     sg = torch.zeros(1, dtype=torch.int32, **meta)
-    ptr = torch.zeros(2, dtype=torch.int32, **meta)
+    plan = ops.RgCSRPlan(
+        values2d=vals, columns2d=cols, step_group=sg, step_first=sg,
+        n_rows=128, n_cols=128, n_groups=1, group_size=128,
+        group_step_ptr=torch.zeros(2, dtype=torch.int32, **meta),
+        seg_slots=torch.zeros(1, 4, dtype=torch.int32, **meta))
     x = torch.empty(128, **meta)
     with pytest.raises(ValueError, match="CUDA device"):
-        rgcsr_spmv_launch(vals, cols, sg, ptr, x)
+        rgcsr_spmv_launch(plan, x)
     with pytest.raises(ValueError, match="CUDA device"):
-        rgcsr_spmm_launch(vals, cols, sg, ptr, x.reshape(128, 1))
+        rgcsr_spmm_launch(plan, x.reshape(128, 1))
     with pytest.raises(ValueError, match="CUDA device"):
         ell_spmv_launch(vals, cols, x)
 
