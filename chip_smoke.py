@@ -16,7 +16,9 @@ Phases (any failure exits non-zero and prints no result line):
 3. hold each kernel against its plain PyTorch version on the card, on the
    same inputs: fp32 within 1e-5, bf16 within 3e-2 (both sum in fp32; they
    differ only in summation order and one final rounding) — K1 and K2 also
-   with the split of long groups forced at small piece sizes.  K1/K2 skip
+   with the split of long groups forced at small piece sizes, and K2 on one
+   ``w_out`` layer of granite-3-2b (16 groups × 2,048 slot rows of 128
+   lanes, d_in 8,192) at the serving widths d ∈ {1, 4, 512}.  K1/K2 skip
    padding (value 0 at column 0), which the plain versions sum as 0·x[0]:
    with the finite x used here the two agree;
 4. the main path: ``spmv``/``spmm`` on both RgCSR matrices with the default
@@ -38,7 +40,24 @@ Phases (any failure exits non-zero and prints no result line):
    K1/K2 the slot rows of live segments that the plan's ``seg_slots``
    counts, for K3 the plan's stored slots — plus x, y and the plan's
    metadata, and ``nnz_bound_ms`` for the matrix's nonzeros alone;
-6. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+6. serve: granite-3-2b at its published width and depth (40 layers) with
+   the RgCSR FFN (density 0.25, G = 128, ``impl="kernel"``), random weights
+   from ``SEED``, through ``Engine.generate`` — 4 prompts of 128 tokens, 32
+   new tokens, ``max_seq`` 256.  K2's launch counter, set to 0 just before
+   and read just after, must show one launch per layer for the prefill and
+   for each of the 31 decode steps (40 × 32) and no other kernel of the
+   port; each layer's plan is built once, at load.  In float32 (compute
+   and KV cache) the same weights with every ``w_out`` as its dense
+   equivalent (``torch.matmul``, TF32 off) must give prefill logits within
+   1e-4 · (1 + max|logit|) and the same greedy tokens up to the first step
+   whose top-2 margin in the dense run is below 1e-3 · max|logit|.  Then,
+   in bfloat16 (the config's compute dtype): the prefill and decode times,
+   tokens/s, what a caller of one decode step waits, the card's busy time
+   of a prefill and of a decode step (``torch.profiler``), K2's share of
+   it and the card's idle share of what the caller waits; K2 per layer at
+   d = 4 and d = 512 against its bound, its plain version, the dense bf16
+   product and the PyTorch CSR product; peak device memory;
+7. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -49,6 +68,7 @@ their size.  Where no cancellation happens this is rtol = atol = tol.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -63,10 +83,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 DEVICE = "cuda"
 SEED = 0
 D_SPMM = 64
 FP32_TOL, BF16_TOL, MAIN_TOL = 1e-5, 3e-2, 1e-4
+# the serve phase: granite-3-2b with the RgCSR FFN
+SERVE_ARCH = "granite-3-2b"
+SERVE_SPARSITY = dict(enabled=True, density=0.25, group_size=128,
+                      impl="kernel")
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 128, 32, 256
+LOGIT_TOL, MARGIN_TOL = 1e-4, 1e-3
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -152,6 +179,68 @@ def ell_head_csr(a, k1: int):
     return sp.csr_matrix((a.data[keep], a.indices[keep], ptr), shape=a.shape)
 
 
+def dense_equivalent(layer):
+    """W (d_out, d_in) float32 of a ``SparseLinear`` layer, from its
+    slot-major arrays (slot row k of group g holds W[g·G + lane,
+    columns[k, lane]])."""
+    import torch
+    s, g = layer.values2d.shape
+    rows = (layer.chunk_group.long().repeat_interleave(8)[:, None] * g
+            + torch.arange(g, device=layer.values2d.device)).reshape(-1)
+    w = torch.zeros((-(-layer.d_out // g) * g, layer.d_in),
+                    dtype=torch.float32, device=layer.values2d.device)
+    w.index_put_((rows, layer.columns2d.reshape(-1).long()),
+                  layer.values2d.detach().reshape(-1).float(),
+                  accumulate=True)
+    return w[: layer.d_out]
+
+
+def device_kernels(fn, calls: int):
+    """``torch.profiler`` over ``calls`` calls of ``fn`` (after one
+    warmup): per kernel name, launches and device µs per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue                       # host-side ops and API calls
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        out[ev.key] = (ev.count / calls, us / calls)
+    if not out:
+        raise RuntimeError("torch.profiler recorded no device kernel")
+    return out
+
+
+def greedy_trace(model, tokens, s_max: int, n_new: int, vocab: int):
+    """Greedy decoding of ``model`` (prefill + ``n_new - 1`` decode steps)
+    with, per step, the tokens, the smallest top-2 logit margin over the
+    batch and the largest |logit|."""
+    import torch
+    toks, margins, peaks = [], [], []
+    with torch.inference_mode():
+        logits, caches = model.prefill({"tokens": tokens}, s_max)
+        for step in range(n_new):
+            last = logits[:, -1, :vocab].float()
+            top2 = torch.topk(last, 2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).min().item())
+            peaks.append(last.abs().max().item())
+            tok = last.argmax(-1).int()[:, None]
+            toks.append(tok)
+            if step + 1 < n_new:
+                logits, caches = model.decode_step(caches, tok)
+    return torch.cat(toks, 1).cpu().numpy(), margins, peaks
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -167,6 +256,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SparsityConfig
     from repro_torch.core import COO, ELLPACK, from_csr, spmm, spmv
     from repro_torch.core.timing import time_us
     from repro_torch.kernels import (PLAN_CACHE, _build, launch_counts, ops,
@@ -176,6 +267,10 @@ def main() -> int:
                                                 rgcsr_spmm_plain)
     from repro_torch.kernels.rgcsr_spmv import (rgcsr_spmv_launch,
                                                 rgcsr_spmv_plain)
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import init_params
+    from repro_torch.models.spec import init_from_spec
+    from repro_torch.serve import Engine, ServeConfig
 
     dev = torch.device(DEVICE)
     failures = []
@@ -371,6 +466,25 @@ def main() -> int:
                  xm["raj1_full"], torch.bfloat16, BF16_TOL, piece_rows=p)
         k2_check(f"raj1_full adaptive spill64 pieces{p} d{D_SPMM} fp32",
                  raj_adapt, xm["raj1_full"], piece_rows=p)
+    # K2 at the serving widths, on one w_out layer of the served model's
+    # shape (its own draw: the model's layers come in phase 6)
+    serve_cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                                    sparsity=SparsityConfig(**SERVE_SPARSITY))
+    w_params = init_from_spec(
+        ffn_mod.sparse_linear_spec(serve_cfg, serve_cfg.d_ff,
+                                   serve_cfg.d_model),
+        torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    w_plan = ops.plan_from_params(w_params, torch.float32,
+                                  d_out=serve_cfg.d_model,
+                                  d_in=serve_cfg.d_ff, group_size=128)
+    # K2's d: decode of one row and of the batch, the batch's prefill
+    for d in (1, SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT):
+        xw = torch.from_numpy(rng.standard_normal((serve_cfg.d_ff, d))
+                              .astype(np.float32)).to(dev)
+        k2_check(f"granite w_out d{d} fp32", w_plan, xw)
+        k2_check(f"granite w_out d{d} bf16", w_plan, xw, torch.bfloat16,
+                 BF16_TOL, key=f"w_out d{d}")
+    del w_params, w_plan
     log(f"phase 3 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. the main path
@@ -441,8 +555,8 @@ def main() -> int:
         (``cold=True``) — see ``core/timing.py``."""
         return time_us(fn, calls=calls, device=dev, **kw) / 1e3
 
-    def bound(nbytes, flops):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    def bound(nbytes, flops, peak=FP32_FLOPS_PER_S):
+        tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
         return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
 
     def library_times(a, operand, calls):
@@ -590,6 +704,233 @@ def main() -> int:
     call_line(f"rgcsr_spmm raj1_full adaptive spill64 d{D_SPMM}",
               lambda: ops.rgcsr_spmm(p, xmr), 20)
     log(f"phase 5 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 6. serve granite-3-2b with the RgCSR FFN through K2
+    t0 = time.perf_counter()
+    tag = f"[{smi}]"
+    if torch.backends.cuda.matmul.allow_tf32:
+        failures.append("TF32 matmuls are on: the fp32 check needs them off")
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_layers = serve_cfg.n_layers
+    tree = init_params(serve_cfg,
+                       torch.Generator(device=dev).manual_seed(SEED))
+    sc = ServeConfig(max_seq=SERVE_MAX_SEQ)
+    engine = Engine(serve_cfg, sc, params=tree, device=dev)
+    torch.cuda.synchronize()
+    sparse_layers = [b.ffn.w_out for b in engine.model.layers]
+    log(f"serve: {serve_cfg.name} {n_layers} layers, d_model "
+        f"{serve_cfg.d_model}, d_ff {serve_cfg.d_ff}, vocab {serve_cfg.vocab}"
+        f", {engine.model.n_params()} parameters, w_out in RgCSR (density "
+        f"{serve_cfg.sparsity.density}, G {serve_cfg.sparsity.group_size}, "
+        f"{sparse_layers[0].values2d.shape[0]} slot rows); init and "
+        f"{engine.plans_warmed} plans in {time.perf_counter() - t0:.1f} s")
+    if engine.plans_warmed != n_layers:
+        failures.append(f"serve: {engine.plans_warmed} plans warmed, want "
+                        f"{n_layers}")
+    prompts = np.random.default_rng(SEED).integers(
+        0, serve_cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    tokens = torch.from_numpy(prompts).to(dev)
+    engine.generate(prompts, SERVE_NEW)        # warm-up (casts, work lists)
+
+    # the main path: K2 launches per layer and token, counted by width
+    widths = collections.Counter()
+
+    def count_width(module, args):
+        widths[args[0].numel() // args[0].shape[-1]] += 1
+
+    hooks = [lay.register_forward_pre_hook(count_width)
+             for lay in sparse_layers]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = engine.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    serve_counts = launch_counts()
+    for h in hooks:
+        h.remove()
+    want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_layers * SERVE_NEW,
+                   "ell_spmv": 0}
+    want_widths = {SERVE_BATCH * SERVE_PROMPT: n_layers,
+                   SERVE_BATCH: n_layers * (SERVE_NEW - 1)}
+    builds = {lay.plan_builds for lay in sparse_layers}
+    log(f"serve main path: generate {SERVE_BATCH} x {SERVE_PROMPT} tokens, "
+        f"{SERVE_NEW} new: launch counts {serve_counts}, K2 calls by width "
+        f"{dict(widths)}, plan builds per layer {sorted(builds)}")
+    if serve_counts != want_counts:
+        failures.append(f"serve launch counts {serve_counts}, want "
+                        f"{want_counts}")
+    if dict(widths) != want_widths:
+        failures.append(f"serve K2 calls by width {dict(widths)}, want "
+                        f"{want_widths}")
+    if builds != {1}:
+        failures.append(f"serve: plan builds per layer {sorted(builds)}")
+    if out.shape != (SERVE_BATCH, SERVE_NEW) or not (
+            (out >= 0) & (out < serve_cfg.vocab)).all():
+        failures.append(f"serve: tokens of shape {out.shape} outside the "
+                        f"vocab")
+
+    # float32 (the KV cache too): the same weights through K2 against
+    # w_out as dense matmuls
+    t1 = time.perf_counter()
+    cfg32 = dataclasses.replace(serve_cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    eng32 = Engine(cfg32, sc, params=tree, device=dev)
+    dense_tree = dict(tree, layers=[
+        dict(layer, ffn=dict(layer["ffn"], w_out={
+            "kernel": dense_equivalent(lay).T.contiguous()}))
+        for layer, lay in zip(tree["layers"], sparse_layers)])
+    eng32d = Engine(dataclasses.replace(cfg32, sparsity=SparsityConfig()),
+                    sc, params=dense_tree, device=dev)
+    with torch.inference_mode():
+        ls = eng32.model.prefill({"tokens": tokens}, SERVE_MAX_SEQ)[0]
+        ld = eng32d.model.prefill({"tokens": tokens}, SERVE_MAX_SEQ)[0]
+    ls, ld = (v[..., :serve_cfg.vocab].float() for v in (ls, ld))
+    peak_logit = ld.abs().max().item()
+    err = (ls - ld).abs().max().item()
+    ok = bool(torch.isfinite(ls).all()) and err <= LOGIT_TOL * (1 + peak_logit)
+    log(f"serve fp32 prefill logits, K2 vs dense w_out: max_abs_err "
+        f"{err:.3e}, max|logit| {peak_logit:.3f} (tol {LOGIT_TOL:g} · (1 + "
+        f"max|logit|)) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("serve fp32 prefill logits")
+    got32 = eng32.generate(prompts, SERVE_NEW)
+    want32, margins, peaks = greedy_trace(eng32d.model, tokens,
+                                          SERVE_MAX_SEQ, SERVE_NEW,
+                                          serve_cfg.vocab)
+    close = [i for i, (m, p) in enumerate(zip(margins, peaks))
+             if m < MARGIN_TOL * p]
+    upto = close[0] if close else SERVE_NEW
+    same = bool((got32[:, :upto] == want32[:, :upto]).all())
+    log(f"serve fp32 greedy tokens, K2 vs dense w_out: identical through "
+        f"step {upto} of {SERVE_NEW}: {same}; "
+        + (f"first step with a top-2 margin below {MARGIN_TOL:g} · "
+           f"max|logit|: {upto} (margin {margins[upto]:.3e}, max|logit| "
+           f"{peaks[upto]:.3f}); " if close else "no top-2 margin below "
+           f"{MARGIN_TOL:g} · max|logit|; ")
+        + f"smallest margin {min(margins):.3e}; all {SERVE_NEW} steps "
+        f"identical: {bool((got32 == want32).all())}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    if not same:
+        failures.append("serve fp32 greedy tokens")
+    del eng32, eng32d, dense_tree, ls, ld
+
+    # bfloat16 times: prefill, generate, one decode step
+    with torch.inference_mode():
+        def prefill():
+            return engine.model.prefill({"tokens": tokens}, SERVE_MAX_SEQ)
+
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = prefill()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        prefill_ms = float(np.median(walls)) * 1e3
+        finite = bool(torch.isfinite(logits[..., :serve_cfg.vocab]).all())
+        decode_ms = (gen_s * 1e3 - prefill_ms) / (SERVE_NEW - 1)
+        log(f"serve bf16: prefill {prefill_ms:.3f} ms ({SERVE_BATCH} x "
+            f"{SERVE_PROMPT} tokens), generate {gen_s * 1e3:.3f} ms for "
+            f"{SERVE_NEW} new tokens, decode {decode_ms:.3f} ms per token, "
+            f"{SERVE_BATCH * SERVE_NEW / gen_s:.1f} tokens/s; prefill logits "
+            f"finite: {finite} {tag}")
+        if not finite:
+            failures.append("serve bf16 prefill logits not finite")
+        # one decode step at context 128, each call writing the same slot
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+        index0 = caches[0]["index"].clone()
+
+        def step():
+            engine._decode([dict(c, index=index0) for c in caches], tok)
+
+        # The held timer does not hide the host of a decode step (~3,500
+        # launches): its reading came out near what a caller waits, far
+        # above the card's busy time (PERF.md §7).  The card's time of a
+        # step is the profiler's busy time below.
+        step_wait, step_held = ms(step, 5), ms(step, 1, hold=True)
+        step_host = host_ms(step, 5)
+        log(f"serve bf16 decode step: caller waits {step_wait:.3f} ms, held "
+            f"timer {step_held:.3f} ms (not the card's time, see the "
+            f"profiler's), host enqueue "
+            f"{step_host:.3f} ms {tag}")
+        for what, fn, calls in (("prefill", prefill, 2),
+                                ("decode step", step, 5)):
+            k = device_kernels(fn, calls)
+            busy = sum(us for _, us in k.values())
+            k2 = sum(us for name, (_, us) in k.items()
+                     if "rgcsr_spmm" in name or "combine_partials" in name)
+            wall = prefill_ms if what == "prefill" else step_wait
+            idle = 100 * (1 - busy / 1e3 / wall)
+            top = sorted(k.items(), key=lambda kv: -kv[1][1])[:4]
+            log(f"serve bf16 {what} (profiler, {calls} calls): "
+                f"{sum(n for n, _ in k.values()):.0f} kernels, card busy "
+                f"{busy / 1e3:.3f} ms per call, K2 {k2 / 1e3:.3f} ms "
+                f"({100 * k2 / busy:.1f} %), idle share of the "
+                f"{wall:.3f} ms a caller waits {idle:.1f} %; largest: "
+                + "; ".join(f"{name[:60]} x{n:.0f} {us / 1e3:.3f} ms"
+                            for name, (n, us) in top) + f" {tag}")
+
+    # K2 per layer at the serving widths, bf16, on layer 0's kept plan
+    lay = sparse_layers[0]
+    plan = lay.plan_for(torch.bfloat16)
+    w32 = dense_equivalent(lay)
+    w16 = w32.bfloat16()
+    live, real = live_slots(plan)
+    for d in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT):
+        xk = torch.from_numpy(rng.standard_normal((serve_cfg.d_ff, d))
+                              .astype(np.float32)).to(dev, torch.bfloat16)
+        run = lambda: rgcsr_spmm_launch(plan, xk)   # noqa: E731
+        nbytes = (live * (2 + 4) + xk.nbytes + plan.n_rows * d * 2
+                  + metadata_bytes(plan, plan.group_size * d * 4,
+                                   "rgcsr_spmm"))
+        flops = 2 * real * d
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        lib = {}
+        for ltag, a_csr, xl in (("bf16", w16, xk),
+                                ("fp32", w32, xk.float())):
+            try:
+                a_csr = a_csr.to_sparse_csr()
+                lib[ltag] = (ms(lambda: a_csr @ xl, 10, hold=True),
+                             ms(lambda: a_csr @ xl, 10, cold=True))
+            except RuntimeError as err:     # a yardstick only
+                log(f"library csr {ltag}: {err}")
+            del a_csr
+        lib_tag = "bf16" if "bf16" in lib else "fp32"
+        e = {"name": f"rgcsr_spmm@{SERVE_ARCH} w_out d{d} bf16",
+             "route": "cuda", "source": KERNEL_META["rgcsr_spmm"][0],
+             "replaces": KERNEL_META["rgcsr_spmm"][1],
+             "launches": widths[d],
+             "max_abs_err": errs[("rgcsr_spmm", f"w_out d{d}")],
+             "ms": ms(run, 20, hold=True),
+             "cold_ms": ms(run, 20, cold=True),
+             "wait_ms": ms(run, 20),
+             "plain_ms": ms(lambda: rgcsr_spmm_plain(
+                 plan.values2d, plan.columns2d, plan.step_group, xk,
+                 n_groups=plan.n_groups), 2, hold=True),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "cuda_core_bound_ms": bound(nbytes, flops)[0],
+             "library_ms": lib[lib_tag][0] if lib else None,
+             "library_cold_ms": lib[lib_tag][1] if lib else None,
+             "library_dtype": lib_tag if lib else None,
+             "dense_bf16_ms": ms(lambda: w16 @ xk, 20, hold=True),
+             "dense_bf16_cold_ms": ms(lambda: w16 @ xk, 20, cold=True)}
+        log(f"time {e['name']}: kernel {e['ms']:.4f} ms (cold "
+            f"{e['cold_ms']:.4f}, caller waits {e['wait_ms']:.4f}), plain "
+            f"{e['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{e['cuda_core_bound_ms']:.4f} ms at the fp32 CUDA-core rate), "
+            f"csr {lib_tag} {e['library_ms']} ms (cold "
+            f"{e['library_cold_ms']}), dense bf16 matmul "
+            f"{e['dense_bf16_ms']:.4f} ms (cold {e['dense_bf16_cold_ms']:.4f}"
+            f"), {e['launches']} launches in generate {tag}")
+        entries.append(e)
+    del w32, w16
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve peak device memory {peak / 2**30:.2f} GiB ({held_before / 2**30:.2f} GiB held by the earlier phases) "
+        f"{tag}; phase 6 in {time.perf_counter() - t0:.1f} s")
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:

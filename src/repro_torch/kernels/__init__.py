@@ -18,8 +18,10 @@ from repro_torch.kernels.ops import (  # noqa: F401
     make_ell_plan,
     make_plan,
     plan_from_numpy,
+    plan_from_params,
     rgcsr_spmm,
     rgcsr_spmv,
+    warm_plans_from_params,
 )
 
 

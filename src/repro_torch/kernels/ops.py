@@ -46,7 +46,8 @@ from repro_torch.kernels.rgcsr_spmv import (CHUNKS_PER_STEP_CHOICES, LANES,
 
 __all__ = ["RgCSRPlan", "make_plan", "rgcsr_spmv", "rgcsr_spmm",
            "EllPlan", "make_ell_plan", "ell_spmv", "plan_from_numpy",
-           "PlanCache", "PLAN_CACHE", "get_plan", "WorkList", "SEGMENT"]
+           "PlanCache", "PLAN_CACHE", "get_plan", "WorkList", "SEGMENT",
+           "plan_from_params", "warm_plans_from_params"]
 
 # Lanes of one warp: the unit in which seg_slots counts live slot rows.
 SEGMENT = 32
@@ -687,6 +688,51 @@ def rgcsr_spmm(plan: RgCSRPlan, x, *, d_tile: int = LANES):
     if plan.ordering != "adaptive":
         return y[: plan.n_rows]
     return _adaptive_finish_spmm(y, x, plan)
+
+
+# ---------------------------------------------------------------------------
+# Plans over SparseLinear parameters (serving path)
+# ---------------------------------------------------------------------------
+
+
+def plan_from_params(params, dtype, *, d_out: int, d_in: int,
+                     group_size: int) -> RgCSRPlan:
+    """RgCSRPlan over SparseLinear arrays — no repack: the parameters
+    already hold the kernels' slot-major layout at ``chunks_per_step=1``
+    (``chunk_group`` is the step table's ``step_group``, ``chunk_first``
+    its ``step_first``), with ``values2d`` in ``dtype``.
+
+    Built anew at every call, ``group_step_ptr`` (a host round trip) and
+    ``seg_slots`` included: the caller keeps the plan —
+    ``models.ffn.SparseLinear`` builds one per layer and compute dtype.
+    The reference memoizes on the columns array's ``id``, which a fresh
+    tensor view per call would never hit.
+    """
+    values = params["values2d"]
+    if values.dtype != dtype:               # no copy at the same dtype
+        values = values.to(dtype)
+    return RgCSRPlan(
+        values2d=values,
+        columns2d=params["columns2d"],
+        step_group=params["chunk_group"],
+        step_first=params["chunk_first"],
+        n_rows=d_out, n_cols=d_in, n_groups=-(-d_out // group_size),
+        group_size=group_size, chunks_per_step=1)
+
+
+def warm_plans_from_params(module, dtype=torch.float32) -> int:
+    """Build the kept K2 plan, at ``dtype``, of every SparseLinear layer in
+    ``module`` (a ``torch.nn.Module``: every submodule with a ``plan_for``
+    method), so that the first call of each layer builds nothing.  Returns
+    the number of plans warmed — one per layer, since the port holds one
+    module per layer where the reference stacks layers (and warms none)."""
+    warmed = 0
+    for m in module.modules():
+        plan_for = getattr(m, "plan_for", None)
+        if plan_for is not None:
+            plan_for(dtype)
+            warmed += 1
+    return warmed
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,352 @@
+"""Grouped-query attention (GQA/MHA/MQA) with a dense KV cache.
+
+The PyTorch counterpart of the GQA half of ``repro.models.attention``.
+Attention is plain tensor code in the reference (no Pallas kernel), and
+plain torch here; the arithmetic mirrors the reference's — logits in
+float32, masked positions set to ``-1e30`` before the softmax,
+probabilities cast to v's dtype — so that parity stays tight.
+
+Cache protocol (dense layout)::
+
+    cache = {"k": (B, S_max, H_kv, Dh), "v": ..., "index": int32[B]}
+
+``index`` is a per-slot vector: entry ``b`` counts the tokens already
+written for slot ``b``.  Windowed layers use a ring of ``window`` slots
+(position ``p`` at slot ``p % window``).  With ``kv_cache_dtype="int8"``
+the cache stores int8 values with per-token/head absmax scales
+(``k_scale``/``v_scale``).
+
+The reference's caches are immutable and every step returns new ones; here
+:func:`_cache_write` writes the new tokens into the cache's tensors in place
+(one slab per layer, never copied) and returns the dict with the advanced
+index.  Paged caches, MLA and cross-attention are not ported yet (ROADMAP
+queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models.layers import Dense, dense_spec, rope
+
+__all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache", "gqa_apply",
+           "shard_attn_qkv", "GQA"]
+
+# At/above this many kv positions a multi-token attend takes the chunked
+# online-softmax path — the same math with O(chunk²) live scores instead of
+# O(S·T).
+_FLASH_KV_THRESHOLD = 4096
+_Q_CHUNK = 512
+_K_CHUNK = 1024
+
+_NEG = -1e30
+
+
+def _as_tensor(v, device):
+    return v if isinstance(v, torch.Tensor) else torch.tensor(v, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskInfo:
+    """Lazy attention-mask description: the mask is computed per block.
+
+    ``q_offset`` and ``valid_len`` are either scalars (all slots at the
+    same position) or ``(B,)`` tensors (per-slot positions); with a vector
+    the masks gain a leading batch dim.
+    """
+    causal: bool = True
+    window: Optional[int] = None
+    q_offset: object = 0            # scalar or (B,)
+    valid_len: object = None        # kv positions >= valid_len are masked
+    kv_len: Optional[int] = None    # true kv length (for padding)
+
+    def q_positions(self, base):
+        """Absolute query positions: base (qc,) + q_offset -> (qc,) or
+        (B, qc) when the offset is per-slot."""
+        off = _as_tensor(self.q_offset, base.device)
+        return base + (off[:, None] if off.dim() else off)
+
+    def block(self, q_pos, k_pos):
+        """q_pos: (qc,) or (B, qc); k_pos: (kc,) ->
+        bool (qc, kc) or (B, qc, kc)."""
+        qp = q_pos[..., :, None]
+        kp = k_pos[None, :]
+        m = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                       dtype=torch.bool, device=k_pos.device)
+        if self.causal:
+            m &= kp <= qp
+        if self.window is not None:
+            m &= kp > qp - self.window
+        if self.valid_len is not None:
+            vl = _as_tensor(self.valid_len, k_pos.device)
+            m &= kp < (vl[:, None, None] if vl.dim() else vl)
+        if self.kv_len is not None:
+            m &= kp < self.kv_len
+        return m
+
+
+def attend(q, k, v, mask=None, *, mask_info: Optional[MaskInfo] = None,
+           scale: Optional[float] = None):
+    """q: (B,S,Hq,D)  k/v: (B,T,Hkv,D|Dv).
+
+    Pass either an explicit (S,T) / per-slot (B,S,T) bool ``mask`` or a
+    :class:`MaskInfo`.  Grouped heads: Hq = G·Hkv — q is viewed as
+    (B,S,Hkv,G,D) so each kv head serves G query heads without repeating
+    k/v.
+    """
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, s, hkv, g, d)
+    scale = scale if scale is not None else d ** -0.5
+    if s > 1 and t >= _FLASH_KV_THRESHOLD:
+        if mask_info is None:
+            raise ValueError("long-sequence attend() needs a MaskInfo "
+                             "(explicit masks would materialize S×T)")
+        out = _flash_attend(qg, k, v, mask_info, scale)
+        return out.reshape(b, s, hq, v.shape[-1])
+    if mask is None:
+        dev = q.device
+        mask = mask_info.block(
+            mask_info.q_positions(torch.arange(s, device=dev)),
+            torch.arange(t, device=dev))
+    maskb = mask[None, None, None] if mask.dim() == 2 \
+        else mask[:, None, None]                    # (B?,1,1,S,T)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float()) * scale
+    logits = torch.where(maskb, logits, logits.new_full((), _NEG))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", probs.to(v.dtype), v)
+    return out.reshape(b, s, hq, v.shape[-1])
+
+
+def _flash_attend(qg, k, v, mi: MaskInfo, scale,
+                  q_chunk=_Q_CHUNK, k_chunk=_K_CHUNK):
+    """Exact chunked attention (the FlashAttention recurrence in plain
+    torch): a loop over query chunks, an inner loop over kv chunks with the
+    online (m, l, acc) softmax carry in float32.
+
+    qg: (B,S,Hkv,G,D); k/v: (B,T,Hkv,D/Dv).
+    """
+    b, s, hkv, g, d = qg.shape
+    t = k.shape[1]
+    dv = v.shape[-1]
+    dev = qg.device
+    qc, kc = min(q_chunk, s), k_chunk
+    s_pad, t_pad = (-s) % qc, (-t) % kc
+    if t_pad and mi.kv_len is None:
+        mi = dataclasses.replace(mi, kv_len=t)
+    if s_pad:
+        qg = torch.nn.functional.pad(qg, (0, 0, 0, 0, 0, 0, 0, s_pad))
+    if t_pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, t_pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, t_pad))
+    nq, nk = (s + s_pad) // qc, (t + t_pad) // kc
+    neg_inf = torch.tensor(float("-inf"), device=dev)
+
+    outs = []
+    for qi in range(nq):
+        q_blk = qg[:, qi * qc:(qi + 1) * qc].float()       # (B,qc,hkv,g,d)
+        q_pos = mi.q_positions(qi * qc + torch.arange(qc, device=dev))
+        m = torch.full((b, hkv, g, qc), float("-inf"), device=dev)
+        l = torch.zeros((b, hkv, g, qc), device=dev)
+        acc = torch.zeros((b, hkv, g, qc, dv), device=dev)
+        for kj in range(nk):
+            k_blk = k[:, kj * kc:(kj + 1) * kc].float()
+            v_blk = v[:, kj * kc:(kj + 1) * kc].float()
+            k_pos = kj * kc + torch.arange(kc, device=dev)
+            mask_blk = mi.block(q_pos, k_pos)
+            mask_b = mask_blk[None, None, None] if mask_blk.dim() == 2 \
+                else mask_blk[:, None, None]
+            logits = torch.einsum("bqhgd,bkhd->bhgqk", q_blk, k_blk) * scale
+            logits = torch.where(mask_b, logits, neg_inf)
+            m_new = torch.maximum(m, logits.amax(-1))
+            # guard -inf rows (fully masked so far): exp(-inf - -inf)
+            m_safe = torch.where(torch.isfinite(m_new), m_new,
+                                 m_new.new_zeros(()))
+            p = torch.exp(logits - m_safe[..., None])
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                                m.new_zeros(()))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, v_blk)
+            m = m_new
+        out = torch.where(l[..., None] > 0,
+                          acc / torch.clamp(l[..., None], min=1e-30),
+                          acc.new_zeros(()))               # (B,hkv,g,qc,dv)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B,qc,hkv,g,dv)
+    out = torch.cat(outs, dim=1)
+    return out[:, :s].to(v.dtype)
+
+
+def _ring_mask(s: int, window: int, index):
+    """Decode-time mask over a ring of ``window`` slots: slot j holds the
+    newest position p ≡ j (mod window) with p <= index; valid iff written
+    (p >= 0).  ``index`` (B,) -> (B, 1, window)."""
+    assert s == 1
+    slots = torch.arange(window, device=index.device)
+    newest = index[:, None].long()
+    pos = newest - torch.remainder(newest - slots, window)
+    return (pos >= 0)[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# KV quantization helpers (int8 cache)
+# ---------------------------------------------------------------------------
+
+
+def _quantize(x):
+    amax = x.abs().amax(-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / 127.0
+    return torch.round(x / scale).to(torch.int8), scale.float()
+
+
+def _maybe_store(x, dtype: str):
+    if dtype == "int8":
+        return _quantize(x)
+    return x.to(getattr(torch, dtype)), None
+
+
+def _maybe_load(stored, scale, dtype):
+    if scale is not None:
+        return stored.to(dtype) * scale.to(dtype)
+    return stored.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+
+def shard_attn_qkv(cfg, q, k, v):
+    """The reference's activation-sharding hints for attention: the
+    identity without ``act_shard``.  The port runs on one card; sharded
+    activations come with the multi-device work (ROADMAP queue 1)."""
+    if cfg.act_shard and cfg.attn_shard_mode != "none":
+        raise NotImplementedError(
+            "activation sharding (cfg.act_shard) is not ported: the port "
+            "runs on one card (ROADMAP queue 1, row-sharded SpMV and the "
+            "multi-device work)")
+    return q, k, v
+
+
+def gqa_spec(cfg):
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "q": dense_spec(d, hq * dh, ("embed", "q_heads_x_dim"), bias=cfg.qkv_bias),
+        "k": dense_spec(d, hkv * dh, ("embed", "kv_heads_x_dim"), bias=cfg.qkv_bias),
+        "v": dense_spec(d, hkv * dh, ("embed", "kv_heads_x_dim"), bias=cfg.qkv_bias),
+        "o": dense_spec(hq * dh, d, ("q_heads_x_dim", "embed")),
+    }
+
+
+def init_gqa_cache(cfg, batch: int, s_max: int, window: Optional[int] = None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    size = min(s_max, window) if window else s_max
+    kv_dtype = cfg.kv_cache_dtype
+    store = torch.int8 if kv_dtype == "int8" else getattr(torch, kv_dtype)
+    cache = {
+        "k": torch.zeros((batch, size, hkv, dh), dtype=store, device=device),
+        "v": torch.zeros((batch, size, hkv, dh), dtype=store, device=device),
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+    if kv_dtype == "int8":
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((batch, size, hkv, 1),
+                                      dtype=torch.float32, device=device)
+    return cache
+
+
+def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
+    """Write this call's kv (B, s, Hkv, Dh) at each slot's index, in place;
+    returns the dict with the index advanced by s."""
+    index = cache["index"]                   # (B,)
+    b, s = k_new.shape[:2]
+    ks, k_scale = _maybe_store(k_new, kv_dtype)
+    vs, v_scale = _maybe_store(v_new, kv_dtype)
+    cache = dict(cache)
+    new = {"k": ks, "v": vs}
+    if k_scale is not None:
+        new.update(k_scale=k_scale, v_scale=v_scale)
+    size = cache["k"].shape[1]
+    if window and s >= size:
+        # prefill longer than the ring: keep the last `size` tokens, rolled
+        # so that absolute position p lands at slot p % size.  Prefill rows
+        # share one length, so the shift is the same for every row.
+        shift = (s - size) % size
+        for name, t in new.items():
+            cache[name].copy_(torch.roll(t[:, -size:], shift, dims=1))
+    elif window and s == 1:
+        rows = torch.arange(b, device=index.device)
+        slot = torch.remainder(index.long(), size)    # per-slot ring position
+        for name, t in new.items():
+            cache[name][rows, slot] = t[:, 0]
+    else:
+        # per-slot start positions: row b writes index[b] .. index[b]+s-1
+        rows = torch.arange(b, device=index.device)[:, None]
+        pos = index.long()[:, None] + torch.arange(s, device=index.device)
+        for name, t in new.items():
+            cache[name][rows, pos] = t
+    cache["index"] = index + s
+    return cache
+
+
+def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
+              cache=None, window: Optional[int] = None):
+    """mode: causal | full (encoder).  With ``cache``: writes the new kv
+    at cache["index"] and attends over the whole (ring) buffer.  Returns
+    (y, new_cache) — new_cache is None when no cache was passed."""
+    if mode not in ("causal", "full"):
+        raise NotImplementedError(
+            f"attention mode {mode!r} (cross-attention) is not ported yet "
+            f"(ROADMAP queue 1, the enc-dec family)")
+    b, s, d = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = layer.q(x).reshape(b, s, hq, dh)
+    k = layer.k(x).reshape(b, s, hkv, dh)
+    v = layer.v(x).reshape(b, s, hkv, dh)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if cache is not None:
+        index = cache["index"]
+        new_cache = _cache_write(cache, k, v, cfg.kv_cache_dtype, window)
+        if window and s > 1:
+            # windowed prefill: attend over the in-flight (full-length) k/v
+            # with the window mask — the ring holds a rolled layout that
+            # only the s == 1 decode mask understands
+            q, k, v = shard_attn_qkv(cfg, q, k, v)
+            mi = MaskInfo(causal=True, window=window, q_offset=index)
+            y = attend(q, k, v, mask_info=mi)
+        else:
+            k = _maybe_load(new_cache["k"], new_cache.get("k_scale"), x.dtype)
+            v = _maybe_load(new_cache["v"], new_cache.get("v_scale"), x.dtype)
+            q, k, v = shard_attn_qkv(cfg, q, k, v)
+            t = k.shape[1]
+            if window and s == 1:
+                y = attend(q, k, v, _ring_mask(s, t, index))
+            else:
+                # prefill into an empty/partial cache: causal over written
+                mi = MaskInfo(causal=True, q_offset=index,
+                              valid_len=index + s)
+                y = attend(q, k, v, mask_info=mi)
+    else:
+        q, k, v = shard_attn_qkv(cfg, q, k, v)
+        mi = MaskInfo(causal=mode != "full", window=window)
+        y = attend(q, k, v, mask_info=mi)
+    y = layer.o(y.reshape(b, s, hq * dh))
+    return y, new_cache
+
+
+class GQA(nn.Module):
+    """One attention layer's projections (``q``, ``k``, ``v``, ``o``, each
+    a :class:`~repro_torch.models.layers.Dense`)."""
+
+    def __init__(self, params):
+        super().__init__()
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, Dense(params[name]))

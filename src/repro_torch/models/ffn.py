@@ -1,0 +1,248 @@
+"""Feed-forward blocks (gated SwiGLU/GeGLU, plain, squared-ReLU) and
+``SparseLinear``: the paper's RgCSR format as a weight store.
+
+The PyTorch counterpart of ``repro.models.ffn``.  ``SparseLinear`` keeps a
+pruned weight matrix ``W (d_out, d_in)`` in the RgCSR kernel plan's
+slot-major layout — ``values2d (S, G)`` and the frozen ``columns2d (S, G)``,
+``chunk_group``, ``chunk_first`` (one entry per 8 slot rows) — and computes
+``y = x @ Wᵀ``:
+
+- ``impl="kernel"``: through ``kernels.ops.rgcsr_spmm``, i.e. K2 — the CUDA
+  kernel on a card, its plain PyTorch version for CPU tensors.  The module
+  builds its :class:`~repro_torch.kernels.ops.RgCSRPlan` once (at load, by
+  ``Engine``, or at first use) and keeps it; the plan is rebuilt only when
+  the values tensor is replaced or written in place.  K2 skips slots that
+  look like padding — value 0 at column 0 — so a weight that is exactly 0
+  at column 0 is skipped too, which changes nothing while x is finite.
+- ``impl="ref"``: an ``index_add_`` segment sum over the slot-major storage,
+  the counterpart of the reference's ``segment_sum`` oracle.
+
+``ffn_apply_stacked`` (MoE experts) is not ported yet (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Dense, ParamModule, dense_spec
+from repro_torch.models.spec import P
+
+__all__ = ["ffn_spec", "ffn_apply", "gated_ffn_apply", "sparse_linear_spec",
+           "sparse_linear_init_mask", "sparse_linear_apply", "SparseLinear",
+           "FFN"]
+
+SUBLANES = 8
+
+
+def _activation(name: str):
+    if name == "silu":
+        return torch.nn.functional.silu
+    if name == "gelu":
+        # the reference's jax.nn.gelu defaults to the tanh approximation
+        return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
+    if name == "relu2":                      # Nemotron-4 squared ReLU
+        return lambda x: torch.square(torch.relu(x))
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def ffn_spec(cfg, d_ff: int | None = None):
+    d = cfg.d_model
+    d_ff = d_ff or cfg.d_ff
+    spec = {
+        "w_in": dense_spec(d, d_ff, ("embed", "mlp")),
+    }
+    if cfg.sparsity.enabled and "ffn" in cfg.sparsity.targets:
+        # the paper's technique in the LM: the FFN down-projection weight
+        # (d_model × d_ff) is stored in RgCSR with a frozen structure
+        spec["w_out"] = sparse_linear_spec(cfg, d_ff, d)
+    else:
+        spec["w_out"] = dense_spec(d_ff, d, ("mlp", "embed"))
+    if cfg.gated_ffn:
+        spec["w_gate"] = dense_spec(d, d_ff, ("embed", "mlp"))
+    return spec
+
+
+def ffn_apply(layer: "FFN", cfg, x):
+    act = _activation(cfg.activation)
+    h = layer.w_in(x)
+    if layer.w_gate is not None:
+        h = act(layer.w_gate(x)) * h
+    else:
+        h = act(h)
+    return layer.w_out(h)
+
+
+def gated_ffn_apply(layer: "FFN", cfg, x):
+    """Shared-expert FFN on flat tokens (w_in/w_gate/w_out)."""
+    act = _activation(cfg.activation)
+    return layer.w_out(act(layer.w_gate(x)) * layer.w_in(x))
+
+
+# ---------------------------------------------------------------------------
+# SparseLinear — RgCSR weights
+# ---------------------------------------------------------------------------
+
+
+def _sparse_dims(cfg, d_in: int, d_out: int):
+    """(G, n_groups, K): K slot rows per group, density·d_in rounded to
+    whole 8-row chunks."""
+    g = cfg.sparsity.group_size
+    n_groups = -(-d_out // g)
+    k = max(SUBLANES, int(round(cfg.sparsity.density * d_in)))
+    return g, n_groups, -(-k // SUBLANES) * SUBLANES
+
+
+def _chunk_tables(n_groups: int, k: int, device):
+    """chunk_group / chunk_first: group g owns chunks [g·K/8, (g+1)·K/8)."""
+    per = k // SUBLANES
+    group = torch.arange(n_groups, dtype=torch.int32,
+                         device=device).repeat_interleave(per)
+    first = torch.zeros(n_groups * per, dtype=torch.int32, device=device)
+    first[torch.arange(n_groups, device=device) * per] = 1
+    return group, first
+
+
+def sparse_linear_spec(cfg, d_in: int, d_out: int):
+    """Parameter spec for an RgCSR-stored weight matrix W ∈ (d_out, d_in).
+
+    Every group gets K = density·d_in slot rows (rounded to 8): static
+    shapes.  The structure buffers' inits draw each lane's K sorted columns
+    from the generator, so ``init_from_spec`` alone yields a valid layer.
+    """
+    g, n_groups, k = _sparse_dims(cfg, d_in, d_out)
+    s_total = n_groups * k
+
+    def init_columns(gen, shape, dtype, device):
+        # random sorted column sets per (group, lane), slot-major
+        scores = torch.rand((n_groups, g, d_in), generator=gen, device=device)
+        cols = torch.argsort(scores, dim=-1)[..., :k]
+        cols = torch.sort(cols, dim=-1).values.to(torch.int32)
+        return cols.transpose(-1, -2).reshape(s_total, g).contiguous()
+
+    def init_chunk_group(gen, shape, dtype, device):
+        return _chunk_tables(n_groups, k, device)[0]
+
+    def init_chunk_first(gen, shape, dtype, device):
+        return _chunk_tables(n_groups, k, device)[1]
+
+    n_chunks = s_total // SUBLANES
+    return {
+        "values2d": P((s_total, g), (None, "sparse_rows"), init="fan_in",
+                      scale=(d_in / max(1, k)) ** 0.5),  # variance-corrected
+        "columns2d": P((s_total, g), (None, "sparse_rows"),
+                       init=init_columns, dtype=torch.int32),
+        "chunk_group": P((n_chunks,), (None,), init=init_chunk_group,
+                         dtype=torch.int32),
+        "chunk_first": P((n_chunks,), (None,), init=init_chunk_first,
+                         dtype=torch.int32),
+    }
+
+
+def sparse_linear_init_mask(seed: int, cfg, d_in: int, d_out: int,
+                            device="cuda"):
+    """The frozen structure buffers (columns2d, chunk_group, chunk_first),
+    drawn on the host with numpy's generator from the integer ``seed``: the
+    reference draws the same columns from the same integer."""
+    g, n_groups, k = _sparse_dims(cfg, d_in, d_out)
+    rng = np.random.default_rng(int(seed))
+    cols = np.stack([
+        np.sort(rng.choice(d_in, size=k, replace=False)).astype(np.int32)
+        for _ in range(n_groups * g)
+    ])                                                    # (n_groups*g, k)
+    cols = cols.reshape(n_groups, g, k).transpose(0, 2, 1)  # slot-major
+    columns2d = torch.from_numpy(
+        np.ascontiguousarray(cols.reshape(n_groups * k, g))).to(device)
+    return (columns2d, *_chunk_tables(n_groups, k, columns2d.device))
+
+
+def sparse_linear_apply(params, cfg, x, d_out: int, *, plan=None):
+    """y = x @ Wᵀ with W in RgCSR. x: (..., d_in) -> (..., d_out).
+
+    ``params`` maps ``values2d``/``columns2d``/``chunk_group``/
+    ``chunk_first`` to tensors.  With ``impl="kernel"``, ``plan`` is the
+    kept plan (:class:`SparseLinear` passes its own); without one a plan is
+    built for this call.  K2 reads X as a contiguous ``(d_in, T)``: the
+    transposed view below is copied once, by ``ops.rgcsr_spmm``.
+    """
+    g = cfg.sparsity.group_size
+    lead = x.shape[:-1]
+    d_in = x.shape[-1]
+    xt = x.reshape(-1, d_in).T                            # (d_in, T)
+    n_groups = -(-d_out // g)
+    if cfg.sparsity.impl_is_kernel():
+        if plan is None:
+            plan = ops.plan_from_params(params, x.dtype, d_out=d_out,
+                                        d_in=d_in, group_size=g)
+        y = ops.rgcsr_spmm(plan, xt)                      # (d_out, T)
+    else:
+        # segment sum over the slot-major storage
+        vals = params["values2d"].to(x.dtype).reshape(-1)
+        cols = params["columns2d"].reshape(-1).long()
+        lanes = torch.arange(g, device=x.device)
+        group_of_slotrow = params["chunk_group"].long().repeat_interleave(
+            SUBLANES)
+        rows = (group_of_slotrow[:, None] * g + lanes).reshape(-1)
+        gathered = xt[cols]                               # (S*G, T)
+        y = torch.zeros((n_groups * g, xt.shape[1]), dtype=x.dtype,
+                        device=x.device)
+        y.index_add_(0, rows, vals[:, None] * gathered)
+    return y[:d_out].T.reshape(*lead, d_out)
+
+
+class SparseLinear(ParamModule):
+    """One RgCSR-stored weight: ``values2d`` a parameter, ``columns2d``,
+    ``chunk_group`` and ``chunk_first`` buffers, and the kernel plan kept
+    per compute dtype (``plan_builds`` counts the plans built)."""
+
+    def __init__(self, params, cfg, *, d_in: int, d_out: int):
+        super().__init__(params)
+        self.cfg, self.d_in, self.d_out = cfg, d_in, d_out
+        self._plans = {}
+        self.plan_builds = 0
+
+    def plan_for(self, dtype) -> "ops.RgCSRPlan":
+        """The K2 plan at compute dtype ``dtype``, built at the first call
+        and kept until ``values2d`` is replaced or written in place."""
+        src = self.values2d
+        version = 0 if src.is_inference() else src._version
+        hit = self._plans.get(dtype)
+        if hit is not None and hit[0] is src and hit[1] == version:
+            return hit[2]
+        values = self.cast("values2d", dtype)
+        plan = ops.plan_from_params(
+            {"values2d": values, "columns2d": self.columns2d,
+             "chunk_group": self.chunk_group,
+             "chunk_first": self.chunk_first}, dtype,
+            d_out=self.d_out, d_in=self.d_in,
+            group_size=self.cfg.sparsity.group_size)
+        self._plans[dtype] = (src, version, plan)
+        self.plan_builds += 1
+        return plan
+
+    def forward(self, x):
+        params = {"values2d": self.cast("values2d", x.dtype),
+                  "columns2d": self.columns2d,
+                  "chunk_group": self.chunk_group,
+                  "chunk_first": self.chunk_first}
+        plan = (self.plan_for(x.dtype)
+                if self.cfg.sparsity.impl_is_kernel() else None)
+        return sparse_linear_apply(params, self.cfg, x, self.d_out,
+                                   plan=plan)
+
+
+class FFN(nn.Module):
+    """``w_in``, optional ``w_gate`` (Dense) and ``w_out``: a Dense, or a
+    :class:`SparseLinear` when the subtree holds RgCSR arrays."""
+
+    def __init__(self, params, cfg):
+        super().__init__()
+        self.w_in = Dense(params["w_in"])
+        self.w_gate = Dense(params["w_gate"]) if "w_gate" in params else None
+        if "values2d" in params["w_out"]:
+            d_ff = params["w_in"]["kernel"].shape[1]
+            self.w_out = SparseLinear(params["w_out"], cfg, d_in=d_ff,
+                                      d_out=cfg.d_model)
+        else:
+            self.w_out = Dense(params["w_out"])

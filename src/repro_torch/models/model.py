@@ -1,0 +1,224 @@
+"""LanguageModel: the public model API over the layer stack.
+
+The PyTorch counterpart of ``repro.models.model`` for decoder-only text
+models.  A :class:`LanguageModel` holds its parameters (the reference
+passes a parameter tree to every call):
+
+* ``spec()`` / ``init(generator)`` — the parameter spec and a tree of
+  tensors drawn from it (also :func:`model_spec` / :func:`init_params`,
+  which need no model); ``n_params()``.
+* ``forward(batch)``                — logits for a full sequence.
+* ``prefill(batch, s_max)``         — last-position logits + filled caches.
+* ``decode_step(caches, tokens)``   — one token; the serving step.
+
+Parameter tree (the port's layout)::
+
+    {"embed": {"table"}, "final_norm": {"scale"},
+     "layers": [block tree, one per layer], ["lm_head": {"kernel"}]}
+
+:func:`params_from_numpy` builds it from the reference's tree, which stacks
+the body layers on a leading axis.  Vision and audio frontends, the
+encoder-decoder family and multi-token prediction are not ported yet
+(ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.formats import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import _NEG
+from repro_torch.models.layers import (Dense, Embed, RMSNorm, dense_spec,
+                                       embed_spec, rmsnorm_spec,
+                                       rope_positions)
+from repro_torch.models.spec import count_params, init_from_spec
+
+__all__ = ["LanguageModel", "model_spec", "init_params", "params_from_numpy"]
+
+
+def _check_supported(cfg) -> None:
+    missing = []
+    if cfg.frontend != "none":
+        missing.append(f"the {cfg.frontend} frontend")
+    if cfg.enc_dec:
+        missing.append("the encoder-decoder family")
+    if cfg.mtp_depth:
+        missing.append("multi-token prediction")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
+            f"queue 1, the LM model stack)")
+
+
+def model_spec(cfg) -> Dict[str, Any]:
+    """The parameter spec of the whole model, in the port's layout."""
+    _check_supported(cfg)
+    spec: Dict[str, Any] = {
+        # 1/sqrt(d) embedding init keeps tied-head logits O(1); rows padded
+        # to cfg.padded_vocab (logits past cfg.vocab are masked)
+        "embed": embed_spec(cfg.padded_vocab, cfg.d_model,
+                            scale=cfg.d_model ** -0.5),
+        "final_norm": rmsnorm_spec(cfg.d_model),
+        "layers": tfm.stack_spec(cfg),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = dense_spec(cfg.d_model, cfg.padded_vocab,
+                                     ("embed", "vocab"))
+    return spec
+
+
+def init_params(cfg, generator: torch.Generator):
+    """A parameter tree for ``cfg`` drawn from ``generator``, on its
+    device, in ``cfg.param_dtype``."""
+    return init_from_spec(model_spec(cfg), generator,
+                          dtype=getattr(torch, cfg.param_dtype),
+                          device=generator.device)
+
+
+class LanguageModel(nn.Module):
+    """A decoder-only LM holding its parameters.
+
+    ``params``: a parameter tree (see the module's note), e.g. from
+    :func:`params_from_numpy`; its tensors are used as they are, on their
+    device.  Without one, parameters are drawn from ``init`` with a
+    generator seeded ``seed`` on ``device``.
+    """
+
+    def __init__(self, cfg, params=None, *, device="cuda", seed: int = 0):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.compute_dtype = getattr(torch, cfg.dtype)
+        if params is None:
+            gen = torch.Generator(device=resolve_device(device))
+            params = init_params(cfg, gen.manual_seed(seed))
+        self.embed = Embed(params["embed"])
+        self.final_norm = RMSNorm(params["final_norm"])
+        self.layers = nn.ModuleList(
+            tfm.Block(p, cfg, kind)
+            for p, kind in zip(params["layers"], tfm.layer_kinds(cfg),
+                               strict=True))
+        self.lm_head = None if cfg.tie_embeddings else Dense(params["lm_head"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    # ------------------------------------------------------------------ spec
+    def spec(self) -> Dict[str, Any]:
+        return model_spec(self.cfg)
+
+    def init(self, generator: torch.Generator):
+        """A parameter tree drawn from ``generator``, on its device."""
+        return init_params(self.cfg, generator)
+
+    def n_params(self) -> int:
+        return count_params(self.spec())
+
+    # ------------------------------------------------------------- embedding
+    def _embed_sequence(self, batch):
+        return self.embed.lookup(batch["tokens"], self.compute_dtype)
+
+    def _logits(self, h):
+        if self.lm_head is None:
+            logits = self.embed.logits(h)
+        else:
+            logits = self.lm_head(h)
+        if self.cfg.padded_vocab != self.cfg.vocab:
+            logits[..., self.cfg.vocab:] = _NEG     # padding rows out
+        return logits
+
+    # ---------------------------------------------------------------- forward
+    def forward(self, batch, *, shape_kind: str = "train", mode: str = "eval"):
+        """Full-sequence forward: (logits, final hidden, aux)."""
+        x = self._embed_sequence(batch)
+        pos = rope_positions(x.shape[0], x.shape[1], device=x.device)
+        x, _, aux = tfm.stack_apply(self.layers, self.cfg, x, pos, mode=mode,
+                                    shape_kind=shape_kind)
+        h = self.final_norm(x)
+        return self._logits(h), h, aux
+
+    # -------------------------------------------------------------- serving
+    def init_cache(self, batch_size: int, s_max: int, *,
+                   shape_kind: str = "decode") -> List[Dict[str, Any]]:
+        """One dense KV cache per layer."""
+        return [tfm.init_block_cache(self.cfg, block.kind, batch_size, s_max,
+                                     shape_kind, device=self.device)
+                for block in self.layers]
+
+    def prefill(self, batch, s_max: int, *, shape_kind: str = "prefill"):
+        """Run the prompt through the stack, filling fresh caches.
+        Returns (last-position logits (B, 1, V), caches)."""
+        x = self._embed_sequence(batch)
+        caches = self.init_cache(x.shape[0], s_max, shape_kind=shape_kind)
+        pos = rope_positions(x.shape[0], x.shape[1], device=x.device)
+        x, caches, _ = tfm.stack_apply(self.layers, self.cfg, x, pos,
+                                       mode="prefill", shape_kind=shape_kind,
+                                       caches=caches)
+        h = self.final_norm(x)
+        return self._logits(h[:, -1:, :]), caches
+
+    def decode_step(self, caches, tokens, *, shape_kind: str = "decode"):
+        """One-token serve step. tokens: (B, 1). Returns (logits, caches);
+        the caches' kv tensors are written in place."""
+        x = self.embed.lookup(tokens, self.compute_dtype)
+        index = _cache_index(caches)               # (B,) per-slot positions
+        pos = index[:, None].expand(tokens.shape).to(torch.int32)
+        x, caches, _ = tfm.stack_apply(self.layers, self.cfg, x, pos,
+                                       mode="decode", shape_kind=shape_kind,
+                                       caches=caches)
+        return self._logits(self.final_norm(x)), caches
+
+
+def _cache_index(caches):
+    """The first layer's ``index`` (B,): all layers advance in lockstep."""
+    for cache in caches:
+        if isinstance(cache, dict) and "index" in cache:
+            return cache["index"]
+    raise ValueError("no layer cache holds an index")
+
+
+# ---------------------------------------------------------------------------
+# weights carried across from the reference
+# ---------------------------------------------------------------------------
+
+
+def _tensors(node, device, pick=lambda a: a):
+    if isinstance(node, dict):
+        return {k: _tensors(v, device, pick) for k, v in node.items()}
+    arr = np.array(pick(np.asarray(node)))       # a writable copy
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_numpy(cfg, tree, *, device="cuda"):
+    """The port's parameter tree from the reference's, as
+    ``LanguageModel.init`` returns it and ``jax.device_get`` brings it to
+    numpy: ``{"embed", "final_norm", "stack": {"prefix", "body"}}``, with
+    each body layer's arrays stacked on a leading axis of
+    ``cfg.pattern_repeats``.  The only change of layout in the port: the
+    body is unstacked into one tree per layer, in the reference's scan
+    order (repeat-major, then pattern position).  Dense kernels keep the
+    reference's ``(d_in, d_out)`` layout."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    extra = set(tree) - {"embed", "final_norm", "stack", "lm_head"}
+    if extra:
+        raise NotImplementedError(f"parameters {sorted(extra)} belong to "
+                                  f"parts of the model not ported yet")
+    out = {"embed": _tensors(tree["embed"], dev),
+           "final_norm": _tensors(tree["final_norm"], dev)}
+    layers = [_tensors(tree["stack"]["prefix"][f"{i}_{kind}"], dev)
+              for i, kind in enumerate(cfg.prefix_pattern)]
+    body = tree["stack"]["body"]
+    for r in range(cfg.pattern_repeats):
+        for i, kind in enumerate(cfg.layer_pattern):
+            layers.append(_tensors(body[f"{i}_{kind}"], dev,
+                                   lambda a, r=r: a[r]))
+    out["layers"] = layers
+    if "lm_head" in tree:
+        out["lm_head"] = _tensors(tree["lm_head"], dev)
+    return out

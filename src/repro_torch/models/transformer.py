@@ -1,0 +1,131 @@
+"""Residual blocks and the layer stack.
+
+The PyTorch counterpart of ``repro.models.transformer`` for attention
+blocks.  The layer list is ``prefix_pattern`` followed by ``layer_pattern``
+repeated ``pattern_repeats`` times — the reference's order — and the port
+holds one :class:`Block` module per layer, run by a plain loop
+(:func:`stack_apply`), where the reference stacks each pattern position's
+parameters on a leading axis and scans over them.
+
+Kinds ported: ``attn`` (global GQA attention + FFN) and ``attn_local``
+(sliding-window GQA + FFN).  The others raise ``NotImplementedError``
+naming their ROADMAP item; so does ``attn_kind="mla"``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.ffn import FFN, ffn_apply, ffn_spec
+from repro_torch.models.layers import RMSNorm, rmsnorm_spec
+
+__all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
+           "stack_apply", "init_block_cache", "Block"]
+
+# Layer kinds and attention kinds that are not ported yet, with the
+# ROADMAP queue 1 item that brings each.
+_NOT_PORTED = {
+    "moe": "the MoE family (ROADMAP queue 1, the LM model stack)",
+    "ssm": "the Mamba-2 / SSM family (ROADMAP queue 1, the LM model stack)",
+    "rec": "the RG-LRU recurrent family (ROADMAP queue 1, the LM model "
+           "stack)",
+    "enc_attn": "the encoder-decoder family (ROADMAP queue 1, the LM model "
+                "stack)",
+    "dec_attn": "the encoder-decoder family (ROADMAP queue 1, the LM model "
+                "stack)",
+}
+_KINDS = ("attn", "attn_local")
+
+
+def _check_kind(cfg, kind: str) -> None:
+    if kind in _NOT_PORTED:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
+    if kind not in _KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.attn_kind == "mla":
+        raise NotImplementedError(
+            "attn_kind 'mla' is not ported yet: multi-head latent "
+            "attention (ROADMAP queue 1, the LM model stack)")
+
+
+def layer_kinds(cfg) -> List[str]:
+    """Every layer's kind, in the reference's order: the prefix, then the
+    pattern repeated."""
+    return list(cfg.prefix_pattern) + list(cfg.layer_pattern) \
+        * cfg.pattern_repeats
+
+
+def block_spec(cfg, kind: str):
+    _check_kind(cfg, kind)
+    d = cfg.d_model
+    return {"ln1": rmsnorm_spec(d), "attn": attn_mod.gqa_spec(cfg),
+            "ln2": rmsnorm_spec(d), "ffn": ffn_spec(cfg)}
+
+
+def stack_spec(cfg):
+    """One block spec per layer (a list, in layer order)."""
+    return [block_spec(cfg, kind) for kind in layer_kinds(cfg)]
+
+
+def _effective_window(cfg, kind: str, shape_kind: str) -> Optional[int]:
+    if kind == "attn_local":
+        return cfg.window
+    if shape_kind == "long_decode" and not cfg.is_subquadratic:
+        # full-attention archs fall back to a sliding window at 500k
+        return cfg.fallback_window
+    return None
+
+
+class Block(nn.Module):
+    """One residual block: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+
+    def __init__(self, params, cfg, kind: str):
+        super().__init__()
+        _check_kind(cfg, kind)
+        self.kind = kind
+        self.ln1 = RMSNorm(params["ln1"])
+        self.attn = attn_mod.GQA(params["attn"])
+        self.ln2 = RMSNorm(params["ln2"])
+        self.ffn = FFN(params["ffn"], cfg)
+
+
+def block_apply(block: Block, cfg, kind: str, x, positions, *,
+                mode: str = "train", shape_kind: str = "train", cache=None):
+    """One residual block.  Returns (x, new_cache, aux)."""
+    h = block.ln1(x)
+    window = _effective_window(cfg, kind, shape_kind)
+    y, new_cache = attn_mod.gqa_apply(block.attn, cfg, h, positions,
+                                      mode="causal", cache=cache,
+                                      window=window)
+    x = x + y
+    y2 = ffn_apply(block.ffn, cfg, block.ln2(x))
+    return x + y2, new_cache, {}
+
+
+def init_block_cache(cfg, kind: str, batch: int, s_max: int,
+                     shape_kind: str = "decode", device="cuda"):
+    _check_kind(cfg, kind)
+    window = _effective_window(cfg, kind, shape_kind)
+    return attn_mod.init_gqa_cache(cfg, batch, s_max, window, device=device)
+
+
+def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
+                shape_kind: str = "train",
+                caches: Optional[List[Dict[str, Any]]] = None):
+    """Run every layer in order.  Returns (x, new_caches, aux_sums);
+    ``caches`` is one cache per layer (or None)."""
+    aux_sum = {"load_balance": torch.zeros((), device=x.device),
+               "router_z": torch.zeros((), device=x.device)}
+    new_caches = [] if caches is not None else None
+    for i, block in enumerate(layers):
+        x, new_cache, _ = block_apply(
+            block, cfg, block.kind, x, positions, mode=mode,
+            shape_kind=shape_kind,
+            cache=caches[i] if caches is not None else None)
+        if caches is not None:
+            new_caches.append(new_cache)
+    return x, new_caches, aux_sum

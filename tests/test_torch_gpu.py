@@ -15,6 +15,7 @@ these tests use finite x.  ``piece_rows`` forces the split of long groups
 at each piece size.
 """
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -22,12 +23,22 @@ import torch
 
 from _torch_parity import rand_sparse, skewed
 
+from repro_torch.configs import get_config
+from repro_torch.configs.base import SparsityConfig
 from repro_torch.core import from_dense, spmm, spmv
 from repro_torch.core.timing import time_us
-from repro_torch.kernels import launch_counts, ops
+from repro_torch.kernels import (launch_counts, ops, plan_from_params,
+                                 reset_launch_counts)
 from repro_torch.kernels.ell_spmv import ell_spmv_launch, ell_spmv_plain
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch, rgcsr_spmm_plain
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch, rgcsr_spmv_plain
+from repro_torch.models import ffn
+from repro_torch.models.spec import init_from_spec
+from repro_torch.serve import Engine, ServeConfig
+
+# the launcher's module (the package's ``rgcsr_spmm`` attribute is the
+# ``ops`` wrapper)
+k2_module = importlib.import_module("repro_torch.kernels.rgcsr_spmm")
 
 
 def _x(seed, *shape):
@@ -207,3 +218,96 @@ def test_time_us_times_back_to_back_launches(cuda, mode):
     t = time_us(ops.ell_spmv, plan, x, repeats=3, warmup=1, calls=4, **mode)
     assert 0 < t < 1e6
     assert launch_counts()["ell_spmv"] == before + 1 + 3 * 4
+
+
+# ------------------------------------------------ K2 at SparseLinear shapes
+
+
+def _granite(n_layers=None, **overrides):
+    """The full-width granite-3-2b config with the RgCSR FFN (K2)."""
+    cfg = dataclasses.replace(
+        get_config("granite-3-2b"),
+        sparsity=SparsityConfig(enabled=True, density=0.25, group_size=128,
+                                impl="kernel"), **overrides)
+    return cfg if n_layers is None else dataclasses.replace(
+        cfg, n_layers=n_layers)
+
+
+_W_OUT = {}
+
+
+def _w_out_params(dev):
+    """One w_out layer of the full config: W (2048, 8192) at density 0.25,
+    i.e. 16 groups of 2,048 slot rows of 128 lanes."""
+    if dev not in _W_OUT:
+        cfg = _granite()
+        spec = ffn.sparse_linear_spec(cfg, cfg.d_ff, cfg.d_model)
+        _W_OUT[dev] = init_from_spec(
+            spec, torch.Generator(device=dev).manual_seed(5), device=dev)
+    return _W_OUT[dev]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("piece_rows", [None, 64, 512])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", [1, 4, 512])
+def test_k2_cuda_matches_plain_at_sparse_linear_shapes(cuda, d, dtype, tol,
+                                                       piece_rows):
+    params = _w_out_params(cuda)
+    plan = plan_from_params(params, dtype, d_out=2048, d_in=8192,
+                            group_size=128)
+    assert plan.values2d.shape == (16 * 2048, 128)
+    x = torch.from_numpy(_x(30 + d, 8192, d)).to(cuda, dtype)
+    got = rgcsr_spmm_launch(plan, x, piece_rows=piece_rows)
+    args = (plan.values2d, plan.columns2d, plan.step_group)
+    want = rgcsr_spmm_plain(*args, x, n_groups=16)
+    # |got - want| <= tol · (1 + Σ_j |w_ij x_j|): sums of 2,048 terms
+    scale = rgcsr_spmm_plain(plan.values2d.float().abs(), plan.columns2d,
+                             plan.step_group, x.float().abs(), n_groups=16)
+    diff = (got.float() - want.float()).abs()
+    assert got.shape == (2048, d) and got.dtype == dtype
+    assert bool((diff <= tol * (1 + scale)).all()), diff.max().item()
+
+
+@pytest.mark.gpu
+def test_sparse_linear_on_cuda_never_runs_the_plain_version(cuda,
+                                                            monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain K2 ran on a CUDA tensor")
+
+    want = {}
+    cfg = _granite()
+    for dev in ("cpu", cuda):
+        params = {k: v.to(dev) for k, v in _w_out_params(cuda).items()}
+        layer = ffn.SparseLinear(params, cfg, d_in=8192, d_out=2048)
+        x = torch.from_numpy(_x(40, 3, 8192)).to(dev)
+        if dev == "cpu":
+            want = layer(x)
+            continue
+        monkeypatch.setattr(k2_module, "rgcsr_spmm_plain", refuse)
+        before = launch_counts()["rgcsr_spmm"]
+        got = layer(x)
+        assert launch_counts()["rgcsr_spmm"] == before + 1
+        assert layer.plan_builds == 1
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_full_width_generate_launches_k2_once_per_layer_and_token(cuda):
+    """Two layers of granite-3-2b at full width: K2 launches once per layer
+    for the prefill and once per layer for each decode step; no other
+    kernel launches; each layer's plan is built once, at load."""
+    cfg = _granite(n_layers=2)
+    engine = Engine(cfg, ServeConfig(max_seq=64), device=cuda)
+    assert engine.plans_warmed == 2
+    prompts = np.random.default_rng(41).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32)
+    reset_launch_counts()
+    out = engine.generate(prompts, max_new_tokens=8)
+    assert launch_counts() == {"rgcsr_spmv": 0, "rgcsr_spmm": 2 * 8,
+                               "ell_spmv": 0}
+    assert out.shape == (2, 8) and (out >= 0).all() \
+        and (out < cfg.vocab).all()
+    assert [b.ffn.w_out.plan_builds for b in engine.model.layers] == [1, 1]
+    np.testing.assert_array_equal(engine.generate(prompts, 8), out)
