@@ -57,7 +57,25 @@ Phases (any failure exits non-zero and prints no result line):
    it and the card's idle share of what the caller waits; K2 per layer at
    d = 4 and d = 512 against its bound, its plain version, the dense bf16
    product and the PyTorch CSR product; peak device memory;
-7. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+7. session: the same model through ``Engine.serve`` — continuous batching
+   on paged caches (16-token pages), the decode step one captured CUDA
+   graph replayed up to ``decode_chunk`` (8) times per host sync.  (a) In
+   float32 (compute and KV cache), 6 requests on 4 slots (prompts of
+   48–200 tokens, 24–40 new, ``max_seq`` 320, 41 pages, so the prompt
+   policy recompute-preempts) at chunk 8 and at chunk 1: every stream
+   equal to ``Engine.generate`` of its request alone under the margin
+   rule above, all completed, a preemption, fewer dispatches than steps
+   at chunk 8.  (b) In bfloat16, 16 requests on 8 slots (prompts of
+   64–256 tokens, 64 new, ``max_seq`` 512): K2's launch counter, set to 0
+   just before and read just after, must show 40 launches per graph
+   replay and per prefill, tallied apart around each fused dispatch and
+   each prefill, with replays = decode steps; tokens/s, what a caller
+   waits per decode step and per prefill, the card's busy time per decode
+   step over one profiled chunk and its idle share, a 257-token prefill's
+   times; K2 held against its plain version (fp32 and bf16) on layer 0's
+   kept plan at d = 8 and at every prompt and recompute length the
+   sessions prefilled; K2 at d = 8 against its bound; peak memory;
+8. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -93,6 +111,11 @@ SERVE_ARCH = "granite-3-2b"
 SERVE_SPARSITY = dict(enabled=True, density=0.25, group_size=128,
                       impl="kernel")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 128, 32, 256
+# the session phase: (n requests, prompt lengths lo, hi, new lo, hi)
+SESS_PAGE, SESS_CHUNK = 16, 8
+SESS_A_MIX, SESS_A_SLOTS, SESS_A_MAX_SEQ, SESS_A_PAGES = (
+    (6, 48, 200, 24, 40), 4, 320, 41)
+SESS_B_MIX, SESS_B_SLOTS, SESS_B_MAX_SEQ = (16, 64, 256, 64, 64), 8, 512
 LOGIT_TOL, MARGIN_TOL = 1e-4, 1e-3
 
 KERNEL_META = {
@@ -270,7 +293,7 @@ def main() -> int:
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import init_params
     from repro_torch.models.spec import init_from_spec
-    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve import Engine, Request, ServeConfig
 
     dev = torch.device(DEVICE)
     failures = []
@@ -874,12 +897,14 @@ def main() -> int:
                             for name, (n, us) in top) + f" {tag}")
 
     # K2 per layer at the serving widths, bf16, on layer 0's kept plan
-    lay = sparse_layers[0]
-    plan = lay.plan_for(torch.bfloat16)
-    w32 = dense_equivalent(lay)
-    w16 = w32.bfloat16()
-    live, real = live_slots(plan)
-    for d in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT):
+    def k2_serving_entry(lay, d, launches, max_err):
+        """Times of K2 at width ``d`` on ``lay``'s kept bf16 plan, beside
+        its bound, its plain version, the PyTorch CSR product and the
+        dense bf16 product of the layer's dense equivalent."""
+        plan = lay.plan_for(torch.bfloat16)
+        w32 = dense_equivalent(lay)
+        w16 = w32.bfloat16()
+        live, real = live_slots(plan)
         xk = torch.from_numpy(rng.standard_normal((serve_cfg.d_ff, d))
                               .astype(np.float32)).to(dev, torch.bfloat16)
         run = lambda: rgcsr_spmm_launch(plan, xk)   # noqa: E731
@@ -902,8 +927,7 @@ def main() -> int:
         e = {"name": f"rgcsr_spmm@{SERVE_ARCH} w_out d{d} bf16",
              "route": "cuda", "source": KERNEL_META["rgcsr_spmm"][0],
              "replaces": KERNEL_META["rgcsr_spmm"][1],
-             "launches": widths[d],
-             "max_abs_err": errs[("rgcsr_spmm", f"w_out d{d}")],
+             "launches": launches, "max_abs_err": max_err,
              "ms": ms(run, 20, hold=True),
              "cold_ms": ms(run, 20, cold=True),
              "wait_ms": ms(run, 20),
@@ -924,13 +948,252 @@ def main() -> int:
             f"csr {lib_tag} {e['library_ms']} ms (cold "
             f"{e['library_cold_ms']}), dense bf16 matmul "
             f"{e['dense_bf16_ms']:.4f} ms (cold {e['dense_bf16_cold_ms']:.4f}"
-            f"), {e['launches']} launches in generate {tag}")
-        entries.append(e)
-    del w32, w16
+            f"), {e['launches']} launches on the main path {tag}")
+        return e
+
+    for d in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT):
+        entries.append(k2_serving_entry(sparse_layers[0], d, widths[d],
+                                        errs[("rgcsr_spmm", f"w_out d{d}")]))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log(f"serve peak device memory {peak / 2**30:.2f} GiB ({held_before / 2**30:.2f} GiB held by the earlier phases) "
         f"{tag}; phase 6 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. serve sessions: continuous batching on paged caches, the
+    # fused decode loop a CUDA graph, K2 in every prefill and graph replay
+    t0 = time.perf_counter()
+    del engine, sparse_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vocab = serve_cfg.vocab
+
+    def session_requests(n, lo, hi, new_lo, new_hi):
+        """``n`` requests from seed ``SEED``: prompt lengths in [lo, hi],
+        budgets in [new_lo, new_hi], random tokens."""
+        r = np.random.default_rng(SEED)
+        lens = r.integers(lo, hi + 1, n)
+        news = r.integers(new_lo, new_hi + 1, n)
+        return [Request(tokens=r.integers(0, vocab, int(ln)).astype(
+            np.int32), max_new_tokens=int(m)) for ln, m in zip(lens, news)]
+
+    def session_engine(cfg, **kw):
+        return Engine(cfg, ServeConfig(page_size=SESS_PAGE, **kw),
+                      params=tree, device=dev)
+
+    # (a) float32 (compute and KV cache): every stream against generate()
+    # of its request alone, on the dense layout, up to the first step
+    # whose top-2 margin is below MARGIN_TOL · max|logit|
+    t1 = time.perf_counter()
+    prefill_widths = set()      # K2's d in the sessions' prefills
+
+    def tally_prefills(eng, k2=None):
+        """Wrap ``eng._prefill``: record each prompt length and, given a
+        list ``k2``, the K2 launches each prefill made."""
+        orig = eng._prefill
+
+        def prefill(batch):
+            prefill_widths.add(int(batch["tokens"].shape[1]))
+            before = launch_counts()["rgcsr_spmm"]
+            out = orig(batch)
+            if k2 is not None:
+                k2.append(launch_counts()["rgcsr_spmm"] - before)
+            return out
+
+        eng._prefill = prefill
+
+    oracles = None
+    for chunk in (SESS_CHUNK, 1):
+        eng = session_engine(cfg32, max_seq=SESS_A_MAX_SEQ,
+                             n_slots=SESS_A_SLOTS, n_pages=SESS_A_PAGES,
+                             decode_chunk=chunk)
+        if oracles is None:
+            oracles = [eng.generate(r.tokens[None, :], r.max_new_tokens)[0]
+                       for r in session_requests(*SESS_A_MIX)]
+        reqs = session_requests(*SESS_A_MIX)
+        tally_prefills(eng)
+        eng.serve(reqs)
+        st = eng.paging_stats
+        same = []
+        for r, want in zip(reqs, oracles):
+            got = np.asarray(r.out)
+            diff = np.flatnonzero(got != want) if len(got) == len(want) \
+                else [0]
+            if len(diff):
+                _, margins, peaks = greedy_trace(
+                    eng.model, torch.from_numpy(r.tokens[None, :]).to(dev),
+                    SESS_A_MAX_SEQ, r.max_new_tokens, vocab)
+                close = [i for i, (m, pk) in enumerate(zip(margins, peaks))
+                         if m < MARGIN_TOL * pk]
+                same.append(bool(close) and diff[0] >= close[0])
+            else:
+                same.append(True)
+        ok = (all(same) and st["completed"] == len(reqs)
+              and all(r.ok_like for r in reqs))
+        if chunk > 1:
+            ok = ok and st["preemptions"] >= 1 and \
+                st["decode_dispatches"] < st["decode_steps"]
+        log(f"session fp32 chunk {chunk}: {len(reqs)} requests on "
+            f"{SESS_A_SLOTS} slots, prompts {[len(r.tokens) for r in reqs]}"
+            f", new {[r.max_new_tokens for r in reqs]}, {st['n_pages']} "
+            f"pages of {SESS_PAGE}: completed {st['completed']}, "
+            f"preemptions {st['preemptions']}, recompute tokens "
+            f"{st['recompute_tokens']}, decode steps {st['decode_steps']}, "
+            f"dispatches {st['decode_dispatches']}, graph replays "
+            f"{eng._loop.replays}, page high water {st['page_high_water']};"
+            f" streams equal to generate (margin rule): {same} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"session fp32 chunk {chunk}")
+        del eng
+    log(f"session fp32 phase in {time.perf_counter() - t1:.1f} s")
+
+    # (b) bfloat16 as configured: times, launches, the card's busy time
+    eng = session_engine(serve_cfg, max_seq=SESS_B_MAX_SEQ,
+                         n_slots=SESS_B_SLOTS, decode_chunk=SESS_CHUNK)
+    eng.serve([Request(tokens=r.tokens[:64], max_new_tokens=8)
+               for r in session_requests(*SESS_B_MIX)[:SESS_B_SLOTS]])
+    dispatches, prefill_k2 = [], []    # (s, steps, K2 launches); K2 each
+    fused = eng._fused_decode
+
+    def timed_fused(*args):
+        before = launch_counts()["rgcsr_spmm"]
+        t = time.perf_counter()
+        out = fused(*args)      # ends in the chunk's one host sync
+        dispatches.append((time.perf_counter() - t, out[1],
+                           launch_counts()["rgcsr_spmm"] - before))
+        return out
+
+    eng._fused_decode = timed_fused
+    tally_prefills(eng, prefill_k2)
+    reqs = session_requests(*SESS_B_MIX)
+    replays0 = eng._loop.replays
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    sess_counts = launch_counts()
+    eng._fused_decode = fused
+    st = eng.paging_stats
+    prefills = eng._session.prefill_count
+    replays = eng._loop.replays - replays0
+    tokens = sum(len(r.out) for r in reqs)
+    want_k2 = n_layers * (st["decode_steps"] + prefills)
+    k2_decode = sum(k for _, _, k in dispatches)   # launches at d = slots
+    step_wait = sum(dt for dt, _, _ in dispatches) / max(
+        1, sum(n for _, n, _ in dispatches)) * 1e3
+    prefill_wait = float(np.mean([r.prefill_s for r in reqs])) * 1e3
+    ok = (sess_counts == {"rgcsr_spmv": 0, "rgcsr_spmm": want_k2,
+                          "ell_spmv": 0}
+          and k2_decode == n_layers * st["decode_steps"]
+          and prefill_k2 == [n_layers] * prefills
+          and replays == st["decode_steps"]
+          and len(dispatches) == st["decode_dispatches"]
+          and st["completed"] == len(reqs)
+          and all(0 <= tk < vocab for r in reqs for tk in r.out))
+    log(f"session bf16: {len(reqs)} requests on {SESS_B_SLOTS} slots "
+        f"(prompts {SESS_B_MIX[1]}-{SESS_B_MIX[2]}, {SESS_B_MIX[3]} new), "
+        f"{st['n_pages']} pages of {SESS_PAGE}: {tokens} tokens, "
+        f"{prefills} prefills, decode steps {st['decode_steps']}, "
+        f"dispatches {st['decode_dispatches']} (one host sync each), graph "
+        f"replays {replays}; launch counts {sess_counts}, K2 want "
+        f"{n_layers} x ({st['decode_steps']} steps + {prefills} prefills) "
+        f"= {want_k2}; K2 launched in the fused dispatches {k2_decode}, in "
+        f"the prefills {sum(prefill_k2)} ({sorted(set(prefill_k2))} each) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("session bf16 launches, replays or completions")
+    log(f"session bf16: {wall:.3f} s for {tokens} tokens, "
+        f"{tokens / wall:.1f} tokens/s; a caller waits {step_wait:.3f} ms "
+        f"per decode step (fused dispatches, {SESS_CHUNK} steps each) and "
+        f"{prefill_wait:.3f} ms per prefill (mean) {tag}")
+
+    # one chunk of a full batch under the profiler: the card's busy time
+    # per decode step against what a caller waits for it
+    sess = eng.start_session(session_requests(*SESS_B_MIX)[:SESS_B_SLOTS])
+    sess.step(1)                           # admit all, one step
+    t = time.perf_counter()
+    sess.step(SESS_CHUNK)
+    chunk_ms = (time.perf_counter() - t) * 1e3
+    marks = []
+
+    def one_chunk():
+        before = sess.stats["decode_steps"]
+        sess.step(SESS_CHUNK)
+        marks.append(sess.stats["decode_steps"] - before)
+
+    try:
+        k = device_kernels(one_chunk, 1)
+        steps = marks[-1]
+        busy = sum(us for _, us in k.values()) / 1e3 / steps
+        k2 = sum(us for name, (_, us) in k.items()
+                 if "rgcsr_spmm" in name or "combine_partials" in name
+                 ) / 1e3 / steps
+        wait = chunk_ms / SESS_CHUNK
+        top = sorted(k.items(), key=lambda kv: -kv[1][1])[:4]
+        log(f"session bf16 decode step (profiler, one chunk of {steps} "
+            f"steps, {SESS_B_SLOTS} slots): "
+            f"{sum(n for n, _ in k.values()) / steps:.0f} kernels, card "
+            f"busy {busy:.3f} ms per step, K2 {k2:.3f} ms "
+            f"({100 * k2 / busy:.1f} %); a caller waits {wait:.3f} ms per "
+            f"step of a chunk, idle share {100 * (1 - busy / wait):.1f} %; "
+            f"largest: " + "; ".join(
+                f"{name[:60]} x{n:.0f} {us / 1e3:.3f} ms"
+                for name, (n, us) in top) + f" {tag}")
+    except RuntimeError as err:
+        failures.append(f"session bf16 decode step: card busy time not "
+                        f"measured ({err})")
+    sess.drain()
+
+    # one prefill as the session runs it (prefill, then the first token to
+    # the host): at a prompt length no request had, which builds K2's work
+    # list for that width on the host first, at the same length again, and
+    # the card's busy time
+    toks = torch.from_numpy(rng.integers(
+        0, vocab, (1, SESS_B_MIX[2] + 1)).astype(np.int32)).to(dev)
+
+    def one_prefill():
+        with torch.inference_mode():
+            logits, _ = eng._prefill({"tokens": toks})
+            return int(eng._sample(logits)[0])
+
+    walls = []
+    for _ in range(2):
+        t = time.perf_counter()
+        one_prefill()
+        walls.append((time.perf_counter() - t) * 1e3)
+    k = device_kernels(one_prefill, 1)
+    busy = sum(us for _, us in k.values()) / 1e3
+    k2 = sum(us for name, (_, us) in k.items()
+             if "rgcsr_spmm" in name or "combine_partials" in name) / 1e3
+    log(f"session bf16 prefill of {toks.shape[1]} tokens: a caller waits "
+        f"{walls[0]:.3f} ms at a new length, {walls[1]:.3f} ms again; card "
+        f"busy {busy:.3f} ms ({sum(n for n, _ in k.values()):.0f} kernels),"
+        f" K2 {k2:.3f} ms {tag}")
+
+    # K2 against its plain version on layer 0's kept plan, at the decode
+    # width of these sessions and at every width they prefilled (prompts,
+    # recompute lengths, the 257-token prefill above), fp32 and bf16
+    lay = eng.model.layers[0].ffn.w_out
+    plan = lay.plan_for(torch.bfloat16)
+    t1 = time.perf_counter()
+    for d in [SESS_B_SLOTS] + sorted(prefill_widths):
+        xw = torch.from_numpy(rng.standard_normal(
+            (serve_cfg.d_ff, d)).astype(np.float32)).to(dev)
+        k2_check(f"granite w_out d{d} fp32 (kept plan)", plan, xw)
+        k2_check(f"granite w_out d{d} bf16 (kept plan)", plan, xw,
+                 torch.bfloat16, BF16_TOL, key=f"w_out d{d}")
+    log(f"K2 held against its plain version at the sessions' "
+        f"{1 + len(prefill_widths)} widths in "
+        f"{time.perf_counter() - t1:.1f} s")
+    entries.append(k2_serving_entry(
+        lay, SESS_B_SLOTS, k2_decode,
+        errs[("rgcsr_spmm", f"w_out d{SESS_B_SLOTS}")]))
+    del eng, sess
+    torch.cuda.synchronize()
+    log(f"session peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"{tag}; phase 7 in {time.perf_counter() - t0:.1f} s")
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:

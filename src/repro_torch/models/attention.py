@@ -1,4 +1,4 @@
-"""Grouped-query attention (GQA/MHA/MQA) with a dense KV cache.
+"""Grouped-query attention (GQA/MHA/MQA) with dense and paged KV caches.
 
 The PyTorch counterpart of the GQA half of ``repro.models.attention``.
 Attention is plain tensor code in the reference (no Pallas kernel), and
@@ -6,21 +6,39 @@ plain torch here; the arithmetic mirrors the reference's — logits in
 float32, masked positions set to ``-1e30`` before the softmax,
 probabilities cast to v's dtype — so that parity stays tight.
 
-Cache protocol (dense layout)::
+Cache protocol.  **Dense** layout::
 
     cache = {"k": (B, S_max, H_kv, Dh), "v": ..., "index": int32[B]}
 
+**Paged** layout — K/V live in a shared page pool and each batch slot
+addresses its pages through a block table::
+
+    cache = {"k": (n_pages, page_size, H_kv, Dh), "v": ...,
+             "block_table": int32[B, pages_per_slot], "index": int32[B]}
+
 ``index`` is a per-slot vector: entry ``b`` counts the tokens already
-written for slot ``b``.  Windowed layers use a ring of ``window`` slots
-(position ``p`` at slot ``p % window``).  With ``kv_cache_dtype="int8"``
-the cache stores int8 values with per-token/head absmax scales
-(``k_scale``/``v_scale``).
+written for slot ``b``.  Token ``t`` of slot ``b`` lives at page
+``block_table[b, t // page_size]``, offset ``t % page_size``; page 0 is the
+null page that free slots point at.  Windowed layers use a ring of
+``window`` slots (position ``p`` at slot ``p % window``) and keep it under
+paging.  With ``kv_cache_dtype="int8"`` the cache stores int8 values with
+per-token/head absmax scales (``k_scale``/``v_scale``).
 
 The reference's caches are immutable and every step returns new ones; here
 :func:`_cache_write` writes the new tokens into the cache's tensors in place
-(one slab per layer, never copied) and returns the dict with the advanced
-index.  Paged caches, MLA and cross-attention are not ported yet (ROADMAP
-queue 1).
+(one slab or pool per layer, never copied) and returns the dict with the
+advanced index.  A decode write past the end of a cache follows the
+reference's out-of-range rules, which JAX applies implicitly and torch
+would refuse (an ``IndexError`` on the CPU, a device assert on the card):
+the block-table lookup clamps its column, and a dense one-token write
+clamps its position to the slab's last row — the serving session's dense
+slabs hold ``S_max + 1`` rows, so a write at ``>= S_max`` lands in a spare
+row, where the reference drops it; rows ``[0, S_max)`` stay the
+reference's, and only a slot past the end (whose tokens the session
+discards) attends to the spare row.  The serving
+session needs both: a slot that is free, or finished inside a fused
+chunk, keeps decoding, and its index grows past ``S_max``.  MLA (and its paged cache) and cross-attention are not
+ported yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -32,7 +50,8 @@ from torch import nn
 
 from repro_torch.models.layers import Dense, dense_spec, rope
 
-__all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache", "gqa_apply",
+__all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache",
+           "init_gqa_paged_cache", "PageGeometry", "gqa_apply",
            "shard_attn_qkv", "GQA"]
 
 # At/above this many kv positions a multi-token attend takes the chunked
@@ -43,6 +62,26 @@ _Q_CHUNK = 512
 _K_CHUNK = 1024
 
 _NEG = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class PageGeometry:
+    """Static shape of a paged KV cache (shared by every attention layer).
+
+    ``n_pages`` counts the *total* pool including the reserved null page 0;
+    ``pages_per_slot`` is the block-table width — the most pages one slot
+    can ever address (``ceil(s_max / page_size)``).
+    """
+    n_pages: int
+    page_size: int
+    pages_per_slot: int
+
+    @property
+    def usable_pages(self) -> int:
+        return self.n_pages - 1          # page 0 is the null page
+
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-int(n_tokens) // self.page_size)
 
 
 def _as_tensor(v, device):
@@ -260,6 +299,42 @@ def init_gqa_cache(cfg, batch: int, s_max: int, window: Optional[int] = None,
     return cache
 
 
+def init_gqa_paged_cache(cfg, n_slots: int, geom: PageGeometry,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """Paged GQA cache: shared page pool + per-slot block table/index."""
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    kv_dtype = cfg.kv_cache_dtype
+    store = torch.int8 if kv_dtype == "int8" else getattr(torch, kv_dtype)
+    pool = (geom.n_pages, geom.page_size, hkv)
+    cache = {
+        "k": torch.zeros(pool + (dh,), dtype=store, device=device),
+        "v": torch.zeros(pool + (dh,), dtype=store, device=device),
+        "block_table": torch.zeros((n_slots, geom.pages_per_slot),
+                                   dtype=torch.int32, device=device),
+        "index": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    }
+    if kv_dtype == "int8":
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(pool + (1,), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def _paged_write(pool, new, page, off):
+    """Scatter this step's per-slot token into its (page, offset) cell, in
+    place.  pool: (P, ps, ...); new: (B, 1, ...); page/off: (B,) int64.
+    Free slots point at the null page 0, so their writes land there."""
+    pool[page, off] = new[:, 0]
+
+
+def _paged_view(pool, block_table):
+    """Gather a slot-major dense view (B, pages_per_slot·ps, ...) of the
+    pool through the block table (B, pages_per_slot) int64."""
+    b, p_max = block_table.shape
+    v = pool[block_table]                    # (B, p_max, ps, ...)
+    return v.reshape((b, p_max * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
 def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
     """Write this call's kv (B, s, Hkv, Dh) at each slot's index, in place;
     returns the dict with the index advanced by s."""
@@ -271,6 +346,21 @@ def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
     new = {"k": ks, "v": vs}
     if k_scale is not None:
         new.update(k_scale=k_scale, v_scale=v_scale)
+    if "block_table" in cache:
+        # paged decode write (prefill goes through the dense slab and the
+        # serving layer's commit_prefill — see serve/paging.py).  The
+        # reference's gather clamps an index past the table's width.
+        assert s == 1, "paged caches are decode-only; prefill is dense"
+        table = cache["block_table"]
+        ps = cache["k"].shape[1]
+        col = torch.clamp(torch.div(index, ps, rounding_mode="floor"),
+                          max=table.shape[1] - 1).long()
+        page = table[torch.arange(b, device=index.device), col].long()
+        off = torch.remainder(index, ps).long()
+        for name, t in new.items():
+            _paged_write(cache[name], t, page, off)
+        cache["index"] = index + s
+        return cache
     size = cache["k"].shape[1]
     if window and s >= size:
         # prefill longer than the ring: keep the last `size` tokens, rolled
@@ -284,6 +374,15 @@ def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
         slot = torch.remainder(index.long(), size)    # per-slot ring position
         for name, t in new.items():
             cache[name][rows, slot] = t[:, 0]
+    elif s == 1:
+        # one token per slot at its index.  A slot whose index has run past
+        # the slab writes into its last row: a serving session's slabs keep
+        # one spare row past max_seq for those writes, which the reference
+        # drops (generate never writes past the end)
+        rows = torch.arange(b, device=index.device)
+        pos = torch.clamp(index.long(), max=size - 1)
+        for name, t in new.items():
+            cache[name][rows, pos] = t[:, 0]
     else:
         # per-slot start positions: row b writes index[b] .. index[b]+s-1
         rows = torch.arange(b, device=index.device)[:, None]
@@ -323,8 +422,18 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
             mi = MaskInfo(causal=True, window=window, q_offset=index)
             y = attend(q, k, v, mask_info=mi)
         else:
-            k = _maybe_load(new_cache["k"], new_cache.get("k_scale"), x.dtype)
-            v = _maybe_load(new_cache["v"], new_cache.get("v_scale"), x.dtype)
+            if "block_table" in new_cache:
+                # paged: gather each slot's pages into a slot-major dense
+                # view; view position t IS absolute token position t, so
+                # the same per-slot causal/valid masks apply unchanged
+                bt = new_cache["block_table"].long()
+                view = {name: _paged_view(new_cache[name], bt)
+                        for name in ("k", "v", "k_scale", "v_scale")
+                        if name in new_cache}
+            else:
+                view = new_cache
+            k = _maybe_load(view["k"], view.get("k_scale"), x.dtype)
+            v = _maybe_load(view["v"], view.get("v_scale"), x.dtype)
             q, k, v = shard_attn_qkv(cfg, q, k, v)
             t = k.shape[1]
             if window and s == 1:

@@ -144,10 +144,15 @@ class LanguageModel(nn.Module):
 
     # -------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, s_max: int, *,
-                   shape_kind: str = "decode") -> List[Dict[str, Any]]:
-        """One dense KV cache per layer."""
+                   shape_kind: str = "decode",
+                   paging=None) -> List[Dict[str, Any]]:
+        """One KV cache per layer.  ``paging``: optional
+        :class:`~repro_torch.models.attention.PageGeometry` — full-attention
+        layers get paged (page-pool + block-table) caches instead of dense
+        per-slot slabs."""
         return [tfm.init_block_cache(self.cfg, block.kind, batch_size, s_max,
-                                     shape_kind, device=self.device)
+                                     shape_kind, device=self.device,
+                                     paging=paging)
                 for block in self.layers]
 
     def prefill(self, batch, s_max: int, *, shape_kind: str = "prefill"):

@@ -107,9 +107,16 @@ def block_apply(block: Block, cfg, kind: str, x, positions, *,
 
 
 def init_block_cache(cfg, kind: str, batch: int, s_max: int,
-                     shape_kind: str = "decode", device="cuda"):
+                     shape_kind: str = "decode", device="cuda", paging=None):
+    """``paging``: an :class:`attn_mod.PageGeometry` — full-attention KV
+    caches become shared page pools addressed per slot through block
+    tables.  Windowed layers keep their dense rings (already O(window)
+    residency)."""
     _check_kind(cfg, kind)
     window = _effective_window(cfg, kind, shape_kind)
+    if paging is not None and not window:
+        return attn_mod.init_gqa_paged_cache(cfg, batch, paging,
+                                             device=device)
     return attn_mod.init_gqa_cache(cfg, batch, s_max, window, device=device)
 
 

@@ -1,2 +1,9 @@
-"""Serving: the batch-synchronous ``Engine.generate`` path."""
-from repro_torch.serve.engine import Engine, ServeConfig  # noqa: F401
+"""Serving: batch-synchronous ``Engine.generate`` and continuous batching
+(``Engine.serve`` / ``EngineSession``) over paged KV caches, with the fused
+decode loop as a CUDA graph on the card.  The router is not ported yet
+(ROADMAP queue 1)."""
+from repro_torch.serve import paging  # noqa: F401
+from repro_torch.serve.engine import (  # noqa: F401
+    Engine, EngineSession, Request, ServeConfig)
+from repro_torch.serve.paging import (  # noqa: F401
+    PageAllocator, PageGeometry, PoolExhausted)

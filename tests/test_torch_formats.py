@@ -173,6 +173,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files.append(REPO / "chip_smoke.py")
     files.extend(sorted((REPO / "scripts").glob("torch_*.py")))
     assert len(files) > 10
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    for module in ("obs/metrics.py", "obs/trace.py", "train/fault.py",
+                   "serve/paging.py", "serve/device_loop.py",
+                   "serve/engine.py"):
+        assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)
                if r in ("jax", "jaxlib", "repro")}

@@ -23,7 +23,7 @@ import torch
 
 from _torch_parity import rand_sparse, skewed
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import SparsityConfig
 from repro_torch.core import from_dense, spmm, spmv
 from repro_torch.core.timing import time_us
@@ -34,7 +34,7 @@ from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch, rgcsr_spmm_plain
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch, rgcsr_spmv_plain
 from repro_torch.models import ffn
 from repro_torch.models.spec import init_from_spec
-from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve import Engine, Request, ServeConfig
 
 # the launcher's module (the package's ``rgcsr_spmm`` attribute is the
 # ``ops`` wrapper)
@@ -311,3 +311,121 @@ def test_full_width_generate_launches_k2_once_per_layer_and_token(cuda):
         and (out < cfg.vocab).all()
     assert [b.ffn.w_out.plan_builds for b in engine.model.layers] == [1, 1]
     np.testing.assert_array_equal(engine.generate(prompts, 8), out)
+
+
+# ------------------------------------------ serving sessions: the graph
+
+
+def _smoke_rgcsr():
+    """Smoke granite-3-2b (2 layers, d_model 64) with the RgCSR FFN, in
+    float32 (compute and KV cache)."""
+    return dataclasses.replace(
+        get_smoke("granite-3-2b"), dtype="float32", kv_cache_dtype="float32",
+        sparsity=SparsityConfig(enabled=True, density=0.25, group_size=128,
+                                impl="kernel"))
+
+
+def _session_requests(seed, lens, new):
+    rng = np.random.default_rng(seed)
+    return [Request(tokens=rng.integers(0, 512, (n,)).astype(np.int32),
+                    max_new_tokens=new) for n in lens]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_graph_replays_equal_eager_steps(cuda, layout):
+    """The captured step replayed against the same step run eagerly on the
+    card (the runner with its graph taken away): equal streams, equal
+    caches, and streams equal to generate() of each request alone."""
+    cfg = _smoke_rgcsr()
+    kw = dict(max_seq=64, n_slots=2, page_size=4, kv_layout=layout,
+              decode_chunk=8)
+    graph = Engine(cfg, ServeConfig(**kw), device=cuda)
+    eager = Engine(cfg, ServeConfig(**kw), device=cuda)
+    assert graph._loop.graph is not None
+    eager._loop.graph = None
+    outs = []
+    for eng in (graph, eager):
+        reqs = _session_requests(3, (10, 13, 7), 6)
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        outs.append(([r.out for r in reqs], [
+            {k: t.cpu() for k, t in c.items()} for c in eng._loop.caches]))
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        for key in a:
+            torch.testing.assert_close(a[key], b[key], rtol=1e-6, atol=1e-6)
+    for r_out, r in zip(outs[0][0], _session_requests(3, (10, 13, 7), 6)):
+        assert r_out == list(graph.generate(r.tokens[None, :], 6)[0])
+
+
+@pytest.mark.gpu
+def test_graph_counts_k2_once_per_layer_and_live_step(cuda):
+    cfg = _smoke_rgcsr()
+    eng = Engine(cfg, ServeConfig(max_seq=64, n_slots=3, page_size=4,
+                                  decode_chunk=4), device=cuda)
+    assert eng._loop.launches_per_replay == {"rgcsr_spmm": 2}
+    replays = eng._loop.replays
+    reset_launch_counts()
+    reqs = _session_requests(4, (8, 11, 9, 6, 12), 7)
+    eng.serve(reqs)
+    st = eng.paging_stats
+    prefills = eng._session.prefill_count
+    assert eng._loop.replays - replays == st["decode_steps"]
+    assert launch_counts() == {"rgcsr_spmv": 0, "rgcsr_spmm": 2 * (
+        st["decode_steps"] + prefills), "ell_spmv": 0}
+    assert st["decode_dispatches"] < st["decode_steps"]
+
+
+@pytest.mark.gpu
+def test_graph_refuses_a_rebound_cache_tensor(cuda):
+    eng = Engine(_smoke_rgcsr(), ServeConfig(max_seq=64, n_slots=2,
+                                             page_size=4), device=cuda)
+    sess = eng.start_session(_session_requests(5, (8,), 6))
+    sess.step(1)
+    cache = eng._loop.caches[0]
+    cache["k"] = cache["k"].clone()
+    with pytest.raises(RuntimeError, match=r"caches\[0\]\['k'\]"):
+        sess.step(1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_graph_runs_past_max_seq_without_a_device_assert(cuda, layout):
+    """Slot 1 stays free while slot 0 serves two requests one after the
+    other: slot 1's index grows past max_seq inside the graph's chunks —
+    the dense write is dropped and the page lookup clamps, as in the
+    reference — and the card carries on."""
+    cfg = _smoke_rgcsr()
+    eng = Engine(cfg, ServeConfig(max_seq=16, n_slots=2, page_size=4,
+                                  kv_layout=layout, decode_chunk=8),
+                 device=cuda)
+    sess = eng.start_session()
+    reqs = _session_requests(6, (4, 5), 12)
+    for req in reqs:
+        sess.submit(req)
+        sess.drain()
+    torch.cuda.synchronize()
+    assert int(eng._loop.caches[0]["index"][1]) > 16
+    for r in reqs:
+        assert r.ok_like and r.out == list(
+            eng.generate(r.tokens[None, :], 12)[0])
+
+
+@pytest.mark.gpu
+def test_sampled_serving_replays_under_capture(cuda):
+    """temperature > 0: the engine's generator is registered with the
+    graph, so two engines from one seed draw the same streams, and every
+    token lies in the vocab."""
+    cfg = _smoke_rgcsr()
+    kw = dict(max_seq=64, n_slots=2, page_size=4, decode_chunk=4,
+              temperature=1.0, top_k=20, seed=7)
+    streams = []
+    for _ in range(2):
+        eng = Engine(cfg, ServeConfig(**kw), device=cuda)
+        reqs = _session_requests(7, (9, 12, 6), 10)
+        eng.serve(reqs)
+        streams.append([r.out for r in reqs])
+    assert streams[0] == streams[1]
+    assert all(0 <= t < 512 for s in streams[0] for t in s)
+    assert len({t for s in streams[0] for t in s}) > 3
