@@ -75,7 +75,28 @@ Phases (any failure exits non-zero and prints no result line):
    times; K2 held against its plain version (fp32 and bf16) on layer 0's
    kept plan at d = 8 and at every prompt and recompute length the
    sessions prefilled; K2 at d = 8 against its bound; peak memory;
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+8. router: two replicas of the same model behind ``Router``, built with
+   ``params=first.params`` (one model: weights, compute-dtype copies and
+   K2 plans shared).  (a) In float32 (compute and KV cache), 2 replicas ×
+   2 slots, 6 requests (prompts of 48–160 tokens, 16–24 new), replica 1
+   killed by an injected fault at its decode step 2: every stream equal
+   to ``Engine.generate`` of its request alone under the margin rule, one
+   fault, a migration and a restart (the restarted replica keeps its
+   graph); K2's launch counter, set to 0 just before and read just
+   after, must show 40 launches per prefill and per graph replay of
+   either replica; the fleet builds 40 plans; the second replica adds
+   only its KV pool and loop state plus its graph's memory.  (b) In
+   bfloat16, phase 7(b)'s 16 requests on 2 replicas × 4 slots: tokens/s
+   beside phase 7(b)'s, per replica decode steps, dispatches and replays,
+   what a caller waits per decode step, K2 launches as in (a); K2 held
+   against its plain version at every width this phase ran that phase 7
+   did not.  (c) ``launch.serve.main`` in-process on dense granite-3-2b:
+   the failover drill with its Chrome trace validated and cross-checked
+   against its metrics, the crash drill (every dead engine collected
+   before the fleet is rebuilt, the rebuilt fleet's live tensors equal to
+   the first's) and the page-corruption drill (one page quarantined, no
+   failure), each returning 0;
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -87,13 +108,18 @@ their size.  Where no cancellation happens this is rtol = atol = tol.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -116,6 +142,10 @@ SESS_PAGE, SESS_CHUNK = 16, 8
 SESS_A_MIX, SESS_A_SLOTS, SESS_A_MAX_SEQ, SESS_A_PAGES = (
     (6, 48, 200, 24, 40), 4, 320, 41)
 SESS_B_MIX, SESS_B_SLOTS, SESS_B_MAX_SEQ = (16, 64, 256, 64, 64), 8, 512
+# the router phase: (a) fp32 failover drill, (b) bf16 fleet (phase 7(b)'s
+# requests; 2 replicas x 4 slots match its 8 slots)
+ROUTER_A_MIX, ROUTER_A_SLOTS, ROUTER_A_MAX_SEQ = (6, 48, 160, 16, 24), 2, 192
+ROUTER_B_SLOTS = 4
 LOGIT_TOL, MARGIN_TOL = 1e-4, 1e-3
 
 KERNEL_META = {
@@ -293,7 +323,12 @@ def main() -> int:
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import init_params
     from repro_torch.models.spec import init_from_spec
-    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import export as obs_export
+    from repro_torch.serve import (Engine, Request, Router, RouterConfig,
+                                   ServeConfig)
+    from repro_torch.serve import router as router_mod
+    from repro_torch.train.fault import FaultConfig, FaultInjector
 
     dev = torch.device(DEVICE)
     failures = []
@@ -897,10 +932,11 @@ def main() -> int:
                             for name, (n, us) in top) + f" {tag}")
 
     # K2 per layer at the serving widths, bf16, on layer 0's kept plan
-    def k2_serving_entry(lay, d, launches, max_err):
+    def k2_serving_entry(lay, d, launches, max_err, where=""):
         """Times of K2 at width ``d`` on ``lay``'s kept bf16 plan, beside
         its bound, its plain version, the PyTorch CSR product and the
-        dense bf16 product of the layer's dense equivalent."""
+        dense bf16 product of the layer's dense equivalent; ``where``
+        names the phase in the entry's name."""
         plan = lay.plan_for(torch.bfloat16)
         w32 = dense_equivalent(lay)
         w16 = w32.bfloat16()
@@ -924,7 +960,7 @@ def main() -> int:
                 log(f"library csr {ltag}: {err}")
             del a_csr
         lib_tag = "bf16" if "bf16" in lib else "fp32"
-        e = {"name": f"rgcsr_spmm@{SERVE_ARCH} w_out d{d} bf16",
+        e = {"name": f"rgcsr_spmm@{SERVE_ARCH} w_out d{d} bf16{where}",
              "route": "cuda", "source": KERNEL_META["rgcsr_spmm"][0],
              "replaces": KERNEL_META["rgcsr_spmm"][1],
              "launches": launches, "max_abs_err": max_err,
@@ -986,13 +1022,15 @@ def main() -> int:
     t1 = time.perf_counter()
     prefill_widths = set()      # K2's d in the sessions' prefills
 
-    def tally_prefills(eng, k2=None):
-        """Wrap ``eng._prefill``: record each prompt length and, given a
-        list ``k2``, the K2 launches each prefill made."""
+    def tally_prefills(eng, k2=None, widths=None):
+        """Wrap ``eng._prefill``: record each prompt length (in
+        ``widths``, default the session phase's set) and, given a list
+        ``k2``, the K2 launches each prefill made."""
         orig = eng._prefill
+        widths = prefill_widths if widths is None else widths
 
         def prefill(batch):
-            prefill_widths.add(int(batch["tokens"].shape[1]))
+            widths.add(int(batch["tokens"].shape[1]))
             before = launch_counts()["rgcsr_spmm"]
             out = orig(batch)
             if k2 is not None:
@@ -1000,6 +1038,26 @@ def main() -> int:
             return out
 
         eng._prefill = prefill
+
+    def same_streams(eng, reqs, oracles, s_max):
+        """Per request: its stream equals ``oracles`` (``generate`` of it
+        alone) up to the first step whose top-2 margin is below
+        ``MARGIN_TOL`` · max|logit| in ``eng``'s own greedy run."""
+        same = []
+        for r, want in zip(reqs, oracles):
+            got = np.asarray(r.out)
+            diff = np.flatnonzero(got != want) if len(got) == len(want) \
+                else [0]
+            if len(diff):
+                _, margins, peaks = greedy_trace(
+                    eng.model, torch.from_numpy(r.tokens[None, :]).to(dev),
+                    s_max, r.max_new_tokens, vocab)
+                close = [i for i, (m, pk) in enumerate(zip(margins, peaks))
+                         if m < MARGIN_TOL * pk]
+                same.append(bool(close) and diff[0] >= close[0])
+            else:
+                same.append(True)
+        return same
 
     oracles = None
     for chunk in (SESS_CHUNK, 1):
@@ -1013,20 +1071,7 @@ def main() -> int:
         tally_prefills(eng)
         eng.serve(reqs)
         st = eng.paging_stats
-        same = []
-        for r, want in zip(reqs, oracles):
-            got = np.asarray(r.out)
-            diff = np.flatnonzero(got != want) if len(got) == len(want) \
-                else [0]
-            if len(diff):
-                _, margins, peaks = greedy_trace(
-                    eng.model, torch.from_numpy(r.tokens[None, :]).to(dev),
-                    SESS_A_MAX_SEQ, r.max_new_tokens, vocab)
-                close = [i for i, (m, pk) in enumerate(zip(margins, peaks))
-                         if m < MARGIN_TOL * pk]
-                same.append(bool(close) and diff[0] >= close[0])
-            else:
-                same.append(True)
+        same = same_streams(eng, reqs, oracles, SESS_A_MAX_SEQ)
         ok = (all(same) and st["completed"] == len(reqs)
               and all(r.ok_like for r in reqs))
         if chunk > 1:
@@ -1052,18 +1097,28 @@ def main() -> int:
                          n_slots=SESS_B_SLOTS, decode_chunk=SESS_CHUNK)
     eng.serve([Request(tokens=r.tokens[:64], max_new_tokens=8)
                for r in session_requests(*SESS_B_MIX)[:SESS_B_SLOTS]])
-    dispatches, prefill_k2 = [], []    # (s, steps, K2 launches); K2 each
+    def tally_dispatches(fleet):
+        """Wrap each engine's fused dispatch; per engine a list of
+        (seconds, steps, K2 launches) per dispatch."""
+        per = []
+        for e in fleet:
+            seen, fused = [], e._fused_decode
+
+            def timed(*args, fused=fused, seen=seen):
+                before = launch_counts()["rgcsr_spmm"]
+                t = time.perf_counter()
+                out = fused(*args)      # ends in the chunk's one host sync
+                seen.append((time.perf_counter() - t, out[1],
+                             launch_counts()["rgcsr_spmm"] - before))
+                return out
+
+            e._fused_decode = timed
+            per.append(seen)
+        return per
+
+    prefill_k2 = []                    # K2 launches of each prefill
     fused = eng._fused_decode
-
-    def timed_fused(*args):
-        before = launch_counts()["rgcsr_spmm"]
-        t = time.perf_counter()
-        out = fused(*args)      # ends in the chunk's one host sync
-        dispatches.append((time.perf_counter() - t, out[1],
-                           launch_counts()["rgcsr_spmm"] - before))
-        return out
-
-    eng._fused_decode = timed_fused
+    dispatches = tally_dispatches([eng])[0]   # (s, steps, K2 launches)
     tally_prefills(eng, prefill_k2)
     reqs = session_requests(*SESS_B_MIX)
     replays0 = eng._loop.replays
@@ -1104,8 +1159,9 @@ def main() -> int:
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("session bf16 launches, replays or completions")
+    session_tps = tokens / wall
     log(f"session bf16: {wall:.3f} s for {tokens} tokens, "
-        f"{tokens / wall:.1f} tokens/s; a caller waits {step_wait:.3f} ms "
+        f"{session_tps:.1f} tokens/s; a caller waits {step_wait:.3f} ms "
         f"per decode step (fused dispatches, {SESS_CHUNK} steps each) and "
         f"{prefill_wait:.3f} ms per prefill (mean) {tag}")
 
@@ -1194,6 +1250,321 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"session peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"{tag}; phase 7 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. the router: two replicas of one model behind Router — the
+    # failover drill in fp32, a bf16 fleet, the launcher's drills
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    router_widths = set()                     # K2's d in the fleets' prefills
+    checked = {SESS_B_SLOTS} | prefill_widths  # held in phase 7 already
+
+    def state_bytes(loop):
+        """An engine's serving state: its KV caches and the fused loop's
+        tensors."""
+        ts = [t for c in loop.caches for t in c.values()]
+        ts += [loop.inputs, loop.outputs, loop.cur_tok]
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def live_bytes():
+        """Live bytes of the caching allocator: (tensors on the default
+        stream in the default pool — KV caches, loop state, weights —,
+        everything else: CUDA graph pools and what the capture's streams
+        keep, each stream's cuBLAS workspace)."""
+        plain = other = 0
+        for seg in torch.cuda.memory_snapshot():
+            n = sum(b["size"] for b in seg["blocks"]
+                    if b["state"] == "active_allocated")
+            if seg["stream"] == 0 and not any(
+                    seg.get("segment_pool_id", (0, 0))):
+                plain += n
+            else:
+                other += n
+        return plain, other
+
+    def per_replica(router, key):
+        """``key`` summed over each replica's retired and live sessions."""
+        return [sum(s.get(key, 0) for s in rep.retired_stats)
+                + (rep.session.stats_snapshot()[key] if rep.session else 0)
+                for rep in router.replicas]
+
+    # (a) float32 failover drill: replica 1 dies at its decode step 2
+    t1 = time.perf_counter()
+    fc = FaultConfig(max_restarts=3, backoff_s=0.1)
+    scfg_a = ServeConfig(max_seq=ROUTER_A_MAX_SEQ, n_slots=ROUTER_A_SLOTS,
+                         page_size=SESS_PAGE, decode_chunk=SESS_CHUNK)
+    first = Engine(cfg32, scfg_a, params=tree, device=dev, fault_cfg=fc)
+    first._loop                      # its caches and its captured graph
+    torch.cuda.synchronize()
+    mem1, (plain1, other1) = torch.cuda.memory_allocated(), live_bytes()
+    second = Engine(cfg32, scfg_a, params=first.params, fault_cfg=fc)
+    second.fault_injector = FaultInjector(fail_at_steps=(("replica", 2),))
+    torch.cuda.synchronize()
+    at_init = torch.cuda.memory_allocated() - mem1
+    second._loop
+    torch.cuda.synchronize()
+    grew = torch.cuda.memory_allocated() - mem1
+    plain2, other2 = live_bytes()
+    kv2, graph2 = state_bytes(second._loop), other2 - other1
+    builds = sum(m.plan_builds for m in first.model.modules()
+                 if isinstance(m, ffn_mod.SparseLinear))
+    # the state's tensors sit in blocks rounded up to 512 bytes
+    ok = (at_init == 0 and plain2 - plain1 <= kv2 + 2**20
+          and grew <= kv2 + 2**20 + graph2 and builds == n_layers
+          and second.model is first.model and second.plans_warmed == 0)
+    log(f"router fp32 fleet: 2 replicas of one model; plan builds for the "
+        f"fleet {builds} (want {n_layers}), second replica warmed "
+        f"{second.plans_warmed}; memory_allocated grew "
+        f"{grew / 2**20:.1f} MiB from one engine to two ({at_init} bytes "
+        f"when the second was built, the rest at its first session): "
+        f"{(plain2 - plain1) / 2**20:.1f} MiB of tensors against its KV "
+        f"pool and loop state of {kv2 / 2**20:.1f} MiB, and "
+        f"{graph2 / 2**20:.1f} MiB for its graph (its private pool and "
+        f"its capture stream's cuBLAS workspace) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("router: the second replica did not share the "
+                        "model or allocated more than its own state")
+    fleet = [first, second]
+    oracles = [first.generate(r.tokens[None, :], r.max_new_tokens)[0]
+               for r in session_requests(*ROUTER_A_MIX)]
+    router = Router(fleet, cfg=RouterConfig(n_replicas=2), fault_cfg=fc)
+    runners = [e._runner for e in fleet]
+    prefill_k2 = []
+    for e in fleet:
+        tally_prefills(e, prefill_k2, router_widths)
+    per = tally_dispatches(fleet)
+    reqs = session_requests(*ROUTER_A_MIX)
+    replays0 = [e._loop.replays for e in fleet]
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    router.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    fleet_counts = launch_counts()
+    st = router.stats()
+    steps = st["decode_steps"]
+    replays = sum(e._loop.replays - r0 for e, r0 in zip(fleet, replays0))
+    k2_decode = sum(k for seen in per for _, _, k in seen)
+    same = same_streams(first, reqs, oracles, ROUTER_A_MAX_SEQ)
+    ok = (all(same) and all(r.ok_like for r in reqs)
+          and st["replica_faults"] == 1 and st["migrations"] >= 1
+          and st["replica_restarts"] == 1
+          and fleet_counts == {"rgcsr_spmv": 0, "ell_spmv": 0,
+                               "rgcsr_spmm": n_layers * (steps
+                                                         + len(prefill_k2))}
+          and prefill_k2 == [n_layers] * len(prefill_k2)
+          and k2_decode == n_layers * steps and replays == steps
+          and [e._runner for e in fleet] == runners
+          and all(r.graph is not None for r in runners))
+    log(f"router fp32 failover: {len(reqs)} requests on 2 replicas x "
+        f"{ROUTER_A_SLOTS} slots (prompts {[len(r.tokens) for r in reqs]}, "
+        f"new {[r.max_new_tokens for r in reqs]}), replica 1 killed at its "
+        f"decode step 2: statuses {[r.status for r in reqs]}, retries "
+        f"{[r.retries for r in reqs]}; replica faults "
+        f"{st['replica_faults']}, migrations {st['migrations']}, restarts "
+        f"{st['replica_restarts']}, states {st['replica_states']}; decode "
+        f"steps per replica {per_replica(router, 'decode_steps')}, "
+        f"dispatches {per_replica(router, 'decode_dispatches')}, graph "
+        f"replays {replays}, one graph per engine kept across the restart: "
+        f"{[e._runner for e in fleet] == runners}; K2 launches "
+        f"{fleet_counts['rgcsr_spmm']} = {n_layers} x ({steps} steps + "
+        f"{len(prefill_k2)} prefills), in the fused dispatches {k2_decode};"
+        f" streams equal to generate (margin rule): {same}; degraded marks "
+        f"{st['degraded_marks']}, straggler steps "
+        f"{st['straggler_decode_steps_per_replica']} (wall clock, not "
+        f"checked); {wall:.3f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("router fp32 failover drill")
+    del router, fleet, first, second, runners, per
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"router fp32 phase in {time.perf_counter() - t1:.1f} s")
+
+    # (b) bfloat16 fleet: phase 7(b)'s requests on 2 replicas of 4 slots
+    t1 = time.perf_counter()
+    scfg_b = ServeConfig(max_seq=SESS_B_MAX_SEQ, n_slots=ROUTER_B_SLOTS,
+                         page_size=SESS_PAGE, decode_chunk=SESS_CHUNK)
+    router = Router.build(serve_cfg, scfg_b, 2, params=tree, device=dev)
+    fleet = [rep.engine for rep in router.replicas]
+    router.serve([Request(tokens=r.tokens[:64], max_new_tokens=8)
+                  for r in session_requests(*SESS_B_MIX)[:SESS_B_SLOTS]])
+    prefill_k2 = []
+    for e in fleet:
+        tally_prefills(e, prefill_k2, router_widths)
+    per = tally_dispatches(fleet)
+    steps0 = per_replica(router, "decode_steps")
+    disp0 = per_replica(router, "decode_dispatches")
+    replays0 = [e._loop.replays for e in fleet]
+    reqs = session_requests(*SESS_B_MIX)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    router.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    fleet_counts = launch_counts()
+    steps = [a - b for a, b in zip(per_replica(router, "decode_steps"),
+                                   steps0)]
+    disp = [a - b for a, b in zip(per_replica(router, "decode_dispatches"),
+                                  disp0)]
+    replays = [e._loop.replays - r0 for e, r0 in zip(fleet, replays0)]
+    k2_decode = sum(k for seen in per for _, _, k in seen)
+    tokens = sum(len(r.out) for r in reqs)
+    step_wait = sum(dt for seen in per for dt, _, _ in seen) / max(
+        1, sum(n for seen in per for _, n, _ in seen)) * 1e3
+    ok = (fleet_counts == {"rgcsr_spmv": 0, "ell_spmv": 0,
+                           "rgcsr_spmm": n_layers * (sum(steps)
+                                                     + len(prefill_k2))}
+          and k2_decode == n_layers * sum(steps) and replays == steps
+          and prefill_k2 == [n_layers] * len(prefill_k2)
+          and all(r.ok_like for r in reqs)
+          and all(0 <= tk < vocab for r in reqs for tk in r.out))
+    log(f"router bf16 fleet: {len(reqs)} requests (phase 7(b)'s) on 2 "
+        f"replicas x {ROUTER_B_SLOTS} slots: {tokens} tokens in "
+        f"{wall:.3f} s, {tokens / wall:.1f} tokens/s (phase 7(b), one "
+        f"engine of {SESS_B_SLOTS} slots, this run: {session_tps:.1f}); "
+        f"per replica decode steps {steps}, dispatches {disp}, graph "
+        f"replays {replays}; a caller waits {step_wait:.3f} ms per decode "
+        f"step (fused dispatches); {len(prefill_k2)} prefills; K2 launches "
+        f"{fleet_counts['rgcsr_spmm']} = {n_layers} x ({sum(steps)} steps "
+        f"+ {len(prefill_k2)} prefills), in the fused dispatches "
+        f"{k2_decode} {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failures.append("router bf16 fleet launches, replays or statuses")
+    # K2 against its plain version on the fleet's kept plan at every width
+    # this phase ran that phase 7 did not: each replica's slots, the
+    # prompts and the recompute lengths after the migration
+    lay = fleet[0].model.layers[0].ffn.w_out
+    plan = lay.plan_for(torch.bfloat16)
+    new = sorted(({ROUTER_A_SLOTS, ROUTER_B_SLOTS} | router_widths)
+                 - checked)
+    for d in new:
+        xw = torch.from_numpy(rng.standard_normal(
+            (serve_cfg.d_ff, d)).astype(np.float32)).to(dev)
+        k2_check(f"granite w_out d{d} fp32 (router, kept plan)", plan, xw)
+        k2_check(f"granite w_out d{d} bf16 (router, kept plan)", plan, xw,
+                 torch.bfloat16, BF16_TOL, key=f"w_out d{d} router")
+    log(f"router: K2 held against its plain version at {len(new)} new "
+        f"widths {new}")
+    entries.append(k2_serving_entry(
+        lay, ROUTER_B_SLOTS, k2_decode,
+        errs[("rgcsr_spmm", f"w_out d{ROUTER_B_SLOTS} router")],
+        where=" router"))
+    del router, fleet, lay, plan, per
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"router bf16 phase in {time.perf_counter() - t1:.1f} s")
+
+    # (c) the launcher's drills in-process, dense granite-3-2b (the
+    # launcher serves what get_config gives), every file in a temporary
+    # directory
+    t1 = time.perf_counter()
+    del tree
+
+    def launch(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = launch_serve.main(["--arch", SERVE_ARCH] + argv)
+        out = buf.getvalue()
+        for line in out.splitlines():
+            log(f"router launcher: {line}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        return rc, out
+
+    def line_of(out, prefix):
+        return next((ln for ln in out.splitlines()
+                     if ln.startswith(prefix)), "")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = str(Path(tmp) / "trace.json")
+        metrics_path = str(Path(tmp) / "metrics.json")
+        rc, out = launch(["--replicas", "2", "--kill-replica", "1",
+                          "--kill-at-step", "2", "--mixed-lengths",
+                          "--trace-out", trace_path,
+                          "--metrics-json", metrics_path])
+        problems = ["no trace"]
+        if rc == 0:
+            doc = json.loads(Path(trace_path).read_text())
+            stats = json.loads(Path(metrics_path).read_text())
+            problems = (obs_export.validate_chrome_trace(doc)
+                        + obs_export.cross_check_counters(doc, stats))
+        ok = rc == 0 and problems == []
+        log(f"router launcher failover drill: exit {rc}; trace validated "
+            f"and cross-checked against the metrics: {problems or 'clean'}"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("router launcher failover drill")
+
+        # the dead fleet must be collected before the rebuilt one is up:
+        # weak references to every engine, read when the launcher has
+        # released the dead ones, and the live tensors with each fleet up
+        built, made, alive = [], [], []
+        init, eng_init = router_mod.Router.__init__, Engine.__init__
+        release = launch_serve._release
+
+        def recording_init(self, *args, **kw):
+            init(self, *args, **kw)
+            torch.cuda.synchronize()
+            built.append((torch.cuda.memory_allocated(), live_bytes()[0],
+                          time.perf_counter()))
+
+        def tracked_init(self, *args, **kw):
+            eng_init(self, *args, **kw)
+            made.append(weakref.ref(self))
+
+        def counting_release():
+            release()
+            alive.append(sum(r() is not None for r in made))
+            built.append((None, None, time.perf_counter()))
+
+        router_mod.Router.__init__ = recording_init
+        Engine.__init__ = tracked_init
+        launch_serve._release = counting_release
+        try:
+            t = time.perf_counter()
+            rc, out = launch(["--replicas", "2", "--snapshot-every", "1",
+                              "--snapshot-dir", str(Path(tmp) / "snaps"),
+                              "--kill-process-at", "6"])
+            drill_s = time.perf_counter() - t
+        finally:
+            router_mod.Router.__init__ = init
+            Engine.__init__ = eng_init
+            launch_serve._release = release
+        drill = line_of(out, "crash drill: restored")
+        up = [b for b in built if b[0] is not None]
+        rebuild_s = built[-1][2] - built[1][2] if len(built) == 3 else -1
+        ok = (rc == 0 and drill.endswith(" 0 not ok") and alive == [0]
+              and len(up) == 2 and up[1][1] <= up[0][1] + 2**20)
+        log(f"router launcher crash drill: exit {rc}; {drill!r}; dead "
+            f"engines alive after the release {alive}; with the first "
+            f"fleet up / the rebuilt one: memory_allocated "
+            + " / ".join(f"{b[0] / 2**30:.3f}" for b in up)
+            + " GiB, of it tensors on the default stream "
+            + " / ".join(f"{b[1] / 2**30:.3f}" for b in up)
+            + f" GiB; rebuild (release to the new fleet's graphs captured) "
+            f"{rebuild_s:.2f} s; drill {drill_s:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("router launcher crash drill")
+
+        rc, out = launch(["--kv-integrity", "--corrupt-page", "2"])
+        integrity = line_of(out, "integrity:")
+        overload = line_of(out, "overload:")
+        ok = (rc == 0 and " 1 pages quarantined" in integrity
+              and " 0 failed" in overload)
+        log(f"router launcher page-corruption drill: exit {rc}; "
+            f"{integrity!r} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("router launcher page-corruption drill")
+    torch.cuda.synchronize()
+    log(f"router launcher drills in {time.perf_counter() - t1:.1f} s")
+    log(f"router peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}; "
+        f"phase 8 in {time.perf_counter() - t0:.1f} s")
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:

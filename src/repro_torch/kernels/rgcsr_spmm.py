@@ -110,7 +110,11 @@ def rgcsr_spmm_launch(plan, x, *, d_tile: int = LANES,
     work = plan.work_list("rgcsr_spmm", n_sm=_build.sm_count(dev),
                           part_bytes=g * d * 4, piece_rows=piece_rows)
     y = torch.empty((plan.n_groups * g, d), dtype=vals.dtype, device=dev)
-    # the fp32 partial workspace, none when no group is split
+    # the fp32 partial workspace, none when no group is split.  Allocated
+    # per call: under a decode graph's capture it lands in that graph's
+    # private pool, so engines that share a plan (router replicas) never
+    # share a workspace; their replays run in turn on one stream, each
+    # chunk ending in a sync.
     ws = (torch.empty((work.n_parts, g, d), dtype=torch.float32, device=dev)
           if work.n_parts else None)
     fn = _build.function(

@@ -7,8 +7,7 @@ instants (``i``), counters (``C``), and async request lifelines
 test that drives the engine with a FakeClock gets byte-identical traces
 across runs: no wall-clock, no ``id()``-derived identifiers, no dict
 ordering leaks.  Export to Chrome trace-event JSON lives in
-:mod:`repro.obs.export` (not ported yet: ROADMAP queue 1); this
-module only records.
+:mod:`repro.obs.export`; this module only records.
 
 Tracks are ``(process, thread)`` string pairs: one process per replica
 (``replica0`` ...) plus ``router``, and within a replica one lane per

@@ -31,9 +31,11 @@ With an RgCSR FFN (``cfg.sparsity.enabled``, ``impl="kernel"``) every
 layer's ``w_out`` product runs through K2 — in each prefill and in every
 decode step, captured ones included — and ``Engine.__init__`` builds each
 layer's K2 plan at the compute dtype first (``plans_warmed``: one per
-layer).  ``warm_spmv_plans`` (the autotuner and row-sharded SpMV) is not
-ported yet; neither are the router, ``launch/serve.py`` and the trace
-export (ROADMAP queue 1).
+layer).  Engines built with ``params=other.params`` share ``other``'s
+model — its weights, their compute-dtype copies and its K2 plans — and add
+only their own serving state (the router's replicas).
+``warm_spmv_plans`` (the autotuner and row-sharded SpMV) is not ported
+yet (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -149,8 +151,7 @@ class Request:
       killed this request; the rest of the batch kept serving;
     * ``"timed_out"``     — its ``deadline_s`` passed (queued or
       mid-decode); partial output is kept in ``out``;
-    * ``"shed"``          — refused at a router's door (the router is not
-      ported yet).
+    * ``"shed"``          — refused at a router's door (backpressure).
 
     ``error`` carries the reason for the failure statuses.
     ``deadline_s`` is a completion deadline in seconds measured from the
@@ -190,14 +191,17 @@ class Request:
 
 class Engine:
     """``params``: a parameter tree for the model (see
-    :mod:`repro_torch.models.model`); without one the model draws its own
-    from ``serve_cfg.seed`` on ``device``.  ``fault_cfg`` (a
+    :mod:`repro_torch.models.model`), or another engine's :attr:`params`
+    (its :class:`~repro_torch.models.LanguageModel`), which this engine
+    then shares as it is — weights, compute-dtype copies and K2 plans —
+    on its device; without one the model draws its own from
+    ``serve_cfg.seed`` on ``device`` (default ``"cuda"``).  ``fault_cfg`` (a
     :class:`~repro_torch.train.fault.FaultConfig`) drives the watchdog
     that flags straggler decode steps; ``fault_injector`` is consulted at
     the per-request prefill and decode sites of every session."""
 
     def __init__(self, model_cfg, serve_cfg: ServeConfig, params=None, *,
-                 device="cuda", fault_cfg=None, fault_injector=None):
+                 device=None, fault_cfg=None, fault_injector=None):
         self.cfg = serve_cfg
         self.fault_cfg = fault_cfg if fault_cfg is not None else FaultConfig()
         self.fault_injector = fault_injector
@@ -210,8 +214,19 @@ class Engine:
         # fast path.
         self.tracer = None
         self.trace_label = "replica0"
-        self.model = LanguageModel(model_cfg, params, device=device,
-                                   seed=serve_cfg.seed)
+        shared = isinstance(params, LanguageModel)
+        if shared:
+            if params.cfg != model_cfg:
+                raise ValueError("params is a model of another config")
+            if device is not None and \
+                    torch.device(device).type != params.device.type:
+                raise ValueError(f"params lives on {params.device}, not "
+                                 f"on {device}")
+            self.model = params
+        else:
+            self.model = LanguageModel(model_cfg, params,
+                                       device=device or "cuda",
+                                       seed=serve_cfg.seed)
         self.device = self.model.device
         self._decode = device_loop.make_decode_step(self.model)
         self._generator = torch.Generator(device=self.device).manual_seed(
@@ -220,9 +235,11 @@ class Engine:
         # the session's metrics registry (EngineSession.stats_snapshot)
         self.paging_stats: Optional[Dict] = None
         # Sparse (RgCSR) weights: build every layer's K2 plan at model load,
-        # at the compute dtype the layers will ask for.
+        # at the compute dtype the layers will ask for (a shared model's
+        # engine found them built).
         self.plans_warmed = 0
-        if model_cfg.sparsity.enabled and model_cfg.sparsity.impl_is_kernel():
+        if model_cfg.sparsity.enabled and \
+                model_cfg.sparsity.impl_is_kernel() and not shared:
             self.plans_warmed = ops.warm_plans_from_params(
                 self.model, dtype=self.model.compute_dtype)
         # the serving state: the session's KV caches and the fused loop
@@ -236,6 +253,12 @@ class Engine:
         self._runner: Optional[device_loop.FusedDecode] = None
         self._fused_decode = self._run_fused
         self._session: Optional["EngineSession"] = None
+
+    @property
+    def params(self) -> LanguageModel:
+        """What ``Engine(cfg, scfg, params=engine.params)`` shares: the
+        model, with its weights, compute-dtype copies and K2 plans."""
+        return self.model
 
     @property
     def _loop(self) -> device_loop.FusedDecode:

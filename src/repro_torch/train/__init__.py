@@ -1,7 +1,8 @@
-"""Training substrate: so far only the fault-tolerance pieces that serving
-uses — a copy of ``repro.train.fault`` (``FaultConfig``, ``FaultInjector``,
-``Watchdog``, ``ProcessKilled``).  The optimizer, trainer, data and
-checkpointing are not ported yet (ROADMAP queue 1)."""
+"""Training substrate: so far the pieces that serving uses — a copy of
+``repro.train.fault`` (``FaultConfig``, ``FaultInjector``, ``Watchdog``,
+``ProcessKilled``) and ``train.checkpoint`` (step checkpoints in the
+reference's on-disk layout, and the serving snapshots).  The optimizer,
+trainer and data are not ported yet (ROADMAP queue 1)."""
 from repro_torch.train.fault import (  # noqa: F401
     FaultConfig, FaultInjector, ProcessKilled, Watchdog)
 

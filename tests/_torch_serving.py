@@ -1,5 +1,7 @@
 """Helpers shared by the port's serving parity tests
-(``tests/test_torch_paging.py``, ``tests/test_torch_serve.py``).
+(``tests/test_torch_paging.py``, ``test_torch_serve.py``,
+``test_torch_router.py``, ``test_torch_export.py``,
+``test_torch_launch.py``).
 
 Both packages serve smoke granite-3-2b in float32 (compute and KV cache)
 from the same weights: the reference's, carried across with
@@ -9,11 +11,14 @@ their time, one reference engine per (weights, ``max_seq``) is built and
 shallow-copied for every other ``ServeConfig``, each copy taking the
 configuration's own fused loop (built once per loop setting) behind the
 reference's trace hook.  The copy runs the reference's own ``serve`` code;
-only the compiled functions are shared.
+only the compiled functions are shared.  A fleet (``fleet``) of either
+package is a router over such engines on one fake clock; ``REF`` and
+``PORT`` name each package's router, fault and checkpoint classes.
 """
 import copy
 import dataclasses
 import time
+import types
 
 import jax
 import numpy as np
@@ -22,13 +27,21 @@ from repro.configs import get_smoke as ref_get_smoke
 from repro.models import LanguageModel as RefModel
 from repro.serve import Engine as RefEngine
 from repro.serve import Request as RefRequest
+from repro.serve import Router as RefRouter
+from repro.serve import RouterConfig as RefRouterConfig
 from repro.serve import ServeConfig as RefServeConfig
 from repro.serve import device_loop as ref_device_loop
+from repro.train import checkpoint as ref_checkpoint
 from repro.train.fault import FaultConfig as RefFaultConfig
+from repro.train.fault import FaultInjector as RefInjector
+from repro.train.fault import ProcessKilled as RefProcessKilled
 from repro_torch.configs import get_smoke
 from repro_torch.configs.base import SparsityConfig
 from repro_torch.models import params_from_numpy
-from repro_torch.serve import Engine, Request, ServeConfig
+from repro_torch.serve import (Engine, Request, Router, RouterConfig,
+                               ServeConfig)
+from repro_torch.train import checkpoint
+from repro_torch.train.fault import FaultConfig, FaultInjector, ProcessKilled
 
 SPARSE = SparsityConfig(enabled=True, density=0.25, group_size=128,
                         impl="kernel")
@@ -189,3 +202,57 @@ def oracle(eng, req):
                                          max_new_tokens=req.max_new_tokens
                                          )[0]]
 
+
+
+# ------------------------------------------------------------------ fleets
+
+REF = types.SimpleNamespace(
+    Router=RefRouter, RouterConfig=RefRouterConfig,
+    FaultConfig=RefFaultConfig, FaultInjector=RefInjector,
+    ProcessKilled=RefProcessKilled, checkpoint=ref_checkpoint)
+PORT = types.SimpleNamespace(
+    Router=Router, RouterConfig=RouterConfig, FaultConfig=FaultConfig,
+    FaultInjector=FaultInjector, ProcessKilled=ProcessKilled,
+    checkpoint=checkpoint)
+SIDES = (REF, PORT)
+
+
+def replicas(side, n, sparse=False, fault_cfg=None, params=None,
+             **serve_kw):
+    """``n`` engines of one package sharing one model's weights (port:
+    ``params=first.params``, or ``params`` itself, a port model, when
+    given; reference: copies of one compiled engine).  Serving defaults:
+    ``max_seq`` 64, 2 slots, 4-token pages."""
+    kw = dict(max_seq=64, n_slots=2, page_size=4)
+    kw.update(serve_kw)
+    if side is REF:
+        return [ref_engine(sparse, fault_cfg=fault_cfg, **kw)
+                for _ in range(n)]
+    first = port_engine(sparse, fault_cfg=fault_cfg, **kw) \
+        if params is None else Engine(params.cfg, ServeConfig(**kw),
+                                      params=params, fault_cfg=fault_cfg)
+    return [first] + [Engine(first.model.cfg, first.cfg,
+                             params=first.params, fault_cfg=fault_cfg)
+                      for _ in range(n - 1)]
+
+
+def fleet(side, n, clock, fault_cfg=None, router_cfg=None, injectors=None,
+          sparse=False, params=None, tracer=None, **serve_kw):
+    """A router over ``n`` replicas on ``clock`` (each decode step one
+    second; the router sleeps by advancing it).  ``injectors``: {replica
+    index: FaultInjector}, attached before the router opens sessions."""
+    es = replicas(side, n, sparse, fault_cfg, params, **serve_kw)
+    for idx, inj in (injectors or {}).items():
+        es[idx].fault_injector = inj
+    for e in es:
+        e.clock = clock
+        tick_decode(e, clock)
+    return es, side.Router(es, cfg=router_cfg, fault_cfg=fault_cfg,
+                           clock=clock, sleep=clock.advance, tracer=tracer)
+
+
+def both(scenario, seed, lens, max_new, deadlines=None):
+    """Run ``scenario(side, reqs)`` on each package with equal requests;
+    returns its two results, reference first."""
+    return [scenario(side, reqs) for side, reqs in
+            zip(SIDES, requests(seed, lens, max_new, deadlines))]

@@ -1,0 +1,127 @@
+"""The port's step checkpoints (``train/checkpoint.py``): the reference's
+cases of ``test_train.py``, and checkpoints written by either package read
+by the other — a smoke granite-3-2b parameter tree saved by the reference
+and restored into a port model gives the reference's logits, and a port
+tree saved by the port comes back equal through the reference."""
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_serving import pair
+from repro.models import LanguageModel as RefModel
+from repro.train import checkpoint as ref_checkpoint
+from repro_torch.models import LanguageModel, params_from_numpy
+from repro_torch.train import checkpoint
+from repro_torch.train.checkpoint import (CheckpointManager, latest_step,
+                                          restore, save)
+
+torch.set_num_threads(1)
+
+
+# ------------------------------------------------- test_train.py's cases
+
+
+@pytest.mark.parametrize("leaf", [np.asarray, torch.from_numpy])
+def test_checkpoint_roundtrip_and_latest(tmp_path, leaf):
+    tree = {"a": leaf(np.arange(6, dtype=np.float32).reshape(2, 3)),
+            "b": {"c": leaf(np.asarray(7, np.int32))}}
+    d = str(tmp_path)
+    save(d, 5, tree)
+    save(d, 9, {"a": tree["a"] + 1, "b": {"c": tree["b"]["c"] + 1}})
+    assert latest_step(d) == 9
+    restored, manifest = restore(d, tree)
+    assert isinstance(restored["a"], np.ndarray)
+    np.testing.assert_array_equal(restored["a"], np.asarray(tree["a"]) + 1)
+    np.testing.assert_array_equal(restored["b"]["c"], 8)
+    assert manifest["keys"] == ["a", "b/c"]
+    restored5, _ = restore(d, tree, step=5)
+    np.testing.assert_array_equal(restored5["a"], np.asarray(tree["a"]))
+
+
+def test_checkpoint_structure_mismatch_detected(tmp_path):
+    save(str(tmp_path), 1, {"a": torch.zeros(3)})
+    with pytest.raises(ValueError):
+        restore(str(tmp_path), {"b": torch.zeros(3)})
+
+
+def test_checkpoint_manager_retention_and_async(tmp_path):
+    d = str(tmp_path)
+    mgr = CheckpointManager(d, keep=2, async_write=True)
+    for s in (1, 2, 3, 4):
+        x = torch.full((4,), float(s))
+        mgr.save(s, {"x": x})
+        x.fill_(-1.0)                  # after the hand-off: not written
+    mgr.wait()
+    steps = sorted(int(p.split("_")[1]) for p in os.listdir(d)
+                   if p.startswith("step_"))
+    assert steps == [3, 4]
+    np.testing.assert_array_equal(restore(d, {"x": 0})[0]["x"],
+                                  np.full(4, 4.0, np.float32))
+
+
+def test_sharded_restore_and_bfloat16_are_refused(tmp_path):
+    save(str(tmp_path), 1, {"a": torch.zeros(3)})
+    with pytest.raises(NotImplementedError, match="item 4"):
+        checkpoint.restore_sharded(str(tmp_path), {"a": 0}, shardings={})
+    with pytest.raises(NotImplementedError, match="item 4"):
+        CheckpointManager(str(tmp_path)).restore_latest(
+            {"a": 0}, shardings={"a": None})
+    with pytest.raises(TypeError, match="bfloat16"):
+        save(str(tmp_path), 2, {"a": torch.zeros(3, dtype=torch.bfloat16)})
+
+
+# ---------------------------------------------------- across the packages
+
+
+def test_a_reference_checkpoint_serves_in_the_port(tmp_path):
+    """The reference saves smoke granite-3-2b's parameters (its layout:
+    body layers stacked); the port restores them as numpy, carries them
+    into a model with ``params_from_numpy``, and its logits are the
+    reference's."""
+    ref_cfg, ref_params, cfg, tree = pair()
+    d = str(tmp_path)
+    ref_checkpoint.save(d, 3, ref_params, extra={"arch": cfg.name})
+    host = jax.device_get(ref_params)
+    restored, manifest = restore(d, host)
+    assert manifest["step"] == 3 and manifest["extra"] == {"arch": cfg.name}
+    flat = jax.tree_util.tree_leaves(host)
+    assert len(manifest["keys"]) == len(flat)
+    for got, want in zip(jax.tree_util.tree_leaves(restored), flat):
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_array_equal(got, want)
+    model = LanguageModel(cfg, params_from_numpy(cfg, restored,
+                                                 device="cpu"))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 12)).astype(
+        np.int32)
+    with torch.inference_mode():
+        got = model({"tokens": torch.from_numpy(toks)})[0]
+    want = RefModel(ref_cfg).forward(ref_params,
+                                     {"tokens": jnp.asarray(toks)})[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_a_port_checkpoint_restores_in_the_reference(tmp_path):
+    """The port saves its own parameter tree (one subtree per layer, the
+    RgCSR FFN's slot arrays among the leaves); the reference restores
+    equal arrays under the same keys."""
+    _, _, _, tree = pair(sparse=True)
+    d = str(tmp_path)
+    save(d, 7, tree)
+    like = jax.tree_util.tree_map(lambda t: t.numpy(), tree)
+    restored, manifest = ref_checkpoint.restore(d, like)
+    keys, leaves = checkpoint._flatten_with_keys(tree)
+    assert manifest["keys"] == keys
+    assert "layers/1/ffn/w_out/values2d" in keys
+    got = jax.tree_util.tree_leaves(restored)
+    assert len(got) == len(leaves)
+    for g, t in zip(got, leaves):
+        assert g.dtype == t.numpy().dtype
+        np.testing.assert_array_equal(g, t.numpy())
+    again, _ = restore(d, tree)
+    assert again.keys() == tree.keys()
+    assert len(again["layers"]) == len(tree["layers"])

@@ -176,7 +176,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     scanned = {str(f.relative_to(REPO)) for f in files}
     for module in ("obs/metrics.py", "obs/trace.py", "train/fault.py",
                    "serve/paging.py", "serve/device_loop.py",
-                   "serve/engine.py"):
+                   "serve/engine.py", "serve/router.py", "launch/serve.py",
+                   "obs/export.py", "train/checkpoint.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)

@@ -34,7 +34,9 @@ from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch, rgcsr_spmm_plain
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch, rgcsr_spmv_plain
 from repro_torch.models import ffn
 from repro_torch.models.spec import init_from_spec
-from repro_torch.serve import Engine, Request, ServeConfig
+from repro_torch.serve import Engine, Request, Router, RouterConfig, \
+    ServeConfig
+from repro_torch.train.fault import FaultConfig, FaultInjector
 
 # the launcher's module (the package's ``rgcsr_spmm`` attribute is the
 # ``ops`` wrapper)
@@ -429,3 +431,40 @@ def test_sampled_serving_replays_under_capture(cuda):
     assert streams[0] == streams[1]
     assert all(0 <= t < 512 for s in streams[0] for t in s)
     assert len({t for s in streams[0] for t in s}) > 3
+
+
+@pytest.mark.gpu
+def test_router_replicas_share_one_model_and_keep_their_graphs(cuda):
+    """Two replicas of one model behind the router, replica 1 killed at
+    its decode step 2: one plan per layer for the fleet, each replica its
+    own captured graph (kept across the restart), K2 once per layer per
+    prefill and per replay of either graph, streams equal to generate()."""
+    cfg = _smoke_rgcsr()
+    fc = FaultConfig(max_restarts=3, backoff_s=0.0)
+    scfg = ServeConfig(max_seq=64, n_slots=2, page_size=4, decode_chunk=8)
+    first = Engine(cfg, scfg, device=cuda, fault_cfg=fc)
+    second = Engine(cfg, scfg, params=first.params, fault_cfg=fc)
+    second.fault_injector = FaultInjector(fail_at_steps=(("replica", 2),))
+    router = Router([first, second], cfg=RouterConfig(n_replicas=2),
+                    fault_cfg=fc)
+    graphs = [e._loop.graph for e in (first, second)]
+    assert all(g is not None for g in graphs) and graphs[0] is not graphs[1]
+    prefills = []
+    for e in (first, second):
+        orig = e._prefill
+        e._prefill = lambda batch, orig=orig: (prefills.append(1),
+                                               orig(batch))[1]
+    reset_launch_counts()
+    reqs = _session_requests(9, (8, 11, 9, 6, 12), 7)
+    router.serve(reqs)
+    torch.cuda.synchronize()
+    st = router.stats()
+    assert st["replica_faults"] == 1 and st["migrations"] >= 1
+    assert [e._loop.graph for e in (first, second)] == graphs
+    assert launch_counts() == {"rgcsr_spmv": 0, "rgcsr_spmm": 2 * (
+        st["decode_steps"] + len(prefills)), "ell_spmv": 0}
+    assert [m.plan_builds for m in first.model.modules()
+            if isinstance(m, ffn.SparseLinear)] == [1, 1]
+    for r in reqs:
+        assert r.ok_like and r.out == list(
+            first.generate(r.tokens[None, :], 7)[0])
