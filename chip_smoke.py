@@ -96,7 +96,31 @@ Phases (any failure exits non-zero and prints no result line):
    before the fleet is rebuilt, the rebuilt fleet's live tensors equal to
    the first's) and the page-corruption drill (one page quarantined, no
    failure), each returning 0;
-9. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+9. tune: ``autotune_spmv`` on ``fem2d_2048`` and ``raj1_full`` and
+   ``autotune_spmm`` on ``raj1_full`` at d = 64, from CSR, with the default
+   candidate sets, every candidate timed on the card by ``torch.profiler``
+   (one session per search): candidates, plans built, pruned and timed,
+   the winner, ``baseline_us`` and ``speedup``, the search's host seconds,
+   each candidate's time; the winner within 1e-4 of float64 scipy, its
+   ``time_us(hold=True)`` beside its profiler time; a second search a memo
+   hit with no K1/K2 launch; ``Engine.warm_spmv_plans([raj1_full])`` and
+   then ``tuned_plan`` with no plan build.  The phase fails if any search
+   is timed by anything but the profiler;
+10. train (the reference trains its RgCSR FFN through the segment sum,
+   ``impl="ref"``, and so does the port: no K2 runs here).  (a) One
+   ``SparseLinear`` at granite-3-2b's ``w_out`` shape in fp32, 64 tokens:
+   the gradients of ``values2d`` and of x within 1e-4 · (1 + Σ|·|) of the
+   float64 dense equivalent's.  (b) ``launch/train.py --sparse-ffn`` on
+   granite-3-2b at full width and depth: bf16 compute, fp32 parameters,
+   AdamW, 4 steps of 4 × 128 tokens, every loss finite; per step the host
+   ms (ending in a synchronize), tokens/s and peak memory; one more step
+   under ``torch.profiler``: the card's busy time, its idle share and the
+   top kernels.  (c) The fault drill at full width, depth cut to 4 layers:
+   checkpoints every 2 steps, a fault at step 5; every loss within 5e-2 of
+   an uninterrupted run from the same seed (``index_add_`` on CUDA is not
+   bitwise repeatable), the last checkpoint restored into a new
+   ``Trainer`` with parameters and moments bitwise equal;
+11. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -147,6 +171,13 @@ SESS_B_MIX, SESS_B_SLOTS, SESS_B_MAX_SEQ = (16, 64, 256, 64, 64), 8, 512
 ROUTER_A_MIX, ROUTER_A_SLOTS, ROUTER_A_MAX_SEQ = (6, 48, 160, 16, 24), 2, 192
 ROUTER_B_SLOTS = 4
 LOGIT_TOL, MARGIN_TOL = 1e-4, 1e-3
+# the training phase: the launcher's --sparse-ffn (the segment sum, as the
+# reference trains), granite-3-2b at full width and depth; the fault drill
+# at full width, depth cut to DRILL_LAYERS
+TRAIN_SPARSITY = dict(SERVE_SPARSITY, impl="ref")
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_T = 4, 128, 4, 64
+DRILL_LAYERS, DRILL_STEPS, DRILL_FAULT, DRILL_CKPT = 4, 7, 5, 2
+REPLAY_TOL = 5e-2
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -274,6 +305,37 @@ def device_kernels(fn, calls: int):
     return out
 
 
+def live_cuda(top: int = 4) -> str:
+    """The card's allocated memory and its largest live storages, grouped
+    by (shape, dtype) of a tensor that holds each: what one phase leaves
+    to the next."""
+    import torch
+    gc.collect()
+    seen, groups = set(), collections.Counter()
+    for obj in gc.get_objects():
+        try:
+            if not (torch.is_tensor(obj) and obj.is_cuda):
+                continue
+            st = obj.untyped_storage()
+        except Exception:                  # noqa: BLE001 — a stray object
+            continue
+        if st.data_ptr() not in seen:
+            seen.add(st.data_ptr())
+            groups[(tuple(obj.shape), str(obj.dtype))] += st.nbytes()
+    big = ", ".join(f"{n / 2**30:.2f} GiB as {shape} {dt}"
+                    for (shape, dt), n in groups.most_common(top))
+    owners = collections.Counter()
+    for obj in gc.get_objects():
+        if type(obj).__name__ in ("LanguageModel", "Engine",
+                                  "EngineSession", "Router"):
+            refs = [type(r).__name__ for r in gc.get_referrers(obj)
+                    if type(r).__name__ != "frame"]
+            owners[f"{type(obj).__name__} <- {','.join(sorted(refs))}"] += 1
+    return (f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; "
+            f"largest live storages: {big}; live models and engines: "
+            f"{dict(owners) or 'none'}")
+
+
 def greedy_trace(model, tokens, s_max: int, n_new: int, vocab: int):
     """Greedy decoding of ``model`` (prefill + ``n_new - 1`` decode steps)
     with, per step, the tokens, the smallest top-2 logit margin over the
@@ -309,12 +371,13 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_smoke
     from repro_torch.configs.base import SparsityConfig
     from repro_torch.core import COO, ELLPACK, from_csr, spmm, spmv
+    from repro_torch.core import timing
     from repro_torch.core.timing import time_us
-    from repro_torch.kernels import (PLAN_CACHE, _build, launch_counts, ops,
-                                     reset_launch_counts)
+    from repro_torch.kernels import (PLAN_CACHE, _build, autotune,
+                                     launch_counts, ops, reset_launch_counts)
     from repro_torch.kernels.ell_spmv import ell_spmv_launch, ell_spmv_plain
     from repro_torch.kernels.rgcsr_spmm import (rgcsr_spmm_launch,
                                                 rgcsr_spmm_plain)
@@ -324,11 +387,14 @@ def main() -> int:
     from repro_torch.models import init_params
     from repro_torch.models.spec import init_from_spec
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.obs import export as obs_export
     from repro_torch.serve import (Engine, Request, Router, RouterConfig,
                                    ServeConfig)
     from repro_torch.serve import router as router_mod
+    from repro_torch.train import trainer as trainer_mod
     from repro_torch.train.fault import FaultConfig, FaultInjector
+    from repro_torch.train.optimizer import OptimizerConfig
 
     dev = torch.device(DEVICE)
     failures = []
@@ -1246,7 +1312,7 @@ def main() -> int:
     entries.append(k2_serving_entry(
         lay, SESS_B_SLOTS, k2_decode,
         errs[("rgcsr_spmm", f"w_out d{SESS_B_SLOTS}")]))
-    del eng, sess
+    del eng, sess, fused      # fused: a bound method of eng
     torch.cuda.synchronize()
     log(f"session peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"{tag}; phase 7 in {time.perf_counter() - t0:.1f} s")
@@ -1378,7 +1444,7 @@ def main() -> int:
         f"checked); {wall:.3f} s {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("router fp32 failover drill")
-    del router, fleet, first, second, runners, per
+    del router, fleet, first, second, runners, per, e
     gc.collect()
     torch.cuda.empty_cache()
     log(f"router fp32 phase in {time.perf_counter() - t1:.1f} s")
@@ -1453,7 +1519,7 @@ def main() -> int:
         lay, ROUTER_B_SLOTS, k2_decode,
         errs[("rgcsr_spmm", f"w_out d{ROUTER_B_SLOTS} router")],
         where=" router"))
-    del router, fleet, lay, plan, per
+    del router, fleet, lay, plan, per, e   # e: the loop's last engine
     gc.collect()
     torch.cuda.empty_cache()
     log(f"router bf16 phase in {time.perf_counter() - t1:.1f} s")
@@ -1565,6 +1631,282 @@ def main() -> int:
     log(f"router peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}; "
         f"phase 8 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. the autotuner on the card: K1 and K2 timed by torch.profiler
+    # across every candidate plan, the default candidate sets
+    t0 = time.perf_counter()
+    autotune.clear_memo()
+    PLAN_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"tune: held from the earlier phases: {live_cuda()}")
+
+    def winner_plan(a, cfg_):
+        m = from_csr(a.data, a.indices, a.indptr, a.shape, "rgcsr",
+                     group_size=cfg_.group_size, device=dev)
+        return m, ops.get_plan(m, chunks_per_step=cfg_.chunks_per_step,
+                               ordering=cfg_.ordering,
+                               spill_threshold=cfg_.spill_threshold)
+
+    for kind, name, a, d in (("spmv", "fem2d_2048", fem_csr, None),
+                             ("spmv", "raj1_full", raj_csr, None),
+                             ("spmm", "raj1_full", raj_csr, D_SPMM)):
+        what = f"{kind} {name}" + ("" if d is None else f" d{d}")
+        n_cand = len(autotune.candidate_configs(
+            d_tiles=autotune.DEFAULT_D_TILES if d else (128,),
+            orderings=autotune.DEFAULT_ORDERINGS,
+            spill_thresholds=autotune.spill_threshold_candidates(
+                np.diff(a.indptr))))
+
+        def search():
+            if d is None:
+                return autotune.autotune_spmv(a, device=dev)
+            return autotune.autotune_spmm(a, d, device=dev)
+
+        misses = PLAN_CACHE.stats()["misses"]
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        res = search()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t1
+        built = PLAN_CACHE.stats()["misses"] - misses
+        left_out = (f" ({timing.windows_left_out} of "
+                    f"{3 * len(res.timings)} windows left out as "
+                    f"incomplete)" if res.timing_source == "profiler"
+                    else "")
+        log(f"tune {what}: {n_cand} candidates, {built} plans built, "
+            f"{n_cand - len(res.timings)} pruned, {len(res.timings)} timed "
+            f"by {res.timing_source}{left_out}; winner {res.config} "
+            f"{res.us_per_call:.2f} us, baseline {res.baseline_us:.2f} us, "
+            f"speedup {res.speedup:.3f}; launches {launch_counts()}; "
+            f"search {host_s:.1f} s host")
+        for (c, us), st in zip(res.timings, res.plan_stats):
+            log(f"  tune {what} {c.group_size} cps{c.chunks_per_step} "
+                f"d_tile {c.d_tile} {c.ordering} spill{c.spill_threshold}: "
+                f"{us:.2f} us, {st[1]} stored elements")
+        if res.timing_source != "profiler":
+            log(f"tune {what}: the profiler gave nothing: "
+                f"{timing.profiler_failure}")
+            failures.append(f"tune {what}: timed by {res.timing_source}")
+        # the winner against float64 scipy, and its held time
+        if d is None:
+            plan, _ = autotune.tuned_plan(a, device=dev)
+            operand, op64 = x[name], x_np[name].astype(np.float64)
+            run = lambda: ops.rgcsr_spmv(plan, operand)   # noqa: E731
+        else:
+            mat, plan = winner_plan(a, res.config)
+            operand, op64 = xm[name], xm_np[name].astype(np.float64)
+            run = lambda: ops.rgcsr_spmm(    # noqa: E731
+                plan, operand, d_tile=res.config.d_tile)
+        got = run().double().cpu().numpy()
+        a64 = a.astype(np.float64)
+        want, scale = a64 @ op64, abs(a64) @ abs(op64)
+        err = float(np.abs(got - want).max())
+        ok = got.shape == want.shape and bool(np.all(
+            np.abs(got - want) <= MAIN_TOL * (1 + scale)))
+        held = time_us(run, calls=20, device=dev, hold=True)
+        log(f"tune {what} winner: max_abs_err vs float64 scipy {err:.3e} "
+            f"(tol {MAIN_TOL:g}) {'ok' if ok else 'FAIL'}; profiler "
+            f"{res.us_per_call:.2f} us, time_us(hold=True) {held:.2f} us")
+        if not ok:
+            failures.append(f"tune {what}: winner off float64 scipy")
+        reset_launch_counts()
+        again = search()
+        if not again.from_memo or any(launch_counts().values()):
+            failures.append(f"tune {what}: second search not a memo hit "
+                            f"without launches ({launch_counts()})")
+        del plan, run
+    # the serving engine's warm-up of an auxiliary matrix, anew
+    autotune.clear_memo()
+    aux = Engine(get_smoke(SERVE_ARCH), ServeConfig(max_seq=32), device=dev)
+    t1 = time.perf_counter()
+    winners = aux.warm_spmv_plans([raj_csr])
+    warm_s = time.perf_counter() - t1
+    misses = PLAN_CACHE.stats()["misses"]
+    _, res = autotune.tuned_plan(raj_csr, device=dev)
+    builds = PLAN_CACHE.stats()["misses"] - misses
+    ok = builds == 0 and res.from_memo and winners == [res.config]
+    log(f"tune Engine.warm_spmv_plans(raj1_full): winner {winners[0]} in "
+        f"{warm_s:.1f} s; tuned_plan after it: memo hit {res.from_memo}, "
+        f"{builds} plan builds {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("tune: warm_spmv_plans then tuned_plan built plans")
+    del aux
+    autotune.clear_memo()
+    PLAN_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. training: the segment sum's backward at granite's w_out
+    # shape, launch/train.py on full granite-3-2b, the fault drill
+    t0 = time.perf_counter()
+    train_cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                                    sparsity=SparsityConfig(**TRAIN_SPARSITY))
+    # (a) one SparseLinear, fp32, T tokens: gradients of values2d and x
+    # against the float64 dense equivalent
+    lin_cfg = dataclasses.replace(train_cfg, dtype="float32")
+    d_in, d_out = lin_cfg.d_ff, lin_cfg.d_model
+    layer = ffn_mod.SparseLinear(init_from_spec(
+        ffn_mod.sparse_linear_spec(lin_cfg, d_in, d_out),
+        torch.Generator(device=dev).manual_seed(SEED + 10), device=dev),
+        lin_cfg, d_in=d_in, d_out=d_out).requires_grad_(True)
+    xl = torch.from_numpy(rng.standard_normal((TRAIN_T, d_in)).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    dyl = torch.from_numpy(rng.standard_normal((TRAIN_T, d_out)).astype(
+        np.float32)).to(dev)
+    reset_launch_counts()
+    gv, gx = torch.autograd.grad(layer(xl), (layer.values2d, xl), dyl)
+    torch.cuda.synchronize()
+    lin_launches = dict(launch_counts())
+    g_size = layer.values2d.shape[1]
+    rows = (layer.chunk_group.long().repeat_interleave(8)[:, None] * g_size
+            + torch.arange(g_size, device=dev))
+    cols = layer.columns2d.long()
+    w64 = dense_equivalent(layer).double()
+    x64, dy64 = xl.detach().double(), dyl.double()
+    checks = (("values2d", gv, (dy64.T @ x64)[rows, cols],
+               (dy64.abs().T @ x64.abs())[rows, cols]),
+              ("x", gx, dy64 @ w64, dy64.abs() @ w64.abs()))
+    for what, got, want, scale in checks:
+        diff = (got.double() - want).abs()
+        ok = bool((diff <= MAIN_TOL * (1 + scale)).all())
+        log(f"train SparseLinear {d_out}x{d_in} T{TRAIN_T} fp32 grad of "
+            f"{what}: max_abs_err vs float64 dense {diff.max().item():.3e} "
+            f"(tol {MAIN_TOL:g}·(1 + Σ|·|)) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train: SparseLinear grad of {what}")
+    log(f"train SparseLinear launches {lin_launches} (the segment sum is "
+        f"plain PyTorch, as the reference trains)")
+    del layer, xl, dyl, gv, gx, rows, cols, w64, x64, dy64, checks, got, \
+        want, scale, diff
+
+    # (b) the launcher's path: granite-3-2b, --sparse-ffn, bf16 compute,
+    # fp32 parameters, AdamW
+    peaks = []
+    make_step = trainer_mod.make_train_step
+
+    def measured_step(*args, **kw):
+        fn, init = make_step(*args, **kw)
+
+        def step(*a):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            return out
+        return step, init
+
+    torch.cuda.synchronize()
+    held_before = torch.cuda.memory_allocated()
+    log(f"train: held from the earlier phases: {live_cuda()}")
+    trainer_mod.make_train_step = measured_step
+    reset_launch_counts()
+    try:
+        t1 = time.perf_counter()
+        tr, state = launch_train.main([
+            "--arch", SERVE_ARCH, "--sparse-ffn", "--steps",
+            str(TRAIN_STEPS), "--seq", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--device", str(dev)])
+        run_s = time.perf_counter() - t1
+    finally:
+        trainer_mod.make_train_step = make_step
+    params, opt_state = state
+    n_params = sum(t.numel() for t in params.values()
+                   if t.is_floating_point())
+    log(f"train {SERVE_ARCH} --sparse-ffn: {tr.model_cfg.n_layers} layers, "
+        f"d_model {tr.model_cfg.d_model}, {n_params} float parameters "
+        f"({next(iter(params.values())).dtype}), compute "
+        f"{tr.model_cfg.dtype}, seq {TRAIN_SEQ} x batch {TRAIN_BATCH}; "
+        f"{len(tr.history)} steps in {run_s:.1f} s (init included); "
+        f"launches {launch_counts()}; {held_before / 2**30:.2f} GiB held "
+        f"before {tag}")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    for h, peak in zip(tr.history, peaks):
+        log(f"train step {h['step']}: loss {h['loss']:.4f}, grad_norm "
+            f"{h['grad_norm']:.4f}, {h['step_time_s'] * 1e3:.1f} ms host "
+            f"(ending in a synchronize), {tokens / h['step_time_s']:.1f} "
+            f"tokens/s, peak {peak / 2**30:.2f} GiB {tag}")
+    losses = [h["loss"] for h in tr.history]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        failures.append(f"train: losses {losses}")
+    if any(t.dtype != torch.float32 for t in params.values()
+           if t.is_floating_point()) or tr.model_cfg.dtype != "bfloat16":
+        failures.append("train: parameters not fp32 or compute not bf16")
+    if tr.model.device.type != "cuda":
+        failures.append(f"train: the model is on {tr.model.device}")
+    # one step under the profiler (after one more warm step)
+    holder = {"state": opt_state, "step": TRAIN_STEPS}
+
+    def train_once():
+        _, holder["state"], m = tr.train_step(params, holder["state"],
+                                              tr._batch(holder["step"]))
+        holder["step"] += 1
+        losses.append(float(m["loss"]))
+
+    kern = device_kernels(train_once, 1)
+    busy_ms = sum(us for _, us in kern.values()) / 1e3
+    step_ms = float(np.median([h["step_time_s"] for h in tr.history[1:]])
+                    ) * 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:8]
+    log(f"train profiled step: card busy {busy_ms:.1f} ms in "
+        f"{sum(n for n, _ in kern.values()):.0f} kernels, against "
+        f"{step_ms:.1f} ms host per step: idle "
+        f"{max(0.0, 1 - busy_ms / step_ms):.1%} {tag}")
+    for name, (n, us) in top:
+        log(f"  train kernel {us / 1e3:.2f} ms x{n:.0f}: {name[:100]}")
+    if not all(np.isfinite(losses)):
+        failures.append(f"train: losses {losses}")
+    del tr, state, params, opt_state, holder, kern
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the fault drill at full width, DRILL_LAYERS layers: checkpoints
+    # every DRILL_CKPT steps, a fault at step DRILL_FAULT; the steps after
+    # the restore against an uninterrupted run of the same seed, and the
+    # last checkpoint restored bitwise into a new Trainer
+    drill_cfg = dataclasses.replace(train_cfg, n_layers=DRILL_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        def drill(sub, fault=None):
+            tc = trainer_mod.TrainConfig(
+                steps=DRILL_STEPS, ckpt_every=DRILL_CKPT, log_every=100,
+                ckpt_dir=f"{tmp}/{sub}",
+                opt=OptimizerConfig(warmup_steps=5, decay_steps=DRILL_STEPS))
+            return trainer_mod.Trainer(drill_cfg, tc, fault_injector=fault,
+                                       device=dev)
+
+        t1 = time.perf_counter()
+        clean = drill("clean")
+        clean.run(clean.init_state(TRAIN_SEQ, TRAIN_BATCH))
+        fault = FaultInjector(fail_at_steps=[DRILL_FAULT])
+        faulty = drill("faulty", fault)
+        final, _ = faulty.run(faulty.init_state(TRAIN_SEQ, TRAIN_BATCH))
+        clean_loss = {h["step"]: h["loss"] for h in clean.history}
+        worst = max(abs(h["loss"] - clean_loss[h["step"]])
+                    for h in faulty.history)
+        steps_run = [h["step"] for h in faulty.history]
+        again = drill("faulty")
+        again.init_state(TRAIN_SEQ, TRAIN_BATCH)
+        (params2, opt2), nxt = again.restore_latest()
+        bitwise = nxt == DRILL_STEPS and all(
+            torch.equal(params2[k], t) for k, t in final[0].items()) and all(
+            torch.equal(opt2["m"][k], t) for k, t in final[1]["m"].items())
+        ok = (len(fault.fired) == 1 and steps_run == list(range(DRILL_STEPS))
+              and worst <= REPLAY_TOL and bitwise
+              and all(np.isfinite(list(clean_loss.values()))))
+        log(f"train fault drill ({DRILL_LAYERS} layers, ckpt every "
+            f"{DRILL_CKPT}, fault at step {DRILL_FAULT}): faults fired "
+            f"{fault.fired}, steps {steps_run}, largest loss gap to the "
+            f"uninterrupted run {worst:.2e} (tol {REPLAY_TOL:g}), last "
+            f"checkpoint (step {nxt - 1}) restored bitwise {bitwise} in "
+            f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append("train: fault drill")
+        del clean, faulty, again, final, params2, opt2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10 in {time.perf_counter() - t0:.1f} s")
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:

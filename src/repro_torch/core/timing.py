@@ -20,18 +20,34 @@ Two options time the card alone, for a kernel's own (per-layer) metric:
 
 Timing needs a card: asking for it without one raises — a measurement
 never falls back to the CPU's clock.
+
+:func:`profiled_time_us_group` is the autotuner's clock: the card's own
+time of each of a group of callables, from one ``torch.profiler`` session
+(a session costs far too much to open per candidate).  Repeat ``r`` of
+callable ``i`` runs inside a ``record_function("tune:i:r")`` window that
+ends in a synchronize, so the windows are disjoint on the host's clock and
+on the card's; each CUDA kernel (or copy) the session recorded falls in
+the window that holds its midpoint on the card's timeline (where the
+profiler marks each window's span; its host clock drifts from the card's
+by up to milliseconds), and a window's time is the sum of its events'
+durations.  Windows that lost device records (the profiler drops some
+after long sessions) are left out: a callable's time is the median of
+its complete windows.  It returns ``None`` whenever the profiler records no
+kernel — always on a host without a card — and the autotuner then falls
+back to a clock it names in ``TuneResult.timing_source``.
 """
 from __future__ import annotations
 
+import bisect
 import time
-from typing import Callable
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.formats import resolve_device
 
-__all__ = ["time_us"]
+__all__ = ["time_us", "profiler_available", "profiled_time_us_group"]
 
 _CYCLES_PER_S = {}
 
@@ -109,3 +125,151 @@ def time_us(fn: Callable, *args, repeats: int = 5, warmup: int = 2,
             end.synchronize()
             times.append(start.elapsed_time(end) * 1e3 / calls)
     return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# torch.profiler-backed card timing
+# ---------------------------------------------------------------------------
+
+_PROFILER_OK: Optional[bool] = None
+# throwaway kernels at the head of each profiler session (see _window_times)
+_HEAD_FILLER = 1024
+# why the last profiler timing gave nothing (None after a success), and
+# how many of its windows a successful one left out as incomplete
+profiler_failure: Optional[str] = None
+windows_left_out = 0
+
+
+def profiler_available() -> bool:
+    """Whether a ``torch.profiler`` session records CUDA kernels here
+    (probed once per process; the probe's session also warms CUPTI, whose
+    first start is slow).  False without a card."""
+    global _PROFILER_OK, profiler_failure
+    if _PROFILER_OK is None:
+        _PROFILER_OK = False
+        if not torch.cuda.is_available():
+            profiler_failure = "no CUDA card"
+        else:
+            try:
+                x = torch.ones(1024, device="cuda")
+                got = _window_times([lambda: x.mul_(1.0)], repeats=1)
+                _PROFILER_OK = got is not None
+            except Exception as err:       # noqa: BLE001 — any failure
+                profiler_failure = f"probe raised {err!r}"
+    return _PROFILER_OK
+
+
+def _window_times(fns: Sequence[Callable], repeats: int,
+                  sessions: int = 3) -> Optional[List[List[float]]]:
+    """Per callable, the card's µs in each of its complete windows (see
+    :func:`_attribute`) of one profiler session; a session that leaves
+    some callable without a complete window is run again, up to
+    ``sessions`` times, and then ``None``."""
+    global profiler_failure, windows_left_out
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        filler = torch.zeros(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # once a process has profiled long runs (CUDA graph replays
+            # among them), the profiler loses the first device records of
+            # each later session, one or a few: throwaway kernels, outside
+            # every window, take their place
+            for _ in range(_HEAD_FILLER):
+                filler.zero_()
+            torch.cuda.synchronize()
+            for i, fn in enumerate(fns):
+                for r in range(repeats):
+                    with record_function(f"tune:{i}:{r}"):
+                        fn()
+                        torch.cuda.synchronize()
+        events = [(str(ev.name), ev.device_type == DeviceType.CUDA,
+                   bool(getattr(ev, "is_user_annotation", False)),
+                   ev.time_range.start, ev.time_range.end)
+                  for ev in prof.events()]
+        got = _attribute(events, len(fns), repeats)
+        if got is not None:
+            profiler_failure = None
+            windows_left_out = len(fns) * repeats - sum(map(len, got))
+            return got
+        spans = sum(e[1] and e[0].startswith("tune:") for e in events)
+        profiler_failure = (
+            f"a session of {len(fns) * repeats} windows recorded "
+            f"{spans} window spans on the card and "
+            f"{sum(e[1] and not e[2] for e in events)} device events")
+    return None
+
+
+def _attribute(events, n_fns: int, repeats: int
+               ) -> Optional[List[List[float]]]:
+    """Sum device events into the windows ``tune:i:r``.  ``events``:
+    ``(name, on the card, is an annotation, start µs, end µs)``.
+
+    A window is its annotation's span on the card's timeline (the
+    profiler's ``gpu_user_annotation``: from the first to the last device
+    event launched inside the window).  The host's span of the same
+    window cannot stand in for it: the profiler's card and host clocks
+    drift apart by up to milliseconds within one session.  Each device
+    event counts in the window that holds its midpoint; events outside
+    every window do not count.
+
+    The profiler sometimes drops device records (seen on the card after
+    long profiled runs), and with them a window's span or some of its
+    events.  Each call of a callable launches the
+    same work, so a window is complete when it holds as many device
+    events as the fullest window of its callable; the others are left
+    out.  Returns, per callable, the times of its complete windows;
+    ``None`` when some callable has none."""
+    windows, device = {}, []
+    for name, on_card, annotation, t0, t1 in events:
+        if not on_card:
+            continue
+        if name.startswith("tune:"):
+            _, i, r = name.split(":")
+            windows[(int(i), int(r))] = (t0, t1)
+        elif not annotation:
+            device.append((t0, t1))
+    keys = sorted(windows, key=lambda k: windows[k][0])
+    starts = [windows[k][0] for k in keys]
+    sums, counts = dict.fromkeys(keys, 0.0), dict.fromkeys(keys, 0)
+    for t0, t1 in device:
+        mid = 0.5 * (t0 + t1)
+        j = bisect.bisect_right(starts, mid) - 1
+        if j >= 0 and mid <= windows[keys[j]][1]:
+            sums[keys[j]] += t1 - t0
+            counts[keys[j]] += 1
+    out = []
+    for i in range(n_fns):
+        mine = [(i, r) for r in range(repeats) if (i, r) in windows]
+        full = max((counts[k] for k in mine), default=0)
+        if not full:
+            return None
+        out.append([sums[k] for k in mine if counts[k] == full])
+    return out
+
+
+def profiled_time_us_group(fns: Sequence[Callable], *, repeats: int = 3,
+                           warmup: int = 1) -> Optional[List[float]]:
+    """The card's time in µs of each zero-argument callable: the median
+    over its complete windows of ``repeats`` in one profiler session (see
+    the module's note).  Warmup calls (at least one each) run before the
+    session, so no build or first-call work is timed.  ``None`` when the
+    profiler is not available or leaves some callable without a complete
+    window (``profiler_failure`` says why): the caller falls back to
+    another clock."""
+    global profiler_failure
+    if not fns or not profiler_available():
+        return None
+    try:
+        for fn in fns:
+            for _ in range(max(1, warmup)):
+                fn()
+        per_window = _window_times(fns, repeats)
+    except Exception as err:               # noqa: BLE001 — any failure
+        profiler_failure = f"raised {err!r}"
+        return None
+    if per_window is None:
+        return None
+    return [float(np.median(t)) for t in per_window]

@@ -4,7 +4,8 @@ Layout: ``csrc/*.cu`` hold the kernels (built for ``sm_90a`` by
 ``_build.py``); ``rgcsr_spmv.py`` / ``rgcsr_spmm.py`` / ``ell_spmv.py`` hold
 each kernel's launcher, plain PyTorch version and launch counter; ``ops.py``
 is the public API (plans, the process-wide ``PlanCache`` + wrappers);
-``ref.py`` the oracles.  :func:`launch_counts` reports how many times each
+``autotune.py`` searches kernel configs per matrix signature; ``ref.py``
+the oracles.  :func:`launch_counts` reports how many times each
 CUDA kernel was launched since :func:`reset_launch_counts`.
 """
 from repro_torch.kernels import _build
@@ -22,6 +23,15 @@ from repro_torch.kernels.ops import (  # noqa: F401
     rgcsr_spmm,
     rgcsr_spmv,
     warm_plans_from_params,
+)
+from repro_torch.kernels.autotune import (  # noqa: F401
+    TuneConfig,
+    TuneResult,
+    autotune_spmm,
+    autotune_spmv,
+    matrix_signature,
+    spill_threshold_candidates,
+    tuned_plan,
 )
 
 

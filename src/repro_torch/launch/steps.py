@@ -1,0 +1,128 @@
+"""Step functions of the launchers: train, prefill, decode.
+
+The PyTorch counterpart of ``repro.launch.steps``.  ``make_train_step``
+builds the whole training step — loss, backward, global-norm clip,
+optimizer update — with **microbatch gradient accumulation** in float32.
+A step works on a :class:`~repro_torch.models.LanguageModel`'s own tensors
+(``model.tensors()``): it reads their gradients and writes the updated
+parameters back into them, in place.  Integer buffers (the RgCSR structure
+of a ``SparseLinear``) take no gradient and are never written.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from repro_torch.train.optimizer import OptimizerConfig, global_norm, \
+    make_optimizer
+
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
+           "auto_microbatches"]
+
+
+def auto_microbatches(cfg, global_batch: int, seq: int, n_data_shards: int,
+                      budget_bytes: float = 2.0e9) -> int:
+    """A microbatch count that keeps each shard's residual-stream
+    activations (``B/µ · S · d_model · 2 B · n_layers``) within the budget,
+    clamped to divide the shard's batch evenly."""
+    b_dev = max(1, global_batch // n_data_shards)
+    per_layer = seq * cfg.d_model * 2
+    total = b_dev * per_layer * cfg.n_layers
+    mb = max(1, int(-(-total // budget_bytes)))
+    while b_dev % mb:
+        mb += 1
+    return min(mb, b_dev)
+
+
+def _on_device(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                               else v).to(device) for k, v in batch.items()}
+
+
+def _update_leafwise(opt_update, grads, state, params):
+    """``opt_update`` one tensor at a time, each new parameter copied into
+    its tensor at once: the same arithmetic as one call over the whole
+    dict, without a second copy of every parameter and moment alive at
+    once (granite-3-2b's are 8.1 GB each in float32; keeping the old
+    moments to the end added 15.1 GiB to its peak).  Consumes ``grads``
+    and the moments of ``state``; returns the new state."""
+    new_state = {}
+    for k, p in params.items():
+        sub = {name: {k: v.pop(k)} if isinstance(v, dict) else v
+               for name, v in state.items()}
+        new_p, new_sub = opt_update({k: grads.pop(k, None)}, sub, {k: p})
+        if new_p[k] is not p:
+            p.copy_(new_p[k])
+        for name, v in new_sub.items():
+            if isinstance(v, dict):
+                new_state.setdefault(name, {}).update(v)
+            else:
+                new_state[name] = v
+    return new_state
+
+
+def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
+    """``(train_step, opt_init)``.  ``train_step(params, opt_state, batch)
+    -> (params, opt_state, metrics)``: ``params`` is ``model.tensors()``
+    (updated in place and returned), ``batch`` a dict of ``(B, S)`` arrays
+    split into ``microbatches`` equal parts along B; metrics ``loss``,
+    ``ce`` and ``grad_norm`` as float32 tensors on the model's device.
+    ``opt_state`` is consumed: its moments move into the returned state
+    one tensor at a time."""
+    opt_init, opt_update = make_optimizer(opt_cfg)
+
+    def train_step(params, opt_state, batch):
+        batch = _on_device(batch, model.device)
+        trained = {k: p for k, p in params.items()
+                   if p.is_floating_point() and p.requires_grad}
+        if len(trained) != sum(p.is_floating_point()
+                               for p in params.values()):
+            raise ValueError("every floating parameter must take gradients "
+                             "(model.requires_grad_(True))")
+        parts = [{k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                 for i in range(microbatches)]
+        acc, losses, ces = None, [], []
+        for mb in parts:
+            for p in trained.values():
+                p.grad = None
+            loss, metrics = model.loss(mb)
+            loss.backward()
+            grads = {k: p.grad for k, p in trained.items()}
+            acc = grads if acc is None else \
+                {k: acc[k] + g for k, g in grads.items()}
+            losses.append(loss.detach())
+            ces.append(metrics["ce"].detach())
+        for p in trained.values():
+            p.grad = None
+        if microbatches > 1:
+            acc = {k: (g.float() / microbatches).to(g.dtype)
+                   for k, g in acc.items()}
+        with torch.no_grad():
+            # clip_by_global_norm in place: a copy of the gradients would
+            # add 5.3 GiB to granite-3-2b's peak on the H100 (PERF.md §6)
+            gnorm = global_norm(acc)
+            scale = torch.clamp(opt_cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+            for g in acc.values():
+                g.mul_(scale)
+            opt_state = _update_leafwise(opt_update, acc, opt_state, params)
+        metrics = {"ce": torch.stack(ces).mean(),
+                   "loss": torch.stack(losses).mean(), "grad_norm": gnorm}
+        return params, opt_state, metrics
+
+    return train_step, opt_init
+
+
+def make_prefill_step(model, s_max: int, shape_kind: str = "prefill"):
+    def prefill_step(batch):
+        return model.prefill(batch, s_max, shape_kind=shape_kind)
+    return prefill_step
+
+
+def make_decode_step(model, shape_kind: str = "decode"):
+    """The serving engine's decode step (``serve/device_loop``), imported
+    lazily so that the launcher stays importable without the serve
+    stack."""
+    from repro_torch.serve.device_loop import make_decode_step as _make
+    return _make(model, shape_kind=shape_kind)

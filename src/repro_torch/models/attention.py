@@ -38,7 +38,7 @@ reference's, and only a slot past the end (whose tokens the session
 discards) attends to the spare row.  The serving
 session needs both: a slot that is free, or finished inside a fused
 chunk, keeps decoding, and its index grows past ``S_max``.  MLA (and its paged cache) and cross-attention are not
-ported yet (ROADMAP queue 1).
+ported yet (ROADMAP queue 1, item 1: the other LM families).
 """
 from __future__ import annotations
 
@@ -262,12 +262,13 @@ def _maybe_load(stored, scale, dtype):
 def shard_attn_qkv(cfg, q, k, v):
     """The reference's activation-sharding hints for attention: the
     identity without ``act_shard``.  The port runs on one card; sharded
-    activations come with the multi-device work (ROADMAP queue 1)."""
+    activations come with the multi-device work (ROADMAP queue 1, item
+    2: row-sharded SpMV)."""
     if cfg.act_shard and cfg.attn_shard_mode != "none":
         raise NotImplementedError(
             "activation sharding (cfg.act_shard) is not ported: the port "
-            "runs on one card (ROADMAP queue 1, row-sharded SpMV and the "
-            "multi-device work)")
+            "runs on one card (ROADMAP queue 1, item 2: row-sharded SpMV "
+            "and the multi-device work)")
     return q, k, v
 
 
@@ -401,7 +402,7 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
     if mode not in ("causal", "full"):
         raise NotImplementedError(
             f"attention mode {mode!r} (cross-attention) is not ported yet "
-            f"(ROADMAP queue 1, the enc-dec family)")
+            f"(ROADMAP queue 1, item 1: the other LM families)")
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = layer.q(x).reshape(b, s, hq, dh)

@@ -15,9 +15,14 @@ slot-major layout — ``values2d (S, G)`` and the frozen ``columns2d (S, G)``,
   look like padding — value 0 at column 0 — so a weight that is exactly 0
   at column 0 is skipped too, which changes nothing while x is finite.
 - ``impl="ref"``: an ``index_add_`` segment sum over the slot-major storage,
-  the counterpart of the reference's ``segment_sum`` oracle.
+  the counterpart of the reference's ``segment_sum`` oracle, taken in
+  chunks of slot rows by :class:`SegmentSum`, whose backward gives the
+  gradients of the values and of ``x`` and which keeps only ``x``, the
+  values and the structure for it.  Training runs this path, as the
+  reference's ``launch/train.py --sparse-ffn`` does: K2 has no backward.
 
-``ffn_apply_stacked`` (MoE experts) is not ported yet (ROADMAP queue 1).
+``ffn_apply_stacked`` (MoE experts) is not ported yet (ROADMAP queue 1,
+item 1: the other LM families).
 """
 from __future__ import annotations
 
@@ -31,9 +36,11 @@ from repro_torch.models.spec import P
 
 __all__ = ["ffn_spec", "ffn_apply", "gated_ffn_apply", "sparse_linear_spec",
            "sparse_linear_init_mask", "sparse_linear_apply", "SparseLinear",
-           "FFN"]
+           "SegmentSum", "FFN"]
 
 SUBLANES = 8
+# elements of x gathered at once by SegmentSum (slot rows · G · T)
+_GATHER_ELEMS = 1 << 26
 
 
 def _activation(name: str):
@@ -157,6 +164,61 @@ def sparse_linear_init_mask(seed: int, cfg, d_in: int, d_out: int,
     return (columns2d, *_chunk_tables(n_groups, k, columns2d.device))
 
 
+def _slot_chunks(chunk_group, g: int, n_slot_rows: int, t: int):
+    """``(slot rows [a, b), output row of each of their entries)`` in
+    chunks of at most ``_GATHER_ELEMS`` gathered elements, in order."""
+    group_of_slotrow = chunk_group.long().repeat_interleave(SUBLANES)
+    lanes = torch.arange(g, device=chunk_group.device)
+    step = max(1, _GATHER_ELEMS // max(g * t, 1))
+    for a in range(0, n_slot_rows, step):
+        b = min(n_slot_rows, a + step)
+        yield a, b, (group_of_slotrow[a:b, None] * g + lanes).reshape(-1)
+
+
+class SegmentSum(torch.autograd.Function):
+    """``Y[r] = Σ_{i: row(i) = r} values[i] · X[columns[i]]`` over the
+    slot-major storage, ``Y`` of ``n_out`` rows: ``values2d (S, G)`` in the
+    compute dtype, ``X = xt (d_in, T)``, ``columns2d (S, G)`` and
+    ``chunk_group`` (one group per 8 slot rows) the frozen structure.
+
+    It gathers ``X`` in chunks of slot rows, each summed into ``Y`` with
+    ``index_add_`` in slot order (on the CPU the same sums in the same
+    order as one whole gather).  It keeps ``values2d``, ``xt`` and the
+    structure for the backward, which gathers again in chunks: the
+    gradient of each value is its output row of ``dY`` times its gathered
+    row of ``X``, and ``dX`` is the values times the gathered rows of
+    ``dY``, summed into the columns.  Nothing ``(S·G, T)`` is kept, where
+    autograd of the plain product would keep every gathered row."""
+
+    @staticmethod
+    def forward(ctx, values2d, xt, columns2d, chunk_group, n_out: int):
+        ctx.save_for_backward(values2d, xt, columns2d, chunk_group)
+        s, g = values2d.shape
+        y = xt.new_zeros((n_out, xt.shape[1]))
+        for a, b, rows in _slot_chunks(chunk_group, g, s, xt.shape[1]):
+            vals = values2d[a:b].reshape(-1)
+            y.index_add_(0, rows, vals[:, None]
+                         * xt[columns2d[a:b].reshape(-1).long()])
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        values2d, xt, columns2d, chunk_group = ctx.saved_tensors
+        s, g = values2d.shape
+        want_v, want_x = ctx.needs_input_grad[:2]
+        dv = torch.empty_like(values2d) if want_v else None
+        dx = torch.zeros_like(xt) if want_x else None
+        for a, b, rows in _slot_chunks(chunk_group, g, s, xt.shape[1]):
+            cols = columns2d[a:b].reshape(-1).long()
+            dyr = dy[rows]
+            if want_v:
+                dv[a:b] = (dyr * xt[cols]).sum(-1).reshape(b - a, g)
+            if want_x:
+                dx.index_add_(0, cols,
+                              values2d[a:b].reshape(-1)[:, None] * dyr)
+        return dv, dx, None, None, None
+
+
 def sparse_linear_apply(params, cfg, x, d_out: int, *, plan=None):
     """y = x @ Wᵀ with W in RgCSR. x: (..., d_in) -> (..., d_out).
 
@@ -177,17 +239,9 @@ def sparse_linear_apply(params, cfg, x, d_out: int, *, plan=None):
                                         d_in=d_in, group_size=g)
         y = ops.rgcsr_spmm(plan, xt)                      # (d_out, T)
     else:
-        # segment sum over the slot-major storage
-        vals = params["values2d"].to(x.dtype).reshape(-1)
-        cols = params["columns2d"].reshape(-1).long()
-        lanes = torch.arange(g, device=x.device)
-        group_of_slotrow = params["chunk_group"].long().repeat_interleave(
-            SUBLANES)
-        rows = (group_of_slotrow[:, None] * g + lanes).reshape(-1)
-        gathered = xt[cols]                               # (S*G, T)
-        y = torch.zeros((n_groups * g, xt.shape[1]), dtype=x.dtype,
-                        device=x.device)
-        y.index_add_(0, rows, vals[:, None] * gathered)
+        y = SegmentSum.apply(params["values2d"].to(x.dtype), xt,
+                             params["columns2d"], params["chunk_group"],
+                             n_groups * g)
     return y[:d_out].T.reshape(*lead, d_out)
 
 
@@ -222,6 +276,11 @@ class SparseLinear(ParamModule):
         return plan
 
     def forward(self, x):
+        if self.cfg.sparsity.impl_is_kernel() and torch.is_grad_enabled() \
+                and self.values2d.requires_grad:
+            raise NotImplementedError(
+                "K2 has no backward: train a SparseLinear with "
+                "impl='ref', as the reference's launch/train.py does")
         params = {"values2d": self.cast("values2d", x.dtype),
                   "columns2d": self.columns2d,
                   "chunk_group": self.chunk_group,

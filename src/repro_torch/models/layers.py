@@ -11,7 +11,10 @@ Parameters are kept in ``param_dtype`` (float32); the compute dtype
 reference casts each weight to the compute dtype at every use; the modules
 hold that cast, made once per weight and dtype and remade only when the
 weight is replaced or written in place (:meth:`ParamModule.cast`) — the
-same numbers without a cast of every weight on every decode step.
+same numbers without a cast of every weight on every decode step.  A model
+that trains (``requires_grad_(True)`` on its parameters, grad mode on)
+casts at every use, as the reference does, so that gradients flow back to
+the float32 weights.
 """
 from __future__ import annotations
 
@@ -154,9 +157,10 @@ def make_window_mask(q_len: int, kv_len: int, window: int, q_offset=0,
 class ParamModule(nn.Module):
     """A module built from one parameter subtree (a dict of tensors).
 
-    Floating tensors become parameters (frozen: the port serves, it does
-    not train) and integer tensors buffers; both share storage with the
-    tree's tensors.  :meth:`cast` keeps each weight's compute-dtype copy.
+    Floating tensors become parameters (frozen until the caller trains:
+    ``requires_grad_(True)``) and integer tensors buffers; both share
+    storage with the tree's tensors.  :meth:`cast` keeps each weight's
+    compute-dtype copy when no gradient is asked for.
     """
 
     def __init__(self, params: Dict[str, torch.Tensor]):
@@ -172,10 +176,14 @@ class ParamModule(nn.Module):
     def cast(self, name: str, dtype) -> torch.Tensor:
         """Tensor ``name`` in ``dtype``: itself when it already is, else a
         copy made at the first call and kept until the tensor is replaced
-        or written in place (its identity or version changes)."""
+        or written in place (its identity or version changes).  Under grad
+        mode a parameter that takes gradients is cast anew at each call,
+        differentiably, and nothing is kept."""
         t = getattr(self, name)
         if t.dtype == dtype:
             return t
+        if t.requires_grad and torch.is_grad_enabled():
+            return t.to(dtype)
         version = 0 if t.is_inference() else t._version
         hit = self._casts.get((name, dtype))
         if hit is not None and hit[0] is t and hit[1] == version:

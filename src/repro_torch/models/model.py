@@ -8,6 +8,9 @@ passes a parameter tree to every call):
   tensors drawn from it (also :func:`model_spec` / :func:`init_params`,
   which need no model); ``n_params()``.
 * ``forward(batch)``                — logits for a full sequence.
+* ``loss(batch)``                   — masked CE, differentiable once the
+  parameters take gradients (``requires_grad_(True)``).
+* ``tensors()``                     — every parameter and buffer by name.
 * ``prefill(batch, s_max)``         — last-position logits + filled caches.
 * ``decode_step(caches, tokens)``   — one token; the serving step.
 
@@ -17,9 +20,12 @@ Parameter tree (the port's layout)::
      "layers": [block tree, one per layer], ["lm_head": {"kernel"}]}
 
 :func:`params_from_numpy` builds it from the reference's tree, which stacks
-the body layers on a leading axis.  Vision and audio frontends, the
+the body layers on a leading axis; :func:`reference_layout` and
+:func:`port_layout` carry any tree of per-tensor leaves (parameters,
+optimizer moments) between ``tensors()``'s names and that layout, for
+checkpoints both packages read.  Vision and audio frontends, the
 encoder-decoder family and multi-token prediction are not ported yet
-(ROADMAP queue 1).
+(ROADMAP queue 1, item 1).
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from repro_torch.models.layers import (Dense, Embed, RMSNorm, dense_spec,
                                        rope_positions)
 from repro_torch.models.spec import count_params, init_from_spec
 
-__all__ = ["LanguageModel", "model_spec", "init_params", "params_from_numpy"]
+__all__ = ["LanguageModel", "model_spec", "init_params", "params_from_numpy",
+           "reference_layout", "port_layout"]
 
 
 def _check_supported(cfg) -> None:
@@ -50,8 +57,8 @@ def _check_supported(cfg) -> None:
         missing.append("multi-token prediction")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP "
-            f"queue 1, the LM model stack)")
+            f"{cfg.name}: {', '.join(missing)} not ported yet ("
+            f"ROADMAP queue 1, item 1: the other LM families)")
 
 
 def model_spec(cfg) -> Dict[str, Any]:
@@ -142,6 +149,21 @@ class LanguageModel(nn.Module):
         h = self.final_norm(x)
         return self._logits(h), h, aux
 
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch, *, shape_kind: str = "train"):
+        """(masked CE, metrics): ``batch["labels"][t]`` is the token after
+        position ``t``; labels below 0 are masked out."""
+        logits, _, _ = self.forward(batch, shape_kind=shape_kind,
+                                    mode="train")
+        loss = _masked_ce(logits, batch["labels"])
+        return loss, {"ce": loss, "loss": loss}
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """Every parameter and buffer, keyed by its path in the parameter
+        tree (``"layers/0/ffn/w_out/values2d"``); the tensors themselves."""
+        named = list(self.named_parameters()) + list(self.named_buffers())
+        return {name.replace(".", "/"): t for name, t in named}
+
     # -------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, s_max: int, *,
                    shape_kind: str = "decode",
@@ -177,6 +199,18 @@ class LanguageModel(nn.Module):
                                        mode="decode", shape_kind=shape_kind,
                                        caches=caches)
         return self._logits(self.final_norm(x)), caches
+
+
+def _masked_ce(logits, labels):
+    """Cross-entropy over positions with label >= 0, in float32: predicts
+    ``labels[t]`` from position ``t``."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    gold = logits32.gather(-1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
 
 
 def _cache_index(caches):
@@ -227,3 +261,73 @@ def params_from_numpy(cfg, tree, *, device="cuda"):
     if "lm_head" in tree:
         out["lm_head"] = _tensors(tree["lm_head"], dev)
     return out
+
+
+def _layer_places(cfg):
+    """Each layer's place in the reference's tree: (path, body repeat or
+    None for a prefix layer), in layer order."""
+    places = [(("stack", "prefix", f"{i}_{kind}"), None)
+              for i, kind in enumerate(cfg.prefix_pattern)]
+    for r in range(cfg.pattern_repeats):
+        for i, kind in enumerate(cfg.layer_pattern):
+            places.append((("stack", "body", f"{i}_{kind}"), r))
+    return places
+
+
+def _put(tree, path, leaf):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
+def reference_layout(cfg, flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The reference's tree from numpy leaves keyed like
+    :meth:`LanguageModel.tensors` (a deeper key — ``".../kernel/vr"`` —
+    is a subtree of that tensor's place).  Body layers are stacked on a
+    leading axis; a leaf that is 0-d in every body layer (an optimizer's
+    zero for an integer buffer) stays one 0-d leaf, as the reference's
+    optimizer makes it for the stacked buffer."""
+    places = _layer_places(cfg)
+    tree: Dict[str, Any] = {}
+    stacked: Dict[tuple, Dict[int, Any]] = {}
+    for key, leaf in flat.items():
+        parts = tuple(key.split("/"))
+        if parts[0] != "layers":
+            _put(tree, parts, leaf)
+            continue
+        path, r = places[int(parts[1])]
+        if r is None:
+            _put(tree, path + parts[2:], leaf)
+        else:
+            stacked.setdefault(path + parts[2:], {})[r] = leaf
+    for path, per in stacked.items():
+        leaves = [per[r] for r in range(len(per))]
+        _put(tree, path, leaves[0] if np.ndim(leaves[0]) == 0
+             else np.stack(leaves))
+    return tree
+
+
+def port_layout(cfg, tree) -> Dict[str, Any]:
+    """The inverse of :func:`reference_layout`: numpy leaves keyed like
+    :meth:`LanguageModel.tensors`, the body unstacked (a 0-d body leaf is
+    every layer's)."""
+    places = _layer_places(cfg)
+    where = {}
+    for layer, (path, r) in enumerate(places):
+        where.setdefault(path, []).append((layer, r))
+    flat: Dict[str, Any] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, path + (k,))
+            return
+        if path[0] != "stack":
+            flat["/".join(path)] = node
+            return
+        for layer, r in where[path[:3]]:
+            leaf = node if r is None or np.ndim(node) == 0 else node[r]
+            flat["/".join(("layers", str(layer)) + path[3:])] = leaf
+
+    walk(tree, ())
+    return flat

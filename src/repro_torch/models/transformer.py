@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.ffn import FFN, ffn_apply, ffn_spec
@@ -25,17 +26,14 @@ from repro_torch.models.layers import RMSNorm, rmsnorm_spec
 __all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
            "stack_apply", "init_block_cache", "Block"]
 
-# Layer kinds and attention kinds that are not ported yet, with the
-# ROADMAP queue 1 item that brings each.
+# Layer kinds that are not ported yet, and the ROADMAP item that brings them.
+_LM_ITEM = "ROADMAP queue 1, item 1: the other LM families"
 _NOT_PORTED = {
-    "moe": "the MoE family (ROADMAP queue 1, the LM model stack)",
-    "ssm": "the Mamba-2 / SSM family (ROADMAP queue 1, the LM model stack)",
-    "rec": "the RG-LRU recurrent family (ROADMAP queue 1, the LM model "
-           "stack)",
-    "enc_attn": "the encoder-decoder family (ROADMAP queue 1, the LM model "
-                "stack)",
-    "dec_attn": "the encoder-decoder family (ROADMAP queue 1, the LM model "
-                "stack)",
+    "moe": "the MoE family",
+    "ssm": "the Mamba-2 / SSM family",
+    "rec": "the RG-LRU recurrent family",
+    "enc_attn": "the encoder-decoder family",
+    "dec_attn": "the encoder-decoder family",
 }
 _KINDS = ("attn", "attn_local")
 
@@ -43,13 +41,14 @@ _KINDS = ("attn", "attn_local")
 def _check_kind(cfg, kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]}")
+            f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]} "
+            f"({_LM_ITEM})")
     if kind not in _KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     if cfg.attn_kind == "mla":
         raise NotImplementedError(
             "attn_kind 'mla' is not ported yet: multi-head latent "
-            "attention (ROADMAP queue 1, the LM model stack)")
+            f"attention ({_LM_ITEM})")
 
 
 def layer_kinds(cfg) -> List[str]:
@@ -120,19 +119,52 @@ def init_block_cache(cfg, kind: str, batch: int, s_max: int,
     return attn_mod.init_gqa_cache(cfg, batch, s_max, window, device=device)
 
 
+def _remat(cfg, fn):
+    """``fn`` under ``cfg.remat`` while gradients are recorded: ``"full"``
+    keeps only each period's input and recomputes the rest in the
+    backward (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return lambda x: checkpoint(fn, x, use_reentrant=False)
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat 'dots' (keep the matmul outputs, recompute the rest) is "
+            "not ported yet (ROADMAP queue 1, item 5: training's "
+            "leftovers)")
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
                 shape_kind: str = "train",
                 caches: Optional[List[Dict[str, Any]]] = None):
     """Run every layer in order.  Returns (x, new_caches, aux_sums);
-    ``caches`` is one cache per layer (or None)."""
+    ``caches`` is one cache per layer (or None).  Without caches, each
+    repeat of ``layer_pattern`` after the prefix runs under
+    ``cfg.remat`` (the reference's scanned period body)."""
     aux_sum = {"load_balance": torch.zeros((), device=x.device),
                "router_z": torch.zeros((), device=x.device)}
     new_caches = [] if caches is not None else None
+    n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
+
+    def run(lo, hi):
+        def body(x):
+            for i in range(lo, hi):
+                x, _, _ = block_apply(layers[i], cfg, layers[i].kind, x,
+                                      positions, mode=mode,
+                                      shape_kind=shape_kind)
+            return x
+        return body
+
+    if caches is None:
+        x = run(0, n_prefix)(x)
+        for lo in range(n_prefix, len(layers), period):
+            x = _remat(cfg, run(lo, lo + period))(x)
+        return x, None, aux_sum
     for i, block in enumerate(layers):
         x, new_cache, _ = block_apply(
             block, cfg, block.kind, x, positions, mode=mode,
-            shape_kind=shape_kind,
-            cache=caches[i] if caches is not None else None)
-        if caches is not None:
-            new_caches.append(new_cache)
+            shape_kind=shape_kind, cache=caches[i])
+        new_caches.append(new_cache)
     return x, new_caches, aux_sum

@@ -34,8 +34,9 @@ layer's K2 plan at the compute dtype first (``plans_warmed``: one per
 layer).  Engines built with ``params=other.params`` share ``other``'s
 model — its weights, their compute-dtype copies and its K2 plans — and add
 only their own serving state (the router's replicas).
-``warm_spmv_plans`` (the autotuner and row-sharded SpMV) is not ported
-yet (ROADMAP queue 1).
+``warm_spmv_plans`` tunes auxiliary SpMV matrices on the engine's device
+(the autotuner); with a mesh it waits for row-sharded SpMV (ROADMAP queue
+1, item 2).
 """
 from __future__ import annotations
 
@@ -238,6 +239,7 @@ class Engine:
         # at the compute dtype the layers will ask for (a shared model's
         # engine found them built).
         self.plans_warmed = 0
+        self.spmv_plans_warmed = 0   # auxiliary matrices (warm_spmv_plans)
         if model_cfg.sparsity.enabled and \
                 model_cfg.sparsity.impl_is_kernel() and not shared:
             self.plans_warmed = ops.warm_plans_from_params(
@@ -283,23 +285,49 @@ class Engine:
         self._on_fused_dispatch(out)
         return out
 
-    def warm_spmv_plans(self, matrices, **kwargs):
-        """Pre-tune and stage SpMV plans for auxiliary sparse matrices —
-        needs the autotuner and, with a mesh, row-sharded SpMV, neither of
-        which is ported yet."""
-        raise NotImplementedError(
-            "warm_spmv_plans needs the autotuner and row-sharded SpMV, not "
-            "ported yet (ROADMAP queue 1, items 3 and 4)")
+    def warm_spmv_plans(self, matrices, *, repeats: int = 1, mesh=None,
+                        mesh_axis: Optional[str] = None,
+                        x_mode: str = "replicated",
+                        per_shard_tune: bool = True):
+        """Pre-tune and stage SpMV plans for auxiliary sparse matrices.
+
+        Serving deployments that also answer SpMV traffic (iterative
+        solvers, graph scoring) hand their matrices here at startup — each
+        a dense array, a ``scipy.sparse`` matrix or a CSR tuple: each one
+        runs the joint autotune search on the engine's device and the
+        winning plan lands in the process-wide ``PLAN_CACHE``, kept alive
+        by the tuner, before the first request.  The request path hits it
+        through ``autotune.tuned_plan`` of the same matrix: a memo hit with
+        no timing and no plan build.  Returns the winning
+        :class:`~repro_torch.kernels.autotune.TuneConfig` per matrix, in
+        order.
+
+        ``mesh`` (and ``mesh_axis``, ``x_mode``, ``per_shard_tune``) row-
+        shards each matrix in the reference; that waits for row-sharded
+        SpMV and raises here.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "warm_spmv_plans(mesh=...) row-shards each matrix over the "
+                "mesh: not ported yet (ROADMAP queue 1, item 2: row-sharded "
+                "SpMV)")
+        from repro_torch.kernels import autotune
+        winners = [autotune.tuned_plan(a, repeats=repeats,
+                                       device=self.device)[1].config
+                   for a in matrices]
+        self.spmv_plans_warmed += len(winners)
+        return winners
 
     def plan_cache_stats(self):
         """Plan counters: the matrix PlanCache (core spmv dispatch), the
         K2 plans this engine's sparse layers keep, and how many plans this
-        engine warmed at init."""
+        engine warmed at init and through :meth:`warm_spmv_plans`."""
         kept = sum(len(getattr(m, "_plans", ()))
                    for m in self.model.modules() if hasattr(m, "plan_for"))
         return {"plan_cache": ops.PLAN_CACHE.stats(),
                 "param_plans": {"entries": kept},
-                "plans_warmed": self.plans_warmed}
+                "plans_warmed": self.plans_warmed,
+                "spmv_plans_warmed": self.spmv_plans_warmed}
 
     # ---------------------------------------------------------------- steps
     def _prefill(self, batch):

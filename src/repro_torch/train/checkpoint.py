@@ -23,7 +23,7 @@ sorted order, list positions in order — and each leaf's key is the
   as the reference's does; ``models.params_from_numpy`` carries a
   reference-layout parameter tree into a model.  Placing a restore on a
   row-sharded layout (the reference's ``restore_sharded``) waits for
-  row-sharded SpMV over ``torch.distributed`` (ROADMAP queue 1, item 4).
+  row-sharded SpMV over ``torch.distributed`` (ROADMAP queue 1, item 2).
 
 The serving snapshots (``save_snapshot`` … ``SnapshotManager``) use no
 framework and are a copy of the reference's.
@@ -175,7 +175,7 @@ def restore_sharded(ckpt_dir: str, tree_like, shardings,
     """Restore onto a row-sharded layout: not ported yet."""
     raise NotImplementedError(
         "restore_sharded needs row-sharded SpMV over torch.distributed, "
-        "not ported yet (ROADMAP queue 1, item 4)")
+        "not ported yet (ROADMAP queue 1, item 2: row-sharded SpMV)")
 
 
 class CheckpointManager:

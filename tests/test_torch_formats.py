@@ -177,7 +177,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     for module in ("obs/metrics.py", "obs/trace.py", "train/fault.py",
                    "serve/paging.py", "serve/device_loop.py",
                    "serve/engine.py", "serve/router.py", "launch/serve.py",
-                   "obs/export.py", "train/checkpoint.py"):
+                   "obs/export.py", "train/checkpoint.py",
+                   "kernels/autotune.py", "train/data.py",
+                   "train/optimizer.py", "train/trainer.py",
+                   "launch/steps.py", "launch/train.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)

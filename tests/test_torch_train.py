@@ -1,0 +1,399 @@
+"""The port's training path against ``repro.train`` / ``repro.launch.steps``.
+
+The same numpy inputs (batches from ``make_batch``, gradients and trees
+from a seed, parameters carried across with ``params_from_numpy``) go
+through both packages: batches byte-equal, the optimizers within rtol
+1e-5 / atol 1e-6, losses within 1e-5 (fp32), three train steps within
+1e-4 (losses, grad norm) and 1e-5 (parameters), and a checkpoint that the
+reference's ``Trainer`` wrote resumes in the port's.
+"""
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke as ref_get_smoke
+from repro.configs.base import SparsityConfig as RefSparsityConfig
+from repro.launch import steps as ref_steps
+from repro.models import LanguageModel as RefModel
+from repro.train import data as ref_data
+from repro.train import optimizer as ref_opt
+from repro.train.trainer import TrainConfig as RefTrainConfig
+from repro.train.trainer import Trainer as RefTrainer
+from repro_torch.configs import get_smoke
+from repro_torch.configs.base import SparsityConfig
+from repro_torch.launch import steps
+from repro_torch.launch import train as launch_train
+from repro_torch.models import LanguageModel, ffn, params_from_numpy
+from repro_torch.models.model import port_layout
+from repro_torch.train import checkpoint, data, optimizer
+from repro_torch.train.fault import FaultInjector
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+torch.set_num_threads(1)
+
+FP32 = dict(dtype="float32", kv_cache_dtype="float32")
+SEQ, BATCH = 16, 4
+
+
+# --------------------------------------------------------------------- data
+
+
+@pytest.mark.parametrize("family", ["dense", "vlm", "audio"])
+def test_make_batch_is_byte_equal(family):
+    kw = dict(vocab=97, seq_len=24, global_batch=8, seed=3, family=family,
+              d_frontend=12, frontend_tokens=5)
+    for step, host, hosts in ((0, 0, 1), (7, 1, 2)):
+        want = ref_data.make_batch(ref_data.DataConfig(**kw), step,
+                                   host_id=host, n_hosts=hosts)
+        got = data.make_batch(data.DataConfig(**kw), step, host_id=host,
+                              n_hosts=hosts)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert got[k].tobytes() == want[k].tobytes(), k
+    it = data.SyntheticLM(data.DataConfig(**kw)).seek(4)
+    np.testing.assert_array_equal(next(it)["tokens"], ref_data.make_batch(
+        ref_data.DataConfig(**kw), 4)["tokens"])
+
+
+# ---------------------------------------------------------------- optimizer
+
+
+def _tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"kernel": rng.standard_normal((6, 5)).astype(np.float32),
+            "stack": rng.standard_normal((3, 4, 2)).astype(np.float32),
+            "scale": (1 + 0.1 * rng.standard_normal(7)).astype(np.float32),
+            "columns": rng.integers(0, 9, (4, 3)).astype(np.int32)}
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-6, err_msg=what)
+
+
+def _leaves(state):
+    """``{path: array}`` of a nested optimizer state (either package)."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            for sub, a in _leaves(v).items():
+                out[f"{k}/{sub}"] = a
+        else:
+            out[k] = np.asarray(v.detach() if torch.is_tensor(v) else v)
+    return out
+
+
+@pytest.mark.parametrize("name", ["adamw", "adafactor"])
+def test_optimizer_updates_match_reference(name):
+    kw = dict(name=name, lr=0.05, warmup_steps=2, decay_steps=20,
+              weight_decay=0.1)
+    ref_init, ref_update = ref_opt.make_optimizer(ref_opt.OptimizerConfig(
+        **kw))
+    init, update = optimizer.make_optimizer(optimizer.OptimizerConfig(**kw))
+    tree = _tree(0)
+    ref_p = {k: jnp.asarray(v) for k, v in tree.items()}
+    p = {k: torch.from_numpy(v.copy()) for k, v in tree.items()}
+    ref_s, s = ref_init(ref_p), init(p)
+    for step in range(5):
+        g = {k: v for k, v in _tree(10 + step).items()
+             if v.dtype == np.float32}
+        ref_g = dict({k: jnp.asarray(v) for k, v in g.items()},
+                     columns=np.zeros((4, 3), jax.dtypes.float0))
+        ref_p, ref_s = ref_update(ref_g, ref_s, ref_p)
+        p, s = update({k: torch.from_numpy(v) for k, v in g.items()}, s, p)
+    for k in tree:
+        _close(p[k], ref_p[k], k)
+    assert p["columns"].dtype == torch.int32
+    np.testing.assert_array_equal(p["columns"], tree["columns"])
+    want, got = _leaves(jax.device_get(ref_s)), _leaves(s)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype == (
+            np.int32 if k == "step" else np.float32), k
+        _close(got[k], want[k], k)
+
+
+@pytest.mark.parametrize("schedule", ["cosine", "linear", "constant"])
+def test_schedules_clipping_and_decay_mask_match_reference(schedule):
+    kw = dict(lr=2e-3, warmup_steps=10, decay_steps=100, schedule=schedule)
+    ref_fn = ref_opt._schedule(ref_opt.OptimizerConfig(**kw))
+    fn = optimizer._schedule(optimizer.OptimizerConfig(**kw))
+    for step in (0, 1, 5, 10, 11, 50, 99, 100, 150):
+        _close(fn(torch.tensor(step, dtype=torch.int32)),
+               ref_fn(jnp.asarray(step, jnp.int32)), f"step {step}")
+    tree = _tree(1)
+    floats = {k: v for k, v in tree.items() if v.dtype == np.float32}
+    for max_norm in (0.5, 100.0):
+        ref_c, ref_n = ref_opt.clip_by_global_norm(
+            {k: jnp.asarray(v) for k, v in floats.items()}, max_norm)
+        got_c, got_n = optimizer.clip_by_global_norm(
+            {k: torch.from_numpy(v) for k, v in tree.items()}, max_norm)
+        _close(got_n, ref_n, "norm")
+        for k in floats:
+            _close(got_c[k], ref_c[k], k)
+        assert got_c["columns"] is not None
+    assert optimizer._decay_mask({k: torch.from_numpy(v) for k, v in
+                                  tree.items()}) == \
+        ref_opt._decay_mask({k: jnp.asarray(v) for k, v in tree.items()})
+
+
+# --------------------------------------------------------------- the model
+
+_PAIRS = {}
+
+
+def _pair(sparse: bool):
+    """(reference cfg, reference params, port cfg, port tree): smoke
+    granite-3-2b in fp32, the FFN in RgCSR through the segment sum when
+    ``sparse`` (the launchers' ``--sparse-ffn``)."""
+    if sparse not in _PAIRS:
+        ref_cfg = dataclasses.replace(ref_get_smoke("granite-3-2b"), **FP32)
+        cfg = dataclasses.replace(get_smoke("granite-3-2b"), **FP32)
+        if sparse:
+            sk = dict(enabled=True, density=0.25, group_size=128, impl="ref")
+            ref_cfg = dataclasses.replace(
+                ref_cfg, sparsity=RefSparsityConfig(**sk))
+            cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(**sk))
+        ref_params = RefModel(ref_cfg).init(jax.random.PRNGKey(0))
+        _PAIRS[sparse] = (ref_cfg, ref_params, cfg,
+                          jax.device_get(ref_params))
+    return _PAIRS[sparse]
+
+
+def _batch(cfg, step):
+    return data.make_batch(data.DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                           global_batch=BATCH, seed=1), step)
+
+
+def _port_model(cfg, host):
+    model = LanguageModel(cfg, params_from_numpy(cfg, host, device="cpu"))
+    return model.requires_grad_(True)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_loss_matches_reference(sparse):
+    ref_cfg, ref_params, cfg, host = _pair(sparse)
+    batch = _batch(cfg, 0)
+    batch["labels"][0, :3] = -1                  # masked positions
+    want, want_m = RefModel(ref_cfg).loss(
+        ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    got, got_m = _port_model(cfg, host).loss(
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert got.requires_grad
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-5)
+    assert set(got_m) == set(want_m) == {"ce", "loss"}
+
+
+def test_segment_sum_chunks_keep_the_forward_and_give_the_gradients(
+        monkeypatch):
+    """In chunks or whole, the same forward bits on the CPU; the backward
+    matches autograd of the dense-equivalent product in float64."""
+    _, _, cfg, host = _pair(True)
+    w = {k: torch.from_numpy(np.array(v[0])) for k, v in
+         host["stack"]["body"]["0_attn"]["ffn"]["w_out"].items()}
+    d_in, d_out = cfg.d_ff, cfg.d_model
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 5, d_in)).astype(np.float32))
+    whole = ffn.sparse_linear_apply(w, cfg, x, d_out)
+    monkeypatch.setattr(ffn, "_GATHER_ELEMS", 128 * 5 * 3)   # 7+ chunks
+    vals = w["values2d"].double().requires_grad_(True)
+    xd = x.double().requires_grad_(True)
+    got = ffn.sparse_linear_apply(dict(w, values2d=vals), cfg, xd, d_out)
+    assert torch.equal(ffn.sparse_linear_apply(w, cfg, x, d_out), whole)
+    dy = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        got.shape))
+    gv, gx = torch.autograd.grad(got, (vals, xd), dy)
+    # the dense equivalent: W[g·G + lane, columns[k, lane]] = values[k, lane]
+    g = cfg.sparsity.group_size
+    rows = (w["chunk_group"].long().repeat_interleave(8)[:, None] * g
+            + torch.arange(g)).reshape(-1)
+    vals2 = vals.detach().clone().requires_grad_(True)
+    dense = torch.zeros((rows.max() + 1, d_in), dtype=torch.float64)
+    dense = dense.index_put((rows, w["columns2d"].reshape(-1).long()),
+                            vals2.reshape(-1), accumulate=True)
+    x2 = x.double().requires_grad_(True)
+    want = (x2 @ dense[:d_out].T)
+    wv, wx = torch.autograd.grad(want, (vals2, x2), dy)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(gv, wv, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(gx, wx, rtol=1e-12, atol=1e-12)
+
+
+def _run_both(micro: int, n_steps: int, **okw):
+    """``n_steps`` train steps of both packages from the same parameters
+    on the same batches: (per-step metrics pairs, the port's tensors, the
+    reference's parameters in the port's layout, the port's state)."""
+    ref_cfg, ref_params, cfg, host = _pair(True)
+    okw = dict(dict(lr=3e-3, warmup_steps=2, decay_steps=10), **okw)
+    ref_fn, ref_init = ref_steps.make_train_step(
+        RefModel(ref_cfg), ref_opt.OptimizerConfig(**okw), micro)
+    ref_fn = jax.jit(ref_fn)
+    model = _port_model(cfg, host)
+    step_fn, init = steps.make_train_step(
+        model, optimizer.OptimizerConfig(**okw), micro)
+    params = model.tensors()
+    ref_p, ref_s, state = ref_params, ref_init(ref_params), init(params)
+    metrics = []
+    for step in range(n_steps):
+        batch = _batch(cfg, step)
+        ref_p, ref_s, want = ref_fn(ref_p, ref_s, batch)
+        params, state, got = step_fn(params, state, batch)
+        metrics.append((got, want))
+    got = {k: t.detach().numpy() for k, t in params.items()}
+    return metrics, got, port_layout(cfg, jax.device_get(ref_p)), state
+
+
+def _metrics_close(metrics):
+    for got, want in metrics:
+        for k in ("loss", "ce", "grad_norm"):
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_three_train_steps_match_reference(micro):
+    """No weight decay: the two packages' decay masks differ on the body
+    layers' norm scales (see the next test); everything else is held."""
+    metrics, got, want, state = _run_both(micro, 3, weight_decay=0.0)
+    _metrics_close(metrics)
+    assert got.keys() == want.keys()
+    for k, a in got.items():
+        np.testing.assert_allclose(a, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    assert int(state["step"]) == 3 and state["step"].dtype == torch.int32
+
+
+def test_weight_decay_skips_each_layers_norm_scales():
+    """One step with weight decay 0.1: every parameter within 1e-5 of the
+    reference's but the body layers' norm scales, which the reference
+    decays — its mask reads the stacked (2-D) array of the per-layer 1-D
+    scales, where the port's reads each layer's own (1-D: no decay)."""
+    metrics, got, want, _ = _run_both(1, 1, weight_decay=0.1)
+    _metrics_close(metrics)
+    ocfg = optimizer.OptimizerConfig(lr=3e-3, warmup_steps=2,
+                                     decay_steps=10)
+    shrink = 1 - 0.1 * float(optimizer._schedule(ocfg)(1))
+    skipped = 0
+    for k, a in got.items():
+        if k.startswith("layers/") and a.ndim == 1 and a.dtype == np.float32:
+            assert not np.allclose(a, want[k], rtol=1e-5, atol=1e-5), k
+            a, skipped = a * shrink, skipped + 1  # the reference's decay
+        np.testing.assert_allclose(a, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    assert skipped == 2 * get_smoke("granite-3-2b").n_layers
+
+
+# --------------------------------------------------------------- trainers
+
+
+def test_a_reference_checkpoint_resumes_in_the_port(tmp_path):
+    """The reference's Trainer saves at step 2; the port's restores it
+    and takes step 3 with the reference's loss; the port's checkpoint
+    restores in the reference."""
+    ref_cfg, _, cfg, _ = _pair(True)
+    d = str(tmp_path)
+    okw = dict(lr=3e-3, warmup_steps=2, decay_steps=10)
+    ref_tr = RefTrainer(ref_cfg, RefTrainConfig(
+        steps=3, ckpt_every=2, ckpt_dir=d, log_every=100,
+        opt=ref_opt.OptimizerConfig(**okw)))
+    ref_state, _ = ref_tr.run(ref_tr.init_state(seq_len=SEQ,
+                                                global_batch=BATCH))
+    assert checkpoint.latest_step(d) == 2
+    tr = Trainer(cfg, TrainConfig(steps=1, ckpt_dir=d, log_every=100,
+                                  opt=optimizer.OptimizerConfig(**okw)),
+                 device="cpu")
+    tr.init_state(seq_len=SEQ, global_batch=BATCH)
+    state, nxt = tr.restore_latest()
+    assert nxt == 3 and int(state[1]["step"]) == 3
+    state, step = tr.run(state, start_step=nxt, n_steps=1)
+    assert step == 4 and checkpoint.latest_step(d) == 3
+    ref_tr.run(ref_state, start_step=3, n_steps=1)
+    np.testing.assert_allclose(tr.history[-1]["loss"],
+                               ref_tr.history[-1]["loss"], rtol=1e-4,
+                               atol=1e-4)
+    like = {"params": ref_tr.model.abstract_params()}
+    like["opt_state"] = jax.eval_shape(ref_tr.opt_init, like["params"])
+    restored, manifest = checkpoint.restore(d, jax.tree_util.tree_map(
+        lambda _: 0, like))
+    assert manifest["step"] == 3
+    jax.tree_util.tree_map(
+        lambda a, s: np.testing.assert_equal(np.shape(a), s.shape),
+        restored, like)
+
+
+def test_trainer_loss_decreases_and_survives_fault(tmp_path):
+    """``test_train.py``'s fault drill on the port (dense smoke
+    granite-3-2b, bf16): the loss falls, the fault at step 13 restores
+    step 8's checkpoint, and the replayed steps see the same data."""
+    cfg = get_smoke("granite-3-2b")
+    tc = TrainConfig(steps=24, log_every=100, ckpt_every=8,
+                     ckpt_dir=str(tmp_path),
+                     opt=optimizer.OptimizerConfig(lr=3e-3, warmup_steps=4,
+                                                   decay_steps=100),
+                     microbatches=2)
+    tr = Trainer(cfg, tc, fault_injector=FaultInjector(fail_at_steps=[13]),
+                 device="cpu")
+    state = tr.init_state(seq_len=32, global_batch=8)
+    state, step = tr.run(state)
+    assert step == 24
+    losses = [h["loss"] for h in tr.history]
+    assert losses[-1] < losses[0] - 0.3
+    by_step, replayed = {}, 0
+    for h in tr.history:
+        if h["step"] in by_step:
+            replayed += 1
+            assert abs(by_step[h["step"]] - h["loss"]) < 5e-2
+        by_step[h["step"]] = h["loss"]
+    assert replayed == 4                         # steps 9..12 again
+    # the final checkpoint restores bitwise into a new trainer
+    tr2 = Trainer(cfg, tc, device="cpu")
+    tr2.init_state(seq_len=32, global_batch=8)
+    (params2, opt2), nxt = tr2.restore_latest()
+    assert nxt == 24
+    for k, t in state[0].items():
+        assert torch.equal(params2[k], t), k
+    for k, t in state[1]["m"].items():
+        assert torch.equal(opt2["m"][k], t), k
+
+
+def test_trainer_refuses_a_mesh_and_remat_dots_is_named():
+    cfg = get_smoke("granite-3-2b")
+    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
+        Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
+        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
+    model = LanguageModel(dataclasses.replace(cfg, remat="dots"),
+                          device="cpu").requires_grad_(True)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 0).items()}
+    with pytest.raises(NotImplementedError, match="remat 'dots'"):
+        model.loss(batch)
+
+
+def test_remat_full_gives_the_same_gradients():
+    _, _, cfg, host = _pair(True)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 0).items()}
+    grads = []
+    for remat in ("none", "full"):
+        model = _port_model(dataclasses.replace(cfg, remat=remat), host)
+        model.loss(batch)[0].backward()
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    for k, g in grads[0].items():
+        torch.testing.assert_close(grads[1][k], g, rtol=1e-6, atol=1e-7)
+
+
+def test_launcher_smoke_sparse_ffn_on_the_cpu(capsys):
+    tr, (params, _) = launch_train.main([
+        "--smoke", "--sparse-ffn", "--device", "cpu", "--steps", "3",
+        "--seq", "16", "--batch", "4"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last == f"done: 3 steps, final loss {tr.history[-1]['loss']:.4f}"
+    assert all(math.isfinite(h["loss"]) for h in tr.history)
+    w_out = tr.model.layers[0].ffn.w_out
+    assert w_out.values2d.requires_grad and w_out.plan_builds == 0
+    assert params["layers/0/ffn/w_out/values2d"] is w_out.values2d
