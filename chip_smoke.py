@@ -120,7 +120,50 @@ Phases (any failure exits non-zero and prints no result line):
    an uninterrupted run from the same seed (``index_add_`` on CUDA is not
    bitwise repeatable), the last checkpoint restored into a new
    ``Trainer`` with parameters and moments bitwise equal;
-11. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+11. mla: minicpm3-4b at its published width and depth (62 layers, d_model
+   2,560, 40 heads; MLA with q_lora 768, kv_lora 256, nope 64, rope 32,
+   v 64; d_ff 6,400, vocab 73,448) with the RgCSR FFN (density 0.25,
+   G = 128, ``impl="kernel"``: ``w_out`` is 20 groups of 1,600 slot rows),
+   random weights from ``SEED``.  (a) ``Engine.generate`` of 4 prompts of
+   128 tokens, 32 new, ``max_seq`` 256: K2's counter reads exactly 62 × 32
+   and no other kernel of the port launches; in float32 (caches too) the
+   prefill logits within 1e-4 · (1 + max|logit|) of the same weights with
+   a dense-equivalent ``w_out`` (TF32 off) and greedy tokens identical
+   under the margin rule; paged MLA decode (``ckv``/``krope`` pages, one
+   slot) within 1e-5 · (1 + max|logit|) of the dense-layout decode for
+   prompts of 49 and 48 tokens (16-token pages); in bfloat16 the prefill
+   and decode times, tokens/s, the card's busy time of a prefill and of a
+   decode step (``torch.profiler``) and K2's share; K2 at ``w_out`` held
+   against its plain version and timed at d = 4, 8 and 512 against its
+   bound, its plain version, the dense bf16 product and the CSR call;
+   peak memory.  (b) ``Engine.serve`` on paged MLA caches, the decode step
+   a CUDA graph, bf16: 16 requests on 8 slots (prompts of 64–256 tokens
+   drawn from four lengths, 64 new each, ``max_seq`` 512): K2 reads
+   exactly 62 × (decode steps + prefills), replays = decode steps, every
+   stream equal to ``generate`` of its prompt (each length's prompts as
+   one batch) up to the first step whose top-2 margin in generate's run is
+   below 3e-2 · max|logit| (the bf16 bar: a bf16 logit carries 8
+   significant bits, and batch composition changes the rounding); grep
+   ``^mla``;
+12. moe: granite-moe-1b-a400m at its published width and depth (24
+   layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 of 512,
+   einsum dispatch; the reference sparsifies no MoE FFN, so no K1–K3
+   runs).  (a) float32: ``generate`` with phase 11's shapes through the
+   einsum and the scatter dispatch, prefill logits within 1e-4 · (1 +
+   max|logit|) and greedy tokens under the margin rule, no kernel of the
+   port launched; at 2 layers of full width the card within 1e-4 · (1 +
+   max|logit|) of the port's own CPU run on the same weights; bfloat16
+   times, and one MoE layer's and its dispatch's (routing, dispatch and
+   combine, without the experts' FFN) share of a decode step's busy time.
+   (b) ``serve``: 16 requests on 8 slots with the graph, replays = decode
+   steps, streams against ``generate`` as in 11(b).  (c) Three AdamW
+   steps of 4 × 128 tokens through ``launch/train.py``, bf16 compute:
+   ``ce``, ``load_balance`` and ``router_z`` finite, peak memory.  (d)
+   deepseek-v3-671b at its smoke size only (its experts alone exceed one
+   card): the dense prefix layer, sigmoid routing with a nonzero bias,
+   the shared expert, MLA and MTP; the card's fp32 logits and loss terms
+   within 1e-4 of the port's CPU run; grep ``^moe``;
+13. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -178,6 +221,17 @@ TRAIN_SPARSITY = dict(SERVE_SPARSITY, impl="ref")
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_T = 4, 128, 4, 64
 DRILL_LAYERS, DRILL_STEPS, DRILL_FAULT, DRILL_CKPT = 4, 7, 5, 2
 REPLAY_TOL = 5e-2
+# phase 11: minicpm3-4b (MLA) with the RgCSR FFN; phase 12: granite-moe
+# and deepseek-v3's smoke config.  Sessions: FAM_MIX = (requests, new
+# tokens), prompt lengths drawn from FAM_LENS, FAM_SLOTS slots.
+MLA_ARCH, MOE_ARCH, DEEPSEEK_ARCH = ("minicpm3-4b", "granite-moe-1b-a400m",
+                                     "deepseek-v3-671b")
+FAM_MIX, FAM_LENS, FAM_SLOTS, FAM_MAX_SEQ = (16, 64), (64, 128, 192, 256), \
+    8, 512
+FAM_K2_WIDTHS = (SERVE_BATCH, FAM_SLOTS, SERVE_BATCH * SERVE_PROMPT)
+FAM_PAGED_LENS = (SESS_PAGE * 3 + 1, SESS_PAGE * 3)
+FAM_PAGED_STEPS, FAM_PAGED_MAX_SEQ = 4, 64
+MOE_CPU_LAYERS, MOE_TRAIN_STEPS = 2, 3
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -277,6 +331,15 @@ def dense_equivalent(layer):
                   layer.values2d.detach().reshape(-1).float(),
                   accumulate=True)
     return w[: layer.d_out]
+
+
+def tree_to(tree, device):
+    """A parameter tree (dicts and lists of tensors) copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def device_kernels(fn, calls: int):
@@ -383,15 +446,19 @@ def main() -> int:
                                                 rgcsr_spmm_plain)
     from repro_torch.kernels.rgcsr_spmv import (rgcsr_spmv_launch,
                                                 rgcsr_spmv_plain)
+    from repro_torch.models import LanguageModel
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.spec import init_from_spec
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.obs import export as obs_export
     from repro_torch.serve import (Engine, Request, Router, RouterConfig,
                                    ServeConfig)
+    from repro_torch.serve import paging
     from repro_torch.serve import router as router_mod
+    from repro_torch.train import data as train_data
     from repro_torch.train import trainer as trainer_mod
     from repro_torch.train.fault import FaultConfig, FaultInjector
     from repro_torch.train.optimizer import OptimizerConfig
@@ -998,16 +1065,17 @@ def main() -> int:
                             for name, (n, us) in top) + f" {tag}")
 
     # K2 per layer at the serving widths, bf16, on layer 0's kept plan
-    def k2_serving_entry(lay, d, launches, max_err, where=""):
+    def k2_serving_entry(lay, d, launches, max_err, where="",
+                         arch=SERVE_ARCH):
         """Times of K2 at width ``d`` on ``lay``'s kept bf16 plan, beside
         its bound, its plain version, the PyTorch CSR product and the
-        dense bf16 product of the layer's dense equivalent; ``where``
-        names the phase in the entry's name."""
+        dense bf16 product of the layer's dense equivalent; ``arch`` and
+        ``where`` (the phase) name the entry."""
         plan = lay.plan_for(torch.bfloat16)
         w32 = dense_equivalent(lay)
         w16 = w32.bfloat16()
         live, real = live_slots(plan)
-        xk = torch.from_numpy(rng.standard_normal((serve_cfg.d_ff, d))
+        xk = torch.from_numpy(rng.standard_normal((lay.d_in, d))
                               .astype(np.float32)).to(dev, torch.bfloat16)
         run = lambda: rgcsr_spmm_launch(plan, xk)   # noqa: E731
         nbytes = (live * (2 + 4) + xk.nbytes + plan.n_rows * d * 2
@@ -1026,7 +1094,7 @@ def main() -> int:
                 log(f"library csr {ltag}: {err}")
             del a_csr
         lib_tag = "bf16" if "bf16" in lib else "fp32"
-        e = {"name": f"rgcsr_spmm@{SERVE_ARCH} w_out d{d} bf16{where}",
+        e = {"name": f"rgcsr_spmm@{arch} w_out d{d} bf16{where}",
              "route": "cuda", "source": KERNEL_META["rgcsr_spmm"][0],
              "replaces": KERNEL_META["rgcsr_spmm"][1],
              "launches": launches, "max_abs_err": max_err,
@@ -1907,6 +1975,619 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 10 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- shared by phases 11 and 12: a family's model at published width
+    # and depth through generate and serve
+    def family_requests(vocab, seed):
+        """``FAM_MIX``'s requests from ``seed``: prompt lengths drawn from
+        ``FAM_LENS`` (so that generate() can run each length's prompts as
+        one batch), random tokens."""
+        r = np.random.default_rng(seed)
+        n, new = FAM_MIX
+        return [Request(tokens=r.integers(0, vocab, int(ln)).astype(
+            np.int32), max_new_tokens=new) for ln in r.choice(FAM_LENS, n)]
+
+    def greedy_rows(model, tokens, s_max, n_new, vocab):
+        """Greedy decoding as ``Engine.generate`` runs it (prefill, then
+        decode steps, argmax of the float32 logits), with per row and step
+        the top-2 margin and the largest |logit|."""
+        toks, margins, peaks = [], [], []
+        with torch.inference_mode():
+            logits, caches = model.prefill({"tokens": tokens}, s_max)
+            for step in range(n_new):
+                last = logits[:, -1, :vocab].float()
+                top2 = torch.topk(last, 2, dim=-1).values
+                margins.append((top2[:, 0] - top2[:, 1]).cpu())
+                peaks.append(last.abs().amax(-1).cpu())
+                tok = last.argmax(-1).int()[:, None]
+                toks.append(tok)
+                if step + 1 < n_new:
+                    logits, caches = model.decode_step(caches, tok)
+        return (torch.cat(toks, 1).cpu().numpy(),
+                torch.stack(margins, 1).numpy(), torch.stack(peaks, 1).numpy())
+
+    def streams_vs_generate(eng, reqs, vocab, margin_tol):
+        """Each request's stream against ``eng.generate`` of its prompt
+        (the prompts of one length as one batch).  A stream may leave
+        generate's only at or after a step whose top-2 margin in generate's
+        own run is below ``margin_tol`` · max|logit| (the margin rule).
+        Returns (streams equal, streams within the rule, first steps that
+        differ)."""
+        by_len = collections.defaultdict(list)
+        for i, r in enumerate(reqs):
+            by_len[len(r.tokens)].append(i)
+        exact, ok, first = [False] * len(reqs), [False] * len(reqs), []
+        for ln, idx in sorted(by_len.items()):
+            prompts = np.stack([reqs[i].tokens for i in idx])
+            n_new = reqs[idx[0]].max_new_tokens
+            want = eng.generate(prompts, n_new)
+            trace = None
+            for j, i in enumerate(idx):
+                got = np.asarray(reqs[i].out)
+                diff = np.flatnonzero(got != want[j]) \
+                    if got.shape == want[j].shape else np.array([0])
+                if not len(diff):
+                    exact[i] = ok[i] = True
+                    continue
+                first.append(int(diff[0]))
+                if trace is None:
+                    trace = greedy_rows(eng.model, torch.from_numpy(
+                        prompts).to(dev), eng.cfg.max_seq, n_new, vocab)
+                    if not (trace[0] == want).all():
+                        log(f"  generate and its greedy trace differ at "
+                            f"prompt length {ln}")
+                        continue
+                _, m, pk = trace
+                close = np.flatnonzero(m[j] < margin_tol * pk[j])
+                ok[i] = bool(len(close)) and diff[0] >= close[0]
+        return exact, ok, first
+
+    def family_session(eng, vocab, seed, what):
+        """``FAM_MIX`` through ``eng.serve`` with the decode step a CUDA
+        graph (a warm-up session first): K2 launches tallied around each
+        prefill and fused dispatch, the session's stats, tokens/s and what
+        a caller waits per decode step; returns (reqs, stats, prefills,
+        replays, launch counts, K2 in the prefills, K2 in the dispatches,
+        wall seconds)."""
+        eng.serve([Request(tokens=r.tokens[:64], max_new_tokens=4)
+                   for r in family_requests(vocab, seed)[:FAM_SLOTS]])
+        if eng._loop.graph is None:
+            failures.append(f"{what}: no CUDA graph was captured")
+        prefill_k2, widths_seen = [], set()
+        fused = eng._fused_decode
+        seen = tally_dispatches([eng])[0]
+        tally_prefills(eng, prefill_k2, widths_seen)
+        reqs = family_requests(vocab, seed)
+        replays0 = eng._loop.replays
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts_ = launch_counts()
+        eng._fused_decode = fused
+        del eng._prefill                    # tally_prefills' wrapper
+        st = eng.paging_stats
+        prefills = eng._session.prefill_count
+        replays = eng._loop.replays - replays0
+        step_wait = sum(dt for dt, _, _ in seen) / max(
+            1, sum(n for _, n, _ in seen)) * 1e3
+        k2_decode = sum(k for _, _, k in seen)
+        tokens_ = sum(len(r.out) for r in reqs)
+        log(f"{what}: {len(reqs)} requests on {FAM_SLOTS} slots (prompts "
+            f"{sorted(len(r.tokens) for r in reqs)}, {FAM_MIX[1]} new), "
+            f"{st['n_pages']} pages of {SESS_PAGE}: {tokens_} tokens in "
+            f"{wall:.3f} s, {tokens_ / wall:.1f} tokens/s; {prefills} "
+            f"prefills, decode steps {st['decode_steps']}, dispatches "
+            f"{st['decode_dispatches']}, graph replays {replays}, completed "
+            f"{st['completed']}; a caller waits {step_wait:.3f} ms per "
+            f"decode step; launch counts {counts_} {tag}")
+        # one chunk of a full batch under the profiler: the card's busy
+        # time per graph step against what a caller waits for it
+        sess = eng.start_session(family_requests(vocab, seed)[:FAM_SLOTS])
+        sess.step(1)                        # admit all, one step
+        t = time.perf_counter()
+        sess.step(SESS_CHUNK)
+        wait = (time.perf_counter() - t) * 1e3 / SESS_CHUNK
+        marks = []
+
+        def one_chunk():
+            before = sess.stats["decode_steps"]
+            sess.step(SESS_CHUNK)
+            marks.append(sess.stats["decode_steps"] - before)
+
+        try:
+            k = device_kernels(one_chunk, 1)
+            if not marks[-1]:
+                raise RuntimeError("the profiled chunk ran no decode step")
+            busy = sum(us for _, us in k.values()) / 1e3 / marks[-1]
+            k2_ms = sum(us for name, (_, us) in k.items()
+                        if "rgcsr_spmm" in name or "combine_partials" in name
+                        ) / 1e3 / marks[-1]
+            top = sorted(k.items(), key=lambda kv: -kv[1][1])[:4]
+            log(f"{what} decode step (profiler, one chunk of {marks[-1]} "
+                f"graph steps, {FAM_SLOTS} slots): "
+                f"{sum(n for n, _ in k.values()) / marks[-1]:.0f} kernels, "
+                f"card busy {busy:.3f} ms per step, K2 {k2_ms:.3f} ms; a "
+                f"caller waits {wait:.3f} ms per step of a chunk, idle share "
+                f"{100 * (1 - busy / wait):.1f} %; largest: " + "; ".join(
+                    f"{name[:60]} x{n:.0f} {us / 1e3:.3f} ms"
+                    for name, (n, us) in top) + f" {tag}")
+        except RuntimeError as err:
+            failures.append(f"{what} decode step: card busy time not "
+                            f"measured ({err})")
+        sess.drain()
+        return (reqs, st, prefills, replays, counts_, prefill_k2, k2_decode,
+                wall)
+
+    def profile_line(what, fn, calls, wall_ms, k2=True):
+        """The card's busy time per call of ``fn`` (``torch.profiler``),
+        K2's share and the idle share of ``wall_ms``; returns busy ms."""
+        k = device_kernels(fn, calls)
+        busy = sum(us for _, us in k.values())
+        k2_us = sum(us for name, (_, us) in k.items()
+                    if "rgcsr_spmm" in name or "combine_partials" in name)
+        top = sorted(k.items(), key=lambda kv: -kv[1][1])[:4]
+        log(f"{what} (profiler, {calls} calls): "
+            f"{sum(n for n, _ in k.values()):.0f} kernels, card busy "
+            f"{busy / 1e3:.3f} ms per call"
+            + (f", K2 {k2_us / 1e3:.3f} ms ({100 * k2_us / busy:.1f} %)"
+               if k2 else "")
+            + f", idle share of the {wall_ms:.3f} ms a caller waits "
+            f"{100 * (1 - busy / 1e3 / wall_ms):.1f} %; largest: "
+            + "; ".join(f"{name[:60]} x{n:.0f} {us / 1e3:.3f} ms"
+                        for name, (n, us) in top) + f" {tag}")
+        return busy / 1e3
+
+    def timed_generate(eng, prompts, s_max, what):
+        """bf16 ``generate`` times: the prefill (median of 3), generate,
+        decode ms per token, tokens/s; returns (prefill ms, decode ms,
+        caches of the last prefill, generate's tokens)."""
+        tokens_ = torch.from_numpy(prompts).to(dev)
+        eng.generate(prompts, SERVE_NEW)            # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out_ = eng.generate(prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t) * 1e3
+        walls = []
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, caches = eng.model.prefill({"tokens": tokens_}, s_max)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+        pre_ms = float(np.median(walls))
+        dec_ms = (gen_ms - pre_ms) / (SERVE_NEW - 1)
+        finite = bool(torch.isfinite(logits[..., :eng.model.cfg.vocab]).all())
+        log(f"{what}: prefill {pre_ms:.3f} ms ({prompts.shape[0]} x "
+            f"{prompts.shape[1]} tokens), generate {gen_ms:.3f} ms for "
+            f"{SERVE_NEW} new tokens, decode {dec_ms:.3f} ms per token, "
+            f"{prompts.shape[0] * SERVE_NEW / gen_ms * 1e3:.1f} tokens/s; "
+            f"prefill logits finite: {finite} {tag}")
+        if not finite:
+            failures.append(f"{what}: prefill logits not finite")
+        return pre_ms, dec_ms, caches, out_
+
+    def fp32_against(eng_a, eng_b, prompts, what):
+        """Prefill logits of two fp32 engines within LOGIT_TOL · (1 +
+        max|logit|), and ``eng_a.generate``'s greedy tokens against
+        ``eng_b``'s greedy trace under the margin rule."""
+        tokens_ = torch.from_numpy(prompts).to(dev)
+        vocab_ = eng_b.model.cfg.vocab
+        with torch.inference_mode():
+            la = eng_a.model.prefill({"tokens": tokens_},
+                                     eng_a.cfg.max_seq)[0]
+            lb = eng_b.model.prefill({"tokens": tokens_},
+                                     eng_b.cfg.max_seq)[0]
+        la, lb = (v[..., :vocab_].float() for v in (la, lb))
+        peak_ = lb.abs().max().item()
+        err_ = (la - lb).abs().max().item()
+        ok_ = bool(torch.isfinite(la).all()) and \
+            err_ <= LOGIT_TOL * (1 + peak_)
+        got_ = eng_a.generate(prompts, SERVE_NEW)
+        want_, margins_, peaks_ = greedy_trace(
+            eng_b.model, tokens_, eng_b.cfg.max_seq, SERVE_NEW, vocab_)
+        close_ = [i for i, (m, p) in enumerate(zip(margins_, peaks_))
+                  if m < MARGIN_TOL * p]
+        upto = close_[0] if close_ else SERVE_NEW
+        same_ = bool((got_[:, :upto] == want_[:, :upto]).all())
+        log(f"{what}: prefill logits max_abs_err {err_:.3e}, max|logit| "
+            f"{peak_:.3f} (tol {LOGIT_TOL:g} · (1 + max|logit|)) "
+            f"{'ok' if ok_ else 'FAIL'}; greedy tokens identical through "
+            f"step {upto} of {SERVE_NEW}: {same_} (smallest top-2 margin "
+            f"{min(margins_):.3e}; all steps identical: "
+            f"{bool((got_ == want_).all())})")
+        if not ok_:
+            failures.append(f"{what}: prefill logits")
+        if not same_:
+            failures.append(f"{what}: greedy tokens")
+
+    def stream_line(what, eng, reqs, vocab):
+        exact, ok_, first = streams_vs_generate(eng, reqs, vocab, BF16_TOL)
+        log(f"{what}: streams equal to generate() of their prompts: "
+            f"{sum(exact)} of {len(reqs)}; the others leave it at steps "
+            f"{sorted(first)}, each at or after a top-2 margin below "
+            f"{BF16_TOL:g} · max|logit| in generate's run: "
+            f"{all(ok_)} {'ok' if all(ok_) else 'FAIL'}")
+        if not all(ok_):
+            failures.append(f"{what}: streams against generate")
+
+    # ---- 11. MLA: minicpm3-4b at its published width and depth, the
+    # RgCSR FFN through K2 — generate, then sessions on paged MLA caches
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mla: held from the earlier phases: {live_cuda()}")
+    torch.cuda.reset_peak_memory_stats()
+    mla_cfg = dataclasses.replace(get_config(MLA_ARCH),
+                                  sparsity=SparsityConfig(**SERVE_SPARSITY))
+    n_mla = mla_cfg.n_layers
+    mla_tree = init_params(mla_cfg,
+                           torch.Generator(device=dev).manual_seed(SEED))
+    mla_sc = ServeConfig(max_seq=SERVE_MAX_SEQ)
+    engine = Engine(mla_cfg, mla_sc, params=mla_tree, device=dev)
+    torch.cuda.synchronize()
+    mla_layers = [b.ffn.w_out for b in engine.model.layers]
+    m = mla_cfg.mla
+    log(f"mla: {mla_cfg.name} {n_mla} layers, d_model {mla_cfg.d_model}, "
+        f"{mla_cfg.n_heads} heads, MLA q_lora {m.q_lora_rank} kv_lora "
+        f"{m.kv_lora_rank} nope {m.qk_nope_head_dim} rope "
+        f"{m.qk_rope_head_dim} v {m.v_head_dim}, d_ff {mla_cfg.d_ff}, vocab "
+        f"{mla_cfg.vocab}, {engine.model.n_params()} parameters, w_out in "
+        f"RgCSR ({mla_layers[0].values2d.shape[0]} slot rows of "
+        f"{mla_layers[0].values2d.shape[1]} lanes, "
+        f"{-(-mla_cfg.d_model // 128)} groups); init and "
+        f"{engine.plans_warmed} plans in {time.perf_counter() - t0:.1f} s")
+    if engine.plans_warmed != n_mla:
+        failures.append(f"mla: {engine.plans_warmed} plans warmed, want "
+                        f"{n_mla}")
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, mla_cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    tokens = torch.from_numpy(prompts).to(dev)
+    engine.generate(prompts, SERVE_NEW)        # warm-up (casts, work lists)
+    widths = collections.Counter()
+    hooks = [lay.register_forward_pre_hook(count_width)
+             for lay in mla_layers]
+    reset_launch_counts()
+    out = engine.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    mla_counts = launch_counts()
+    for h in hooks:
+        h.remove()
+    want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_mla * SERVE_NEW,
+                   "ell_spmv": 0}
+    want_widths = {SERVE_BATCH * SERVE_PROMPT: n_mla,
+                   SERVE_BATCH: n_mla * (SERVE_NEW - 1)}
+    builds = {lay.plan_builds for lay in mla_layers}
+    ok = (mla_counts == want_counts and dict(widths) == want_widths
+          and builds == {1} and out.shape == (SERVE_BATCH, SERVE_NEW)
+          and bool(((out >= 0) & (out < mla_cfg.vocab)).all()))
+    log(f"mla main path: generate {SERVE_BATCH} x {SERVE_PROMPT} tokens, "
+        f"{SERVE_NEW} new: launch counts {mla_counts} (want {want_counts}),"
+        f" K2 calls by width {dict(widths)}, plan builds per layer "
+        f"{sorted(builds)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("mla: generate's launches, widths or tokens")
+
+    # float32 (the caches too): K2 against w_out as dense matmuls
+    t1 = time.perf_counter()
+    mla32 = dataclasses.replace(mla_cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    eng32 = Engine(mla32, mla_sc, params=mla_tree, device=dev)
+    dense_tree = dict(mla_tree, layers=[
+        dict(layer, ffn=dict(layer["ffn"], w_out={
+            "kernel": dense_equivalent(lay).T.contiguous()}))
+        for layer, lay in zip(mla_tree["layers"], mla_layers)])
+    eng32d = Engine(dataclasses.replace(mla32, sparsity=SparsityConfig()),
+                    mla_sc, params=dense_tree, device=dev)
+    fp32_against(eng32, eng32d, prompts, "mla fp32, K2 vs dense w_out")
+    del eng32d, dense_tree
+    # paged MLA decode against the dense-layout decode, fp32, one slot
+    geom = paging.geometry(FAM_PAGED_MAX_SEQ, SESS_PAGE, n_slots=1)
+    model32 = eng32.model
+    for ln in FAM_PAGED_LENS:
+        alloc = paging.PageAllocator(geom, 1)
+        alloc.admit(0, ln, alloc.pages_for(ln + FAM_PAGED_STEPS))
+        tok = torch.from_numpy(np.random.default_rng(ln).integers(
+            0, mla_cfg.vocab, (1, ln)).astype(np.int32)).to(dev)
+        worst = 0.0
+        with torch.inference_mode():
+            caches = model32.init_cache(1, FAM_PAGED_MAX_SEQ, paging=geom)
+            logits, dense = model32.prefill({"tokens": tok},
+                                            FAM_PAGED_MAX_SEQ)
+            paging.commit_prefill(caches, dense, 0, ln, alloc.table,
+                                  SESS_PAGE)
+            nxt = logits[:, -1, :mla_cfg.vocab].argmax(-1).int()[:, None]
+            for step in range(FAM_PAGED_STEPS):
+                if alloc.ensure(0, ln + step + 1):
+                    paging.sync_block_tables(caches, alloc.table)
+                got, _ = model32.decode_step(caches, nxt)
+                for c in caches:
+                    c["index"] += 1
+                want, dense = model32.decode_step(dense, nxt)
+                got, want = (v[..., :mla_cfg.vocab].float()
+                             for v in (got, want))
+                worst = max(worst, (got - want).abs().max().item()
+                            / (1 + want.abs().max().item()))
+                nxt = want[:, -1].argmax(-1).int()[:, None]
+        ok = worst <= FP32_TOL and set(caches[0]) == {
+            "ckv", "krope", "block_table", "index"}
+        log(f"mla fp32 paged decode vs dense, prompt {ln} ({ln % SESS_PAGE}"
+            f" into a page of {SESS_PAGE}), {FAM_PAGED_STEPS} steps: "
+            f"largest |paged - dense| / (1 + max|logit|) {worst:.3e} (tol "
+            f"{FP32_TOL:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"mla fp32 paged decode, prompt {ln}")
+    del eng32, model32, caches, dense, logits, got, want
+    log(f"mla fp32 checks in {time.perf_counter() - t1:.1f} s")
+
+    # bfloat16 times, the card's busy time, K2's share
+    pre_ms, dec_ms, caches, _ = timed_generate(engine, prompts,
+                                               SERVE_MAX_SEQ, "mla bf16")
+    with torch.inference_mode():
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+        index0 = caches[0]["index"].clone()
+
+        def step():
+            engine._decode([dict(c, index=index0) for c in caches], tok)
+
+        step_wait = ms(step, 5)
+        profile_line("mla bf16 prefill", lambda: engine.model.prefill(
+            {"tokens": tokens}, SERVE_MAX_SEQ), 2, pre_ms)
+        profile_line("mla bf16 decode step", step, 5, step_wait)
+    del caches
+
+    # (b) sessions on paged MLA caches, the decode step a CUDA graph
+    t1 = time.perf_counter()
+    sess_eng = Engine(mla_cfg, ServeConfig(
+        max_seq=FAM_MAX_SEQ, n_slots=FAM_SLOTS, page_size=SESS_PAGE,
+        decode_chunk=SESS_CHUNK), params=engine.params)
+    reqs, st, prefills, replays, sess_counts, prefill_k2, k2_decode, _ = \
+        family_session(sess_eng, mla_cfg.vocab, SEED + 12, "mla session bf16")
+    want_k2 = n_mla * (st["decode_steps"] + prefills)
+    ok = (sess_counts == {"rgcsr_spmv": 0, "rgcsr_spmm": want_k2,
+                          "ell_spmv": 0}
+          and k2_decode == n_mla * st["decode_steps"]
+          and prefill_k2 == [n_mla] * prefills
+          and replays == st["decode_steps"]
+          and st["completed"] == len(reqs)
+          and set(sess_eng._loop.caches[0]) == {"ckv", "krope",
+                                                "block_table", "index"})
+    log(f"mla session bf16: K2 want {n_mla} x ({st['decode_steps']} steps + "
+        f"{prefills} prefills) = {want_k2}, in the fused dispatches "
+        f"{k2_decode}, in the prefills {sum(prefill_k2)}; replays "
+        f"{replays} = decode steps; paged caches {sorted(sess_eng._loop.caches[0])} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("mla session: launches, replays or completions")
+    stream_line("mla session bf16", sess_eng, reqs, mla_cfg.vocab)
+    # K2 at minicpm3's w_out against its plain version, then its times
+    lay = mla_layers[0]
+    plan = lay.plan_for(torch.bfloat16)
+    for d in FAM_K2_WIDTHS:
+        xw = torch.from_numpy(rng.standard_normal(
+            (lay.d_in, d)).astype(np.float32)).to(dev)
+        k2_check(f"minicpm3 w_out d{d} fp32 (kept plan)", plan, xw)
+        k2_check(f"minicpm3 w_out d{d} bf16 (kept plan)", plan, xw,
+                 torch.bfloat16, BF16_TOL, key=f"minicpm3 w_out d{d}")
+    mla_launches = {SERVE_BATCH: widths[SERVE_BATCH], FAM_SLOTS: k2_decode,
+                    SERVE_BATCH * SERVE_PROMPT: widths[SERVE_BATCH
+                                                       * SERVE_PROMPT]}
+    for d in FAM_K2_WIDTHS:
+        entries.append(k2_serving_entry(
+            lay, d, mla_launches[d], errs[("rgcsr_spmm",
+                                           f"minicpm3 w_out d{d}")],
+            arch=MLA_ARCH))
+    torch.cuda.synchronize()
+    log(f"mla peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}; "
+        f"sessions and K2 in {time.perf_counter() - t1:.1f} s; phase 11 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del engine, sess_eng, mla_layers, mla_tree, lay, plan, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 12. MoE: granite-moe-1b-a400m at its published width and depth
+    # (no K1–K3: its experts are dense stacked products, and the reference
+    # sparsifies no MoE FFN), then deepseek-v3-671b at its smoke size
+    t0 = time.perf_counter()
+    log(f"moe: held from the earlier phases: {live_cuda()}")
+    torch.cuda.reset_peak_memory_stats()
+    moe_cfg = get_config(MOE_ARCH)
+    mo = moe_cfg.moe
+    moe_tree = init_params(moe_cfg,
+                           torch.Generator(device=dev).manual_seed(SEED))
+    moe_sc = ServeConfig(max_seq=SERVE_MAX_SEQ)
+    prompts = np.random.default_rng(SEED + 13).integers(
+        0, moe_cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    # (a) float32, full depth: the einsum dispatch against the scatter one
+    t1 = time.perf_counter()
+    moe32 = dataclasses.replace(moe_cfg, dtype="float32",
+                                kv_cache_dtype="float32")
+    e32 = Engine(moe32, moe_sc, params=moe_tree, device=dev)
+    s32 = Engine(dataclasses.replace(moe32, moe=dataclasses.replace(
+        mo, dispatch="scatter")), moe_sc, params=moe_tree, device=dev)
+    log(f"moe: {moe_cfg.name} {moe_cfg.n_layers} layers, d_model "
+        f"{moe_cfg.d_model}, {moe_cfg.n_heads}/{moe_cfg.n_kv_heads} heads of "
+        f"{moe_cfg.head_dim}, {mo.n_experts} experts top-{mo.top_k} of "
+        f"{mo.d_ff_expert}, vocab {moe_cfg.vocab}: {e32.model.n_params()} "
+        f"parameters, {e32.model.n_active_params()} active a token")
+    reset_launch_counts()
+    fp32_against(e32, s32, prompts, "moe fp32, einsum vs scatter dispatch")
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        failures.append(f"moe: kernels of the port launched "
+                        f"{launch_counts()}")
+    del e32, s32
+    # two layers at full width: the card against the port's CPU run
+    cfg2 = dataclasses.replace(moe32, n_layers=MOE_CPU_LAYERS)
+    tree2 = init_params(cfg2, torch.Generator(device=dev).manual_seed(SEED))
+    outs = []
+    for device_ in (dev, torch.device("cpu")):
+        model = LanguageModel(cfg2, tree_to(tree2, device_))
+        tk = torch.from_numpy(prompts).to(device_)
+        with torch.inference_mode():
+            logits, caches = model.prefill({"tokens": tk}, SERVE_MAX_SEQ)
+            step_logits, _ = model.decode_step(caches, tk[:, :1])
+        outs.append([v[..., :moe_cfg.vocab].float().cpu()
+                     for v in (logits, step_logits)])
+    worst = max((g - w).abs().max().item() / (1 + w.abs().max().item())
+                for g, w in zip(*outs))
+    ok = worst <= LOGIT_TOL
+    log(f"moe fp32, {MOE_CPU_LAYERS} layers at full width: the card against "
+        f"the port's CPU run on the same weights, prefill and one decode "
+        f"step: largest |card - cpu| / (1 + max|logit|) {worst:.3e} (tol "
+        f"{LOGIT_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("moe: the card against the CPU")
+    del tree2, model, outs, caches, logits, step_logits
+    log(f"moe fp32 checks in {time.perf_counter() - t1:.1f} s")
+
+    # bfloat16 times, and the MoE layer's and its dispatch's share of a
+    # decode step's card time
+    engine = Engine(moe_cfg, moe_sc, params=moe_tree, device=dev)
+    pre_ms, dec_ms, caches, out = timed_generate(engine, prompts,
+                                                 SERVE_MAX_SEQ, "moe bf16")
+    tokens = torch.from_numpy(prompts).to(dev)
+    with torch.inference_mode():
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+        index0 = caches[0]["index"].clone()
+
+        def step():
+            engine._decode([dict(c, index=index0) for c in caches], tok)
+
+        step_wait = ms(step, 5)
+        profile_line("moe bf16 prefill", lambda: engine.model.prefill(
+            {"tokens": tokens}, SERVE_MAX_SEQ), 2, pre_ms, k2=False)
+        busy_step = profile_line("moe bf16 decode step", step, 5,
+                                 step_wait, k2=False)
+        block = engine.model.layers[0]
+        hx = torch.from_numpy(rng.standard_normal(
+            (SERVE_BATCH, 1, moe_cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        cap = moe_mod._capacity(moe_cfg, SERVE_BATCH, dropless=True)
+        xe = torch.from_numpy(rng.standard_normal(
+            (mo.n_experts, cap, moe_cfg.d_model)).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        busy_moe = sum(us for _, us in device_kernels(
+            lambda: moe_mod.moe_apply(block.ffn, moe_cfg, hx, dropless=True),
+            20).values()) / 1e3
+        busy_exp = sum(us for _, us in device_kernels(
+            lambda: ffn_mod.ffn_apply_stacked(block.ffn.experts, moe_cfg, xe),
+            20).values()) / 1e3
+    n_moe = moe_cfg.n_layers
+    log(f"moe bf16 decode step, {SERVE_BATCH} tokens: one MoE layer "
+        f"{busy_moe:.4f} ms of card (its experts' stacked FFN at capacity "
+        f"{cap} {busy_exp:.4f} ms, routing + dispatch + combine "
+        f"{busy_moe - busy_exp:.4f} ms); x {n_moe} layers: the MoE "
+        f"{100 * n_moe * busy_moe / busy_step:.1f} % and its dispatch "
+        f"{100 * n_moe * (busy_moe - busy_exp) / busy_step:.1f} % of the "
+        f"step's {busy_step:.3f} ms busy {tag}")
+    del caches, block, hx, xe
+
+    # (b) sessions on paged caches, the decode step a CUDA graph
+    t1 = time.perf_counter()
+    sess_eng = Engine(moe_cfg, ServeConfig(
+        max_seq=FAM_MAX_SEQ, n_slots=FAM_SLOTS, page_size=SESS_PAGE,
+        decode_chunk=SESS_CHUNK), params=engine.params)
+    reqs, st, prefills, replays, sess_counts, _, _, _ = family_session(
+        sess_eng, moe_cfg.vocab, SEED + 14, "moe session bf16")
+    ok = (not any(sess_counts.values()) and replays == st["decode_steps"]
+          and st["completed"] == len(reqs))
+    log(f"moe session bf16: replays {replays} = decode steps "
+        f"{st['decode_steps']}, no kernel of the port launched, completed "
+        f"{st['completed']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("moe session: launches, replays or completions")
+    stream_line("moe session bf16", sess_eng, reqs, moe_cfg.vocab)
+    log(f"moe sessions in {time.perf_counter() - t1:.1f} s; serving peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB {tag}")
+    del engine, sess_eng, moe_tree, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) three AdamW steps through the launcher, bf16 compute
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr, state = launch_train.main([
+        "--arch", MOE_ARCH, "--steps", str(MOE_TRAIN_STEPS), "--seq",
+        str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--device", str(dev)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in tr._batch(MOE_TRAIN_STEPS).items()}
+        aux = tr.model(batch, mode="train")[2]
+    hist = tr.history
+    finite = all(np.isfinite([h[k] for h in hist
+                              for k in ("ce", "load_balance", "loss")])) \
+        and all(torch.isfinite(v).item() for v in aux.values())
+    ok = finite and len(hist) == MOE_TRAIN_STEPS \
+        and tr.model.device.type == "cuda"
+    for h in hist:
+        log(f"moe train step {h['step']}: loss {h['loss']:.4f}, ce "
+            f"{h['ce']:.4f}, load_balance {h['load_balance']:.4f}, "
+            f"grad_norm {h['grad_norm']:.4f}, {h['step_time_s'] * 1e3:.1f} "
+            f"ms host (ending in a synchronize), "
+            f"{TRAIN_SEQ * TRAIN_BATCH / h['step_time_s']:.1f} tokens/s "
+            f"{tag}")
+    log(f"moe train: {MOE_TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, bf16 compute, fp32 parameters; after them "
+        f"load_balance {aux['load_balance'].item():.4f}, router_z "
+        f"{aux['router_z'].item():.4f} (summed over {n_moe} layers), all "
+        f"finite {finite}; peak {peak / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failures.append("moe train: losses or aux not finite")
+    del tr, state, batch, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) deepseek-v3-671b at its smoke size: the dense prefix layer,
+    # sigmoid routing with a nonzero bias, the shared expert, MLA and MTP
+    ds_cfg = dataclasses.replace(get_smoke(DEEPSEEK_ARCH), dtype="float32",
+                                 kv_cache_dtype="float32")
+    full = get_config(DEEPSEEK_ARCH)
+    log(f"moe {DEEPSEEK_ARCH}: reduced to its smoke config ({ds_cfg.n_layers}"
+        f" layers of d_model {ds_cfg.d_model}, {ds_cfg.moe.n_experts} experts"
+        f" top-{ds_cfg.moe.top_k}; published: {full.n_layers} layers of "
+        f"{full.d_model}, {full.moe.n_experts} experts, whose MoE layers "
+        f"alone exceed one card): a correctness check, no number recorded")
+    ds_tree = init_params(ds_cfg, torch.Generator().manual_seed(SEED))
+    for layer in ds_tree["layers"]:
+        if "router" in layer["ffn"]:
+            layer["ffn"]["router"]["bias"].uniform_(
+                -0.3, 0.3, generator=torch.Generator().manual_seed(SEED + 1))
+    batch = {k: torch.from_numpy(v) for k, v in train_data.make_batch(
+        train_data.DataConfig(vocab=ds_cfg.vocab, seq_len=32,
+                              global_batch=4, seed=SEED), 0).items()}
+    outs = []
+    for device_ in (dev, torch.device("cpu")):
+        model = LanguageModel(ds_cfg, tree_to(ds_tree, device_))
+        b = {k: v.to(device_) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = model(b)[0][..., :ds_cfg.vocab].float().cpu()
+            loss, metrics = model.loss(b)
+        outs.append((logits, {k: v.item() for k, v in metrics.items()}))
+    err = (outs[0][0] - outs[1][0]).abs().max().item() / (
+        1 + outs[1][0].abs().max().item())
+    loss_err = max(abs(outs[0][1][k] - outs[1][1][k]) for k in outs[1][1])
+    ok = err <= LOGIT_TOL and loss_err <= LOGIT_TOL \
+        and set(outs[0][1]) == {"ce", "load_balance", "mtp", "loss"}
+    log(f"moe {DEEPSEEK_ARCH} smoke fp32, the card against the CPU: logits "
+        f"largest |card - cpu| / (1 + max|logit|) {err:.3e}, loss terms "
+        f"{outs[0][1]} (largest gap {loss_err:.3e}; tol {LOGIT_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"moe {DEEPSEEK_ARCH} smoke: card against the CPU")
+    del ds_tree, model, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12 in {time.perf_counter() - t0:.1f} s")
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:

@@ -6,7 +6,11 @@ optimizer update — with **microbatch gradient accumulation** in float32.
 A step works on a :class:`~repro_torch.models.LanguageModel`'s own tensors
 (``model.tensors()``): it reads their gradients and writes the updated
 parameters back into them, in place.  Integer buffers (the RgCSR structure
-of a ``SparseLinear``) take no gradient and are never written.
+of a ``SparseLinear``) take no gradient and are never written.  A floating
+parameter the loss does not reach (the MoE router's aux-free ``bias``,
+which routing reads detached, as the reference's ``stop_gradient``) gets a
+zero gradient, as in the reference, so the optimizer leaves it as it is
+(no weight decay on 1-D parameters).
 """
 from __future__ import annotations
 
@@ -67,8 +71,10 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
     """``(train_step, opt_init)``.  ``train_step(params, opt_state, batch)
     -> (params, opt_state, metrics)``: ``params`` is ``model.tensors()``
     (updated in place and returned), ``batch`` a dict of ``(B, S)`` arrays
-    split into ``microbatches`` equal parts along B; metrics ``loss``,
-    ``ce`` and ``grad_norm`` as float32 tensors on the model's device.
+    split into ``microbatches`` equal parts along B; metrics: every
+    metric of ``model.loss`` (``ce``, ``loss``, and ``load_balance`` /
+    ``mtp`` where the model has them), each the mean over microbatches,
+    and ``grad_norm``, as float32 tensors on the model's device.
     ``opt_state`` is consumed: its moments move into the returned state
     one tensor at a time."""
     opt_init, opt_update = make_optimizer(opt_cfg)
@@ -83,17 +89,18 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
                              "(model.requires_grad_(True))")
         parts = [{k: v.chunk(microbatches)[i] for k, v in batch.items()}
                  for i in range(microbatches)]
-        acc, losses, ces = None, [], []
+        acc, seen = None, {}
         for mb in parts:
             for p in trained.values():
                 p.grad = None
             loss, metrics = model.loss(mb)
             loss.backward()
-            grads = {k: p.grad for k, p in trained.items()}
+            grads = {k: p.grad if p.grad is not None
+                     else torch.zeros_like(p) for k, p in trained.items()}
             acc = grads if acc is None else \
                 {k: acc[k] + g for k, g in grads.items()}
-            losses.append(loss.detach())
-            ces.append(metrics["ce"].detach())
+            for k, v in metrics.items():
+                seen.setdefault(k, []).append(v.detach())
         for p in trained.values():
             p.grad = None
         if microbatches > 1:
@@ -107,8 +114,8 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
             for g in acc.values():
                 g.mul_(scale)
             opt_state = _update_leafwise(opt_update, acc, opt_state, params)
-        metrics = {"ce": torch.stack(ces).mean(),
-                   "loss": torch.stack(losses).mean(), "grad_norm": gnorm}
+        metrics = {k: torch.stack(v).mean() for k, v in seen.items()}
+        metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
     return train_step, opt_init

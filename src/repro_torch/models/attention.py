@@ -1,6 +1,8 @@
-"""Grouped-query attention (GQA/MHA/MQA) with dense and paged KV caches.
+"""Attention: grouped-query (GQA/MHA/MQA) and multi-head latent (MLA),
+with dense and paged KV caches.
 
-The PyTorch counterpart of the GQA half of ``repro.models.attention``.
+The PyTorch counterpart of ``repro.models.attention`` but for
+cross-attention.
 Attention is plain tensor code in the reference (no Pallas kernel), and
 plain torch here; the arithmetic mirrors the reference's — logits in
 float32, masked positions set to ``-1e30`` before the softmax,
@@ -37,8 +39,16 @@ row, where the reference drops it; rows ``[0, S_max)`` stay the
 reference's, and only a slot past the end (whose tokens the session
 discards) attends to the spare row.  The serving
 session needs both: a slot that is free, or finished inside a fused
-chunk, keeps decoding, and its index grows past ``S_max``.  MLA (and its paged cache) and cross-attention are not
-ported yet (ROADMAP queue 1, item 1: the other LM families).
+chunk, keeps decoding, and its index grows past ``S_max``.
+
+**MLA** caches hold the normalised latent and the shared rope key instead
+of per-head K/V — ``{"ckv": (B, S_max, r_kv), "krope": (B, S_max, Dr),
+"index"}`` dense, or page pools ``(n_pages, page_size, r_kv / Dr)`` with
+the block table — in ``cfg.dtype`` (the int8 KV path is GQA-only, as in
+the reference).  The same out-of-range rules hold for their writes; a
+multi-token dense write drops the positions past the slab, as JAX's
+scatter does.  Cross-attention (the encoder-decoder family) is not ported
+yet (ROADMAP queue 1, item 1: the encoder-decoder family).
 """
 from __future__ import annotations
 
@@ -48,11 +58,13 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from repro_torch.models.layers import Dense, dense_spec, rope
+from repro_torch.models.layers import Dense, RMSNorm, dense_spec, rope
+from repro_torch.models.spec import P
 
 __all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache",
            "init_gqa_paged_cache", "PageGeometry", "gqa_apply",
-           "shard_attn_qkv", "GQA"]
+           "shard_attn_qkv", "GQA", "mla_spec", "init_mla_cache",
+           "init_mla_paged_cache", "mla_apply", "MLA"]
 
 # At/above this many kv positions a multi-token attend takes the chunked
 # online-softmax path — the same math with O(chunk²) live scores instead of
@@ -402,7 +414,7 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
     if mode not in ("causal", "full"):
         raise NotImplementedError(
             f"attention mode {mode!r} (cross-attention) is not ported yet "
-            f"(ROADMAP queue 1, item 1: the other LM families)")
+            f"(ROADMAP queue 1, item 1: the encoder-decoder family)")
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = layer.q(x).reshape(b, s, hq, dh)
@@ -460,3 +472,184 @@ class GQA(nn.Module):
         super().__init__()
         for name in ("q", "k", "v", "o"):
             setattr(self, name, Dense(params[name]))
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2/V3, MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def mla_spec(cfg):
+    d, h = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    spec = {
+        "kv_down": dense_spec(d, m.kv_lora_rank + m.qk_rope_head_dim,
+                              ("embed", "mla_latent")),
+        "kv_norm": {"scale": P((m.kv_lora_rank,), ("norm",), init="ones")},
+        "k_up": dense_spec(m.kv_lora_rank, h * m.qk_nope_head_dim,
+                           ("mla_latent", "q_heads_x_dim")),
+        "v_up": dense_spec(m.kv_lora_rank, h * m.v_head_dim,
+                           ("mla_latent", "q_heads_x_dim")),
+        "o": dense_spec(h * m.v_head_dim, d, ("q_heads_x_dim", "embed")),
+    }
+    q_dim = h * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+    if m.q_lora_rank:
+        spec["q_down"] = dense_spec(d, m.q_lora_rank, ("embed", "mla_latent"))
+        spec["q_norm"] = {"scale": P((m.q_lora_rank,), ("norm",), init="ones")}
+        spec["q_up"] = dense_spec(m.q_lora_rank, q_dim,
+                                  ("mla_latent", "q_heads_x_dim"))
+    else:
+        spec["q_proj"] = dense_spec(d, q_dim, ("embed", "q_heads_x_dim"))
+    return spec
+
+
+def init_mla_cache(cfg, batch: int, s_max: int, window: Optional[int] = None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    size = min(s_max, window) if window else s_max
+    dt = getattr(torch, cfg.dtype)
+    return {
+        "ckv": torch.zeros((batch, size, m.kv_lora_rank), dtype=dt,
+                           device=device),
+        "krope": torch.zeros((batch, size, m.qk_rope_head_dim), dtype=dt,
+                             device=device),
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def init_mla_paged_cache(cfg, n_slots: int, geom: PageGeometry,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """Paged MLA cache: latent / rope-key page pools + block table."""
+    m = cfg.mla
+    dt = getattr(torch, cfg.dtype)
+    pool = (geom.n_pages, geom.page_size)
+    return {
+        "ckv": torch.zeros(pool + (m.kv_lora_rank,), dtype=dt,
+                           device=device),
+        "krope": torch.zeros(pool + (m.qk_rope_head_dim,), dtype=dt,
+                             device=device),
+        "block_table": torch.zeros((n_slots, geom.pages_per_slot),
+                                   dtype=torch.int32, device=device),
+        "index": torch.zeros((n_slots,), dtype=torch.int32, device=device),
+    }
+
+
+def _mla_cache_write(cache, new: Dict[str, torch.Tensor],
+                     window: Optional[int]):
+    """Write this call's latent and rope key (B, s, ·) at each slot's index,
+    in place, under the GQA path's out-of-range rules; returns the dict
+    with the index advanced by s."""
+    index = cache["index"]                   # (B,)
+    b, s = new["ckv"].shape[:2]
+    rows = torch.arange(b, device=index.device)
+    cache = dict(cache)
+    if "block_table" in cache:
+        assert s == 1, "paged caches are decode-only; prefill is dense"
+        table = cache["block_table"]
+        ps = cache["ckv"].shape[1]
+        col = torch.clamp(torch.div(index, ps, rounding_mode="floor"),
+                          max=table.shape[1] - 1).long()
+        page = table[rows, col].long()
+        off = torch.remainder(index, ps).long()
+        for name, t in new.items():
+            _paged_write(cache[name], t, page, off)
+    else:
+        size = cache["ckv"].shape[1]
+        if window and s == 1:
+            pos = torch.remainder(index.long(), size)[:, None]
+        elif s == 1:
+            # past the slab: its last (spare) row, as _cache_write
+            pos = torch.clamp(index.long(), max=size - 1)[:, None]
+        else:
+            pos = index.long()[:, None] + torch.arange(s,
+                                                       device=index.device)
+        r = rows[:, None].expand(b, s)
+        if s > 1 and not bool((pos < size).all()):
+            # positions past the slab are dropped, as JAX's scatter drops
+            # them (a prefill longer than a window's ring)
+            keep = pos < size
+            r, pos = r[keep], pos[keep]
+            new = {name: t[keep] for name, t in new.items()}
+        for name, t in new.items():
+            cache[name][r, pos] = t
+    cache["index"] = index + s
+    return cache
+
+
+def mla_apply(layer: "MLA", cfg, x, positions, *, mode: str = "causal",
+              cache=None, window: Optional[int] = None):
+    """MLA: the cache holds only the normalised latent (r_kv) and the
+    shared rope key (Dr) per token; keys and values are up-projected from
+    it at every call.  Causal whatever ``mode`` says, as the reference's.
+    Returns (y, new_cache)."""
+    b, s, d = x.shape
+    h, m = cfg.n_heads, cfg.mla
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    if m.q_lora_rank:
+        q = layer.q_up(layer.q_norm(layer.q_down(x))).reshape(b, s, h,
+                                                              dn + dr)
+    else:
+        q = layer.q_proj(x).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+
+    down = layer.kv_down(x)
+    ckv, k_rope = down[..., :m.kv_lora_rank], down[..., m.kv_lora_rank:]
+    ckv = layer.kv_norm(ckv)
+    # the rope key is one head, broadcast over the heads below
+    k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    new_cache = None
+    if cache is not None:
+        index = cache["index"]               # (B,)
+        new_cache = _mla_cache_write(
+            cache, {"ckv": ckv.to(cache["ckv"].dtype),
+                    "krope": k_rope.to(cache["krope"].dtype)}, window)
+        if "block_table" in cache:
+            bt = cache["block_table"].long()
+            ckv = _paged_view(new_cache["ckv"], bt).to(x.dtype)
+            k_rope = _paged_view(new_cache["krope"], bt).to(x.dtype)
+        else:
+            ckv = new_cache["ckv"].to(x.dtype)
+            k_rope = new_cache["krope"].to(x.dtype)
+
+    t = ckv.shape[1]
+    # up-project the latent to per-head keys and values (recomputed each
+    # call, the MLA trade)
+    k_nope = layer.k_up(ckv).reshape(b, t, h, dn)
+    v = layer.v_up(ckv).reshape(b, t, h, dv)
+    q_cat = torch.cat([q_nope, q_rope], dim=-1)
+    k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, dr)],
+                      dim=-1)
+    q_cat, k_cat, v = shard_attn_qkv(cfg, q_cat, k_cat, v)
+
+    scale = (dn + dr) ** -0.5
+    if cache is not None and window and s == 1:
+        out = attend(q_cat, k_cat, v, _ring_mask(s, t, index), scale=scale)
+    elif cache is not None:
+        mi = MaskInfo(causal=True, window=window, q_offset=index,
+                      valid_len=index + s)
+        out = attend(q_cat, k_cat, v, mask_info=mi, scale=scale)
+    else:
+        out = attend(q_cat, k_cat, v,
+                     mask_info=MaskInfo(causal=True, window=window),
+                     scale=scale)
+    y = layer.o(out.reshape(b, s, h * dv))
+    return y, new_cache
+
+
+class MLA(nn.Module):
+    """One MLA layer: ``kv_down``, ``kv_norm``, ``k_up``, ``v_up``, ``o``
+    and either ``q_down``/``q_norm``/``q_up`` (a low-rank query) or
+    ``q_proj``."""
+
+    def __init__(self, params):
+        super().__init__()
+        for name in ("kv_down", "k_up", "v_up", "o", "q_down", "q_up",
+                     "q_proj"):
+            if name in params:
+                setattr(self, name, Dense(params[name]))
+        for name in ("kv_norm", "q_norm"):
+            if name in params:
+                setattr(self, name, RMSNorm(params[name]))

@@ -21,8 +21,9 @@ slot-major layout — ``values2d (S, G)`` and the frozen ``columns2d (S, G)``,
   values and the structure for it.  Training runs this path, as the
   reference's ``launch/train.py --sparse-ffn`` does: K2 has no backward.
 
-``ffn_apply_stacked`` (MoE experts) is not ported yet (ROADMAP queue 1,
-item 1: the other LM families).
+``ffn_apply_stacked`` is the MoE experts' FFN over expert-stacked weights:
+batched matmuls in plain torch, as the reference computes these products
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -34,9 +35,9 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import Dense, ParamModule, dense_spec
 from repro_torch.models.spec import P
 
-__all__ = ["ffn_spec", "ffn_apply", "gated_ffn_apply", "sparse_linear_spec",
-           "sparse_linear_init_mask", "sparse_linear_apply", "SparseLinear",
-           "SegmentSum", "FFN"]
+__all__ = ["ffn_spec", "ffn_apply", "gated_ffn_apply", "ffn_apply_stacked",
+           "sparse_linear_spec", "sparse_linear_init_mask",
+           "sparse_linear_apply", "SparseLinear", "SegmentSum", "FFN"]
 
 SUBLANES = 8
 # elements of x gathered at once by SegmentSum (slot rows · G · T)
@@ -85,6 +86,15 @@ def gated_ffn_apply(layer: "FFN", cfg, x):
     """Shared-expert FFN on flat tokens (w_in/w_gate/w_out)."""
     act = _activation(cfg.activation)
     return layer.w_out(act(layer.w_gate(x)) * layer.w_in(x))
+
+
+def ffn_apply_stacked(layer: ParamModule, cfg, x):
+    """Expert-stacked FFN: ``layer`` holds ``w_in``, ``w_gate`` (E, d, f)
+    and ``w_out`` (E, f, d), used in x's dtype; x (E, C, d) -> (E, C, d)."""
+    act = _activation(cfg.activation)
+    h_in = torch.bmm(x, layer.cast("w_in", x.dtype))
+    h_gate = torch.bmm(x, layer.cast("w_gate", x.dtype))
+    return torch.bmm(act(h_gate) * h_in, layer.cast("w_out", x.dtype))
 
 
 # ---------------------------------------------------------------------------

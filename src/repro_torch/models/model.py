@@ -8,8 +8,10 @@ passes a parameter tree to every call):
   tensors drawn from it (also :func:`model_spec` / :func:`init_params`,
   which need no model); ``n_params()``.
 * ``forward(batch)``                — logits for a full sequence.
-* ``loss(batch)``                   — masked CE, differentiable once the
-  parameters take gradients (``requires_grad_(True)``).
+* ``loss(batch)``                   — masked CE plus the MoE load-balance
+  and router-z terms and the multi-token-prediction (MTP) loss, with the
+  reference's coefficients; differentiable once the parameters take
+  gradients (``requires_grad_(True)``).
 * ``tensors()``                     — every parameter and buffer by name.
 * ``prefill(batch, s_max)``         — last-position logits + filled caches.
 * ``decode_step(caches, tokens)``   — one token; the serving step.
@@ -17,15 +19,15 @@ passes a parameter tree to every call):
 Parameter tree (the port's layout)::
 
     {"embed": {"table"}, "final_norm": {"scale"},
-     "layers": [block tree, one per layer], ["lm_head": {"kernel"}]}
+     "layers": [block tree, one per layer], ["lm_head": {"kernel"}],
+     ["mtp": {"proj", "norm_h", "norm_e", "block"}]}
 
 :func:`params_from_numpy` builds it from the reference's tree, which stacks
 the body layers on a leading axis; :func:`reference_layout` and
 :func:`port_layout` carry any tree of per-tensor leaves (parameters,
 optimizer moments) between ``tensors()``'s names and that layout, for
-checkpoints both packages read.  Vision and audio frontends, the
-encoder-decoder family and multi-token prediction are not ported yet
-(ROADMAP queue 1, item 1).
+checkpoints both packages read.  Vision and audio frontends and the
+encoder-decoder family are not ported yet (ROADMAP queue 1, item 1).
 """
 from __future__ import annotations
 
@@ -46,6 +48,11 @@ from repro_torch.models.spec import count_params, init_from_spec
 __all__ = ["LanguageModel", "model_spec", "init_params", "params_from_numpy",
            "reference_layout", "port_layout"]
 
+# the loss's coefficients, the reference's
+_MTP_WEIGHT = 0.3
+_LB_COEF = 0.01
+_Z_COEF = 1e-4
+
 
 def _check_supported(cfg) -> None:
     missing = []
@@ -53,12 +60,11 @@ def _check_supported(cfg) -> None:
         missing.append(f"the {cfg.frontend} frontend")
     if cfg.enc_dec:
         missing.append("the encoder-decoder family")
-    if cfg.mtp_depth:
-        missing.append("multi-token prediction")
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet ("
-            f"ROADMAP queue 1, item 1: the other LM families)")
+            f"ROADMAP queue 1, item 1: the encoder-decoder family and the "
+            f"frontends)")
 
 
 def model_spec(cfg) -> Dict[str, Any]:
@@ -75,6 +81,14 @@ def model_spec(cfg) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         spec["lm_head"] = dense_spec(cfg.d_model, cfg.padded_vocab,
                                      ("embed", "vocab"))
+    if cfg.mtp_depth:
+        spec["mtp"] = {
+            "proj": dense_spec(2 * cfg.d_model, cfg.d_model,
+                               ("embed", "embed2")),
+            "norm_h": rmsnorm_spec(cfg.d_model),
+            "norm_e": rmsnorm_spec(cfg.d_model),
+            "block": tfm.block_spec(cfg, "attn"),
+        }
     return spec
 
 
@@ -110,6 +124,7 @@ class LanguageModel(nn.Module):
             for p, kind in zip(params["layers"], tfm.layer_kinds(cfg),
                                strict=True))
         self.lm_head = None if cfg.tie_embeddings else Dense(params["lm_head"])
+        self.mtp = MTP(params["mtp"], cfg) if cfg.mtp_depth else None
 
     @property
     def device(self) -> torch.device:
@@ -125,6 +140,17 @@ class LanguageModel(nn.Module):
 
     def n_params(self) -> int:
         return count_params(self.spec())
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: routed top-k + shared only)."""
+        cfg = self.cfg
+        if not cfg.moe.n_experts:
+            return self.n_params()
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert
+        n_moe_layers = sum(k == "moe" for k in tfm.layer_kinds(cfg))
+        return self.n_params() - n_moe_layers * (m.n_experts - m.top_k) \
+            * per_expert
 
     # ------------------------------------------------------------- embedding
     def _embed_sequence(self, batch):
@@ -151,12 +177,44 @@ class LanguageModel(nn.Module):
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch, *, shape_kind: str = "train"):
-        """(masked CE, metrics): ``batch["labels"][t]`` is the token after
-        position ``t``; labels below 0 are masked out."""
-        logits, _, _ = self.forward(batch, shape_kind=shape_kind,
-                                    mode="train")
+        """(loss, metrics): masked CE (``batch["labels"][t]`` is the token
+        after position ``t``; labels below 0 are masked out), plus for MoE
+        models ``_LB_COEF`` · load-balance + ``_Z_COEF`` · router-z (summed
+        over the MoE layers) and with MTP ``_MTP_WEIGHT`` · the MTP loss.
+        Metrics: ``ce``, ``load_balance`` and ``mtp`` where they apply,
+        ``loss``."""
+        cfg = self.cfg
+        logits, h, aux = self.forward(batch, shape_kind=shape_kind,
+                                      mode="train")
         loss = _masked_ce(logits, batch["labels"])
-        return loss, {"ce": loss, "loss": loss}
+        metrics = {"ce": loss}
+        if cfg.moe.n_experts:
+            loss = loss + _LB_COEF * aux["load_balance"] \
+                + _Z_COEF * aux["router_z"]
+            metrics["load_balance"] = aux["load_balance"]
+        if cfg.mtp_depth:
+            mtp_loss = self._mtp_loss(h, batch)
+            loss = loss + _MTP_WEIGHT * mtp_loss
+            metrics["mtp"] = mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, h, batch):
+        """DeepSeek-V3 multi-token prediction (depth 1): predict token
+        t+2 from [norm(h_t); norm(emb(tok_{t+1}))] through one extra
+        ``attn`` block, the main model's final norm and head."""
+        mtp = self.mtp
+        tokens, labels = batch["tokens"], batch["labels"]
+        emb_next = self.embed.lookup(tokens[:, 1:], self.compute_dtype)
+        merged = mtp.proj(torch.cat([mtp.norm_h(h[:, :-1, :]),
+                                     mtp.norm_e(emb_next)], dim=-1))
+        pos = rope_positions(merged.shape[0], merged.shape[1],
+                             device=merged.device)
+        out, _, _ = tfm.block_apply(mtp.block, self.cfg, "attn", merged, pos,
+                                    mode="train")
+        logits = self._logits(self.final_norm(out))
+        # the target at merged position t is labels[t+1] (the t+2 token)
+        return _masked_ce(logits, labels[:, 1:])
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """Every parameter and buffer, keyed by its path in the parameter
@@ -213,6 +271,18 @@ def _masked_ce(logits, labels):
     return nll.sum() / mask.sum().clamp_min(1.0)
 
 
+class MTP(nn.Module):
+    """The multi-token-prediction module: ``proj`` (2·d → d), ``norm_h``,
+    ``norm_e`` and one ``attn`` block."""
+
+    def __init__(self, params, cfg):
+        super().__init__()
+        self.proj = Dense(params["proj"])
+        self.norm_h = RMSNorm(params["norm_h"])
+        self.norm_e = RMSNorm(params["norm_e"])
+        self.block = tfm.Block(params["block"], cfg, "attn")
+
+
 def _cache_index(caches):
     """The first layer's ``index`` (B,): all layers advance in lockstep."""
     for cache in caches:
@@ -241,10 +311,11 @@ def params_from_numpy(cfg, tree, *, device="cuda"):
     ``cfg.pattern_repeats``.  The only change of layout in the port: the
     body is unstacked into one tree per layer, in the reference's scan
     order (repeat-major, then pattern position).  Dense kernels keep the
-    reference's ``(d_in, d_out)`` layout."""
+    reference's ``(d_in, d_out)`` layout, and the MTP subtree and the MoE
+    router's bias keep their places."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    extra = set(tree) - {"embed", "final_norm", "stack", "lm_head"}
+    extra = set(tree) - {"embed", "final_norm", "stack", "lm_head", "mtp"}
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
                                   f"parts of the model not ported yet")
@@ -258,8 +329,9 @@ def params_from_numpy(cfg, tree, *, device="cuda"):
             layers.append(_tensors(body[f"{i}_{kind}"], dev,
                                    lambda a, r=r: a[r]))
     out["layers"] = layers
-    if "lm_head" in tree:
-        out["lm_head"] = _tensors(tree["lm_head"], dev)
+    for key in ("lm_head", "mtp"):
+        if key in tree:
+            out[key] = _tensors(tree[key], dev)
     return out
 
 

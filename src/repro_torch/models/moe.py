@@ -1,0 +1,227 @@
+"""Mixture-of-Experts: top-k routing, shared experts, two dispatches.
+
+The PyTorch counterpart of ``repro.models.moe``.  Two dispatch
+implementations, selected by ``cfg.moe.dispatch``:
+
+* ``einsum``  — the GShard/Switch one-hot dispatch and combine tensors
+  ``(T, E, C)``, contracted with x and with the experts' outputs;
+* ``scatter`` — tokens sorted by expert (a stable sort) and moved with
+  gathers and ``index_add_`` into a dense ``(E, C, d)`` buffer.
+
+Both drop, in train mode, the same routed copies as the reference: a copy
+is kept while its position in its expert — counted over the ``(T·k, E)``
+one-hot in token-major order — is below the capacity.  Inference passes
+``dropless=True`` (capacity = token count, which drops nothing).
+
+DeepSeek-V3 specifics: sigmoid scoring with the aux-loss-free ``bias``
+(added to the scores for the selection only, never for the weights, and
+never updated: its gradient is zero in the reference and its tree keeps
+it as a zero buffer), a shared expert always on, and top-k combine
+weights normalised to sum to one.
+
+Everything here runs inside the serving engine's captured decode step on
+the card, so nothing asks the host for a value: one-hot tensors are
+comparisons against an ``arange``, and capacities come from shapes.  On a
+CUDA card ``index_add_`` (the scatter dispatch) sums with atomics and is
+not bitwise repeatable.  The reference's sharding hints
+(``shardlib.constrain``) are the identity on one card and are left out.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models.ffn import FFN, ffn_apply_stacked, gated_ffn_apply
+from repro_torch.models.layers import ParamModule, dense_spec
+from repro_torch.models.spec import P
+
+__all__ = ["moe_spec", "moe_apply", "MoE"]
+
+# dropless einsum dispatch/combine tensors are (T, E, cap≈T); above this
+# element budget (~256 MB fp32 for the pair) moe_apply reroutes to scatter
+_DROPLESS_EINSUM_BUDGET = 1 << 25
+
+
+def moe_spec(cfg):
+    d, m = cfg.d_model, cfg.moe
+    spec = {
+        "router": {"kernel": P((d, m.n_experts), ("embed", "experts"),
+                               init="fan_in")},
+        "experts": {
+            "w_in": P((m.n_experts, d, m.d_ff_expert),
+                      ("experts", "embed", "mlp"), init="fan_in"),
+            "w_gate": P((m.n_experts, d, m.d_ff_expert),
+                        ("experts", "embed", "mlp"), init="fan_in"),
+            "w_out": P((m.n_experts, m.d_ff_expert, d),
+                       ("experts", "mlp", "embed"), init="fan_in"),
+        },
+    }
+    if m.aux_free_bias:
+        # selection-bias buffer (DeepSeek-V3); the reference never updates it
+        spec["router"]["bias"] = P((m.n_experts,), ("experts",), init="zeros")
+    if m.n_shared:
+        spec["shared"] = {
+            "w_in": dense_spec(d, m.n_shared * m.d_ff_expert, ("embed", "mlp")),
+            "w_gate": dense_spec(d, m.n_shared * m.d_ff_expert,
+                                 ("embed", "mlp")),
+            "w_out": dense_spec(m.n_shared * m.d_ff_expert, d,
+                                ("mlp", "embed")),
+        }
+    return spec
+
+
+def _one_hot(idx, n: int, dtype):
+    """``idx (...) -> (..., n)`` in ``dtype``; an index outside ``[0, n)``
+    gives a zero row (as ``jax.nn.one_hot``).  A comparison, so no host
+    sync."""
+    classes = torch.arange(n, device=idx.device)
+    return (idx[..., None] == classes).to(dtype)
+
+
+def _top_k(select, k: int):
+    """Indices of the ``k`` largest entries of each row, largest first,
+    equal values toward the lower index — ``lax.top_k``'s order, which
+    ``torch.topk`` does not promise: a stable descending sort."""
+    order = torch.sort(select, dim=-1, descending=True, stable=True).indices
+    return order[..., :k]
+
+
+def _routing(layer: "MoE", cfg, x_flat):
+    """Returns (expert_idx (T,k), combine_w (T,k) in x's dtype, aux).
+    Routing runs in float32."""
+    m = cfg.moe
+    logits = x_flat.float() @ layer.router.kernel.float()
+    if m.score_fn == "sigmoid":
+        scores = torch.sigmoid(logits)
+    else:
+        scores = torch.softmax(logits, dim=-1)
+    select = scores
+    bias = getattr(layer.router, "bias", None)
+    if m.aux_free_bias and bias is not None:
+        select = scores + bias.detach().float()[None, :]
+    idx = _top_k(select, m.top_k)                                 # (T, k)
+    gathered = torch.gather(scores, -1, idx)                      # (T, k)
+    w = gathered / (gathered.sum(-1, keepdim=True) + 1e-9)
+
+    # Switch-style load-balance aux (also a balance metric for aux-free
+    # models), and the router z-loss for logit drift
+    probs_mean = (scores / (scores.sum(-1, keepdim=True) + 1e-9)).mean(0)
+    onehot = _one_hot(idx, m.n_experts, torch.float32)            # (T,k,E)
+    frac = onehot.sum(1).mean(0) / m.top_k
+    lb_loss = m.n_experts * (frac * probs_mean).sum()
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    aux = {"load_balance": lb_loss, "router_z": z_loss,
+           "expert_fraction": frac}
+    return idx, w.to(x_flat.dtype), aux
+
+
+def _capacity(cfg, n_tokens: int, dropless: bool = False) -> int:
+    m = cfg.moe
+    if dropless:
+        # each token lands on top_k distinct experts, so no expert receives
+        # more than n_tokens copies: cap = n_tokens drops nothing
+        return max(8, -(-n_tokens // 8) * 8)
+    c = int(m.capacity_factor * m.top_k * n_tokens / m.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
+    """GShard dense dispatch: (T,E,C) one-hot dispatch/combine tensors,
+    built with a loop over the k routing slots."""
+    m = cfg.moe
+    t = x_flat.shape[0]
+    cap = _capacity(cfg, t, dropless)
+    onehot = _one_hot(idx, m.n_experts, torch.int32)              # (T,k,E)
+    pos_in_expert = (torch.cumsum(onehot.reshape(t * m.top_k, m.n_experts),
+                                  dim=0).reshape(t, m.top_k, m.n_experts)
+                     - onehot)                                    # (T,k,E)
+    keep = (pos_in_expert < cap) & (onehot > 0)
+    dispatch = x_flat.new_zeros((t, m.n_experts, cap))
+    combine = x_flat.new_zeros((t, m.n_experts, cap))
+    for kk in range(m.top_k):
+        pos = torch.where(keep[:, kk], pos_in_expert[:, kk], cap)
+        pos_oh = _one_hot(pos, cap, x_flat.dtype)                 # (T,E,C)
+        dispatch = dispatch + pos_oh
+        combine = combine + pos_oh * w[:, kk][:, None, None]
+    expert_in = torch.einsum("tec,td->ecd", dispatch, x_flat)     # (E,C,d)
+    expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
+    return torch.einsum("tec,ecd->td", combine, expert_out)
+
+
+def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
+    """Sort-based dispatch: tokens ordered by target expert with a stable
+    sort; each expert's first ``cap`` copies gathered into a dense
+    (E, C, d) buffer, processed, and summed back into their tokens weighted
+    by the router weights."""
+    m = cfg.moe
+    t, d = x_flat.shape
+    cap = _capacity(cfg, t, dropless)
+    dev = x_flat.device
+    flat_e = idx.reshape(-1)                                      # (T*k,)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    # position of each routed copy within its expert
+    pos_sorted = torch.arange(t * m.top_k, device=dev)
+    seg_start = torch.searchsorted(
+        sorted_e, torch.arange(m.n_experts, device=dev, dtype=sorted_e.dtype))
+    pos_within = pos_sorted - seg_start[sorted_e]
+    keep = pos_within < cap
+    slot = sorted_e * cap + torch.where(keep, pos_within, 0)      # (T*k,)
+
+    token_of_copy = torch.div(order, m.top_k, rounding_mode="floor")
+    gathered = x_flat[token_of_copy]                              # (T*k, d)
+    buf = x_flat.new_zeros((m.n_experts * cap, d))
+    buf.index_add_(0, slot, torch.where(keep[:, None], gathered,
+                                        gathered.new_zeros(())))
+    expert_out = ffn_apply_stacked(layer.experts, cfg,
+                                   buf.reshape(m.n_experts, cap, d))
+    out_flat = expert_out.reshape(m.n_experts * cap, d)
+
+    w_copy = w.reshape(-1)[order]                                 # (T*k,)
+    contrib = out_flat[slot] * torch.where(keep, w_copy,
+                                           w_copy.new_zeros(()))[:, None]
+    return torch.zeros_like(x_flat).index_add_(0, token_of_copy, contrib)
+
+
+def moe_apply(layer: "MoE", cfg, x, *, dropless: bool = False
+              ) -> Tuple[torch.Tensor, dict]:
+    """x: (B, S, d) -> (y, aux); the shared expert added on top.
+
+    ``dropless``: no capacity drops — what inference passes (eval forward,
+    prefill and decode), so that a token's output does not depend on what
+    else shares its batch.  A dropless einsum dispatch past
+    ``_DROPLESS_EINSUM_BUDGET`` elements of ``(T, E, cap)`` reroutes to the
+    scatter dispatch (the same math), as the reference does: the same
+    sizes take the same path in both packages.
+    """
+    b, s, d = x.shape
+    x_flat = x.reshape(b * s, d)
+    t = b * s
+    idx, w, aux = _routing(layer, cfg, x_flat)
+    use_scatter = cfg.moe.dispatch == "scatter"
+    if dropless and not use_scatter:
+        cap = _capacity(cfg, t, dropless=True)
+        use_scatter = t * cfg.moe.n_experts * cap > _DROPLESS_EINSUM_BUDGET
+    if use_scatter:
+        y = _dispatch_scatter(layer, cfg, x_flat, idx, w, dropless=dropless)
+    else:
+        y = _dispatch_einsum(layer, cfg, x_flat, idx, w, dropless=dropless)
+    if layer.shared is not None:
+        y = y + gated_ffn_apply(layer.shared, cfg, x_flat)
+    return y.reshape(b, s, d), aux
+
+
+class MoE(nn.Module):
+    """One MoE FFN: ``router`` (``kernel`` and DeepSeek-V3's ``bias``),
+    ``experts`` (``w_in``, ``w_gate``, ``w_out`` stacked on the expert
+    axis) and the optional ``shared`` expert (an
+    :class:`~repro_torch.models.ffn.FFN`)."""
+
+    def __init__(self, params, cfg):
+        super().__init__()
+        self.router = ParamModule(params["router"])
+        self.experts = ParamModule(params["experts"])
+        self.shared = FFN(params["shared"], cfg) if "shared" in params \
+            else None

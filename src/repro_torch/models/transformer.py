@@ -7,9 +7,11 @@ holds one :class:`Block` module per layer, run by a plain loop
 (:func:`stack_apply`), where the reference stacks each pattern position's
 parameters on a leading axis and scans over them.
 
-Kinds ported: ``attn`` (global GQA attention + FFN) and ``attn_local``
-(sliding-window GQA + FFN).  The others raise ``NotImplementedError``
-naming their ROADMAP item; so does ``attn_kind="mla"``.
+Kinds ported: ``attn`` (global attention + FFN), ``attn_local``
+(sliding-window attention + FFN) and ``moe`` (global attention + the MoE
+FFN, dropless whenever ``mode != "train"``), each with GQA or MLA
+attention per ``cfg.attn_kind``.  The recurrent and encoder-decoder kinds
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,33 +24,27 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.ffn import FFN, ffn_apply, ffn_spec
 from repro_torch.models.layers import RMSNorm, rmsnorm_spec
+from repro_torch.models.moe import MoE, moe_apply, moe_spec
 
 __all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
            "stack_apply", "init_block_cache", "Block"]
 
 # Layer kinds that are not ported yet, and the ROADMAP item that brings them.
-_LM_ITEM = "ROADMAP queue 1, item 1: the other LM families"
 _NOT_PORTED = {
-    "moe": "the MoE family",
-    "ssm": "the Mamba-2 / SSM family",
-    "rec": "the RG-LRU recurrent family",
-    "enc_attn": "the encoder-decoder family",
-    "dec_attn": "the encoder-decoder family",
+    "ssm": "ROADMAP queue 1, item 1: the recurrent families (Mamba-2 SSD)",
+    "rec": "ROADMAP queue 1, item 1: the recurrent families (RG-LRU)",
+    "enc_attn": "ROADMAP queue 1, item 1: the encoder-decoder family",
+    "dec_attn": "ROADMAP queue 1, item 1: the encoder-decoder family",
 }
-_KINDS = ("attn", "attn_local")
+_KINDS = ("attn", "attn_local", "moe")
 
 
-def _check_kind(cfg, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: {_NOT_PORTED[kind]} "
-            f"({_LM_ITEM})")
+            f"layer kind {kind!r} is not ported yet ({_NOT_PORTED[kind]})")
     if kind not in _KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            "attn_kind 'mla' is not ported yet: multi-head latent "
-            f"attention ({_LM_ITEM})")
 
 
 def layer_kinds(cfg) -> List[str]:
@@ -58,11 +54,23 @@ def layer_kinds(cfg) -> List[str]:
         * cfg.pattern_repeats
 
 
+def _attn_spec(cfg):
+    return attn_mod.mla_spec(cfg) if cfg.attn_kind == "mla" \
+        else attn_mod.gqa_spec(cfg)
+
+
+def _attn_apply(layer, cfg, x, positions, *, cache, window):
+    fn = attn_mod.mla_apply if cfg.attn_kind == "mla" else attn_mod.gqa_apply
+    return fn(layer, cfg, x, positions, mode="causal", cache=cache,
+              window=window)
+
+
 def block_spec(cfg, kind: str):
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     d = cfg.d_model
-    return {"ln1": rmsnorm_spec(d), "attn": attn_mod.gqa_spec(cfg),
-            "ln2": rmsnorm_spec(d), "ffn": ffn_spec(cfg)}
+    return {"ln1": rmsnorm_spec(d), "attn": _attn_spec(cfg),
+            "ln2": rmsnorm_spec(d),
+            "ffn": moe_spec(cfg) if kind == "moe" else ffn_spec(cfg)}
 
 
 def stack_spec(cfg):
@@ -80,29 +88,36 @@ def _effective_window(cfg, kind: str, shape_kind: str) -> Optional[int]:
 
 
 class Block(nn.Module):
-    """One residual block: ``ln1``, ``attn``, ``ln2``, ``ffn``."""
+    """One residual block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``, ``ffn``
+    (an FFN, or an :class:`~repro_torch.models.moe.MoE` for ``moe``)."""
 
     def __init__(self, params, cfg, kind: str):
         super().__init__()
-        _check_kind(cfg, kind)
+        _check_kind(kind)
         self.kind = kind
         self.ln1 = RMSNorm(params["ln1"])
-        self.attn = attn_mod.GQA(params["attn"])
+        self.attn = attn_mod.MLA(params["attn"]) if cfg.attn_kind == "mla" \
+            else attn_mod.GQA(params["attn"])
         self.ln2 = RMSNorm(params["ln2"])
-        self.ffn = FFN(params["ffn"], cfg)
+        self.ffn = MoE(params["ffn"], cfg) if kind == "moe" \
+            else FFN(params["ffn"], cfg)
 
 
 def block_apply(block: Block, cfg, kind: str, x, positions, *,
                 mode: str = "train", shape_kind: str = "train", cache=None):
-    """One residual block.  Returns (x, new_cache, aux)."""
+    """One residual block.  Returns (x, new_cache, aux); ``aux`` holds an
+    MoE block's routing terms."""
     h = block.ln1(x)
     window = _effective_window(cfg, kind, shape_kind)
-    y, new_cache = attn_mod.gqa_apply(block.attn, cfg, h, positions,
-                                      mode="causal", cache=cache,
-                                      window=window)
+    y, new_cache = _attn_apply(block.attn, cfg, h, positions, cache=cache,
+                               window=window)
     x = x + y
-    y2 = ffn_apply(block.ffn, cfg, block.ln2(x))
-    return x + y2, new_cache, {}
+    h2 = block.ln2(x)
+    if kind == "moe":
+        y2, aux = moe_apply(block.ffn, cfg, h2, dropless=mode != "train")
+    else:
+        y2, aux = ffn_apply(block.ffn, cfg, h2), {}
+    return x + y2, new_cache, aux
 
 
 def init_block_cache(cfg, kind: str, batch: int, s_max: int,
@@ -111,9 +126,16 @@ def init_block_cache(cfg, kind: str, batch: int, s_max: int,
     caches become shared page pools addressed per slot through block
     tables.  Windowed layers keep their dense rings (already O(window)
     residency)."""
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     window = _effective_window(cfg, kind, shape_kind)
-    if paging is not None and not window:
+    paged = paging is not None and not window
+    if cfg.attn_kind == "mla":
+        if paged:
+            return attn_mod.init_mla_paged_cache(cfg, batch, paging,
+                                                 device=device)
+        return attn_mod.init_mla_cache(cfg, batch, s_max, window,
+                                       device=device)
+    if paged:
         return attn_mod.init_gqa_paged_cache(cfg, batch, paging,
                                              device=device)
     return attn_mod.init_gqa_cache(cfg, batch, s_max, window, device=device)
@@ -127,7 +149,7 @@ def _remat(cfg, fn):
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "full":
-        return lambda x: checkpoint(fn, x, use_reentrant=False)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat 'dots' (keep the matmul outputs, recompute the rest) is "
@@ -139,32 +161,41 @@ def _remat(cfg, fn):
 def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
                 shape_kind: str = "train",
                 caches: Optional[List[Dict[str, Any]]] = None):
-    """Run every layer in order.  Returns (x, new_caches, aux_sums);
-    ``caches`` is one cache per layer (or None).  Without caches, each
-    repeat of ``layer_pattern`` after the prefix runs under
-    ``cfg.remat`` (the reference's scanned period body)."""
-    aux_sum = {"load_balance": torch.zeros((), device=x.device),
-               "router_z": torch.zeros((), device=x.device)}
+    """Run every layer in order.  Returns (x, new_caches, aux_sums):
+    ``aux_sums`` holds ``load_balance`` and ``router_z`` summed over the
+    MoE layers, in layer order, as the reference sums them (never
+    averaged; ``expert_fraction`` is not summed).  ``caches`` is one cache
+    per layer (or None).  Without caches, each repeat of ``layer_pattern``
+    after the prefix runs under ``cfg.remat`` (the reference's scanned
+    period body)."""
+    keys = ("load_balance", "router_z")
     new_caches = [] if caches is not None else None
     n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
 
+    def add(sums, aux):
+        return tuple(a + aux[k] if k in aux else a
+                     for a, k in zip(sums, keys))
+
     def run(lo, hi):
-        def body(x):
+        def body(x, *sums):
             for i in range(lo, hi):
-                x, _, _ = block_apply(layers[i], cfg, layers[i].kind, x,
-                                      positions, mode=mode,
-                                      shape_kind=shape_kind)
-            return x
+                x, _, aux = block_apply(layers[i], cfg, layers[i].kind, x,
+                                        positions, mode=mode,
+                                        shape_kind=shape_kind)
+                sums = add(sums, aux)
+            return (x, *sums)
         return body
 
+    sums = tuple(torch.zeros((), device=x.device) for _ in keys)
     if caches is None:
-        x = run(0, n_prefix)(x)
+        x, *sums = run(0, n_prefix)(x, *sums)
         for lo in range(n_prefix, len(layers), period):
-            x = _remat(cfg, run(lo, lo + period))(x)
-        return x, None, aux_sum
+            x, *sums = _remat(cfg, run(lo, lo + period))(x, *sums)
+        return x, None, dict(zip(keys, sums))
     for i, block in enumerate(layers):
-        x, new_cache, _ = block_apply(
+        x, new_cache, aux = block_apply(
             block, cfg, block.kind, x, positions, mode=mode,
             shape_kind=shape_kind, cache=caches[i])
+        sums = add(sums, aux)
         new_caches.append(new_cache)
-    return x, new_caches, aux_sum
+    return x, new_caches, dict(zip(keys, sums))

@@ -1,12 +1,14 @@
 """Paged KV-cache subsystem: page pool allocator + cache commit/sync ops.
 
-The PyTorch counterpart of ``repro.serve.paging`` (but for MLA's pool keys,
-which wait for the MLA port).  Fixed-size pages trade bounded per-slot
-padding (at most ``page_size - 1`` dead token slots per request, inside its
-last page) for regular addressing, as RgCSR's uniform groups trade
-per-group padding for regular strides; residency follows *actual* sequence
-lengths: a slot holding a 37-token request owns ``ceil(37 / page_size)``
-pages, not ``S_max`` rows.
+The PyTorch counterpart of ``repro.serve.paging``: GQA layers page their
+``k``/``v`` (and int8 scales), MLA layers their latent ``ckv`` and rope
+key ``krope``; every routine below walks the pool keys a cache has.
+Fixed-size pages trade bounded per-slot padding (at most
+``page_size - 1`` dead token slots per request, inside its last page) for
+regular addressing, as RgCSR's uniform groups trade per-group padding for
+regular strides; residency follows *actual* sequence lengths: a slot
+holding a 37-token request owns ``ceil(37 / page_size)`` pages, not
+``S_max`` rows.
 
 Split of responsibilities:
 
@@ -50,7 +52,7 @@ __all__ = ["PageGeometry", "PageAllocator", "PoolExhausted", "geometry",
            "SERVE_MERGE_SPEC", "merge_replica_stats"]
 
 # cache keys that live in page pools (everything else is per-slot dense)
-_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+_POOL_KEYS = ("k", "v", "k_scale", "v_scale", "ckv", "krope")
 
 
 def geometry(max_seq: int, page_size: int, n_slots: int,

@@ -179,8 +179,11 @@ class Trainer:
             metrics.update(step=step, step_time_s=dt)
             self.history.append(metrics)
             if step % self.cfg.log_every == 0:
-                log.info("step %d: loss=%.4f (%.2fs)", step,
-                         metrics["loss"], dt)
+                extra = "".join(f" {k}={metrics[k]:.4f}" for k in
+                                ("ce", "load_balance", "mtp")
+                                if k in metrics)
+                log.info("step %d: loss=%.4f%s (%.2fs)", step,
+                         metrics["loss"], extra, dt)
             if self.ckpt and step and step % self.cfg.ckpt_every == 0:
                 self.ckpt.save(step, self._checkpoint_tree(
                     (params, opt_state)), extra={"data_step": step + 1})

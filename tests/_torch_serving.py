@@ -3,9 +3,9 @@
 ``test_torch_router.py``, ``test_torch_export.py``,
 ``test_torch_launch.py``).
 
-Both packages serve smoke granite-3-2b in float32 (compute and KV cache)
-from the same weights: the reference's, carried across with
-``params_from_numpy``.  The reference compiles its prefill per prompt
+Both packages serve smoke granite-3-2b (or another family's smoke
+config, ``arch=``) in float32 (compute and KV cache) from the same
+weights: the reference's, carried across with ``params_from_numpy``.  The reference compiles its prefill per prompt
 length and its fused loop per configuration; to keep the tests inside
 their time, one reference engine per (weights, ``max_seq``) is built and
 shallow-copied for every other ``ServeConfig``, each copy taking the
@@ -91,24 +91,25 @@ def tick_decode(eng, clock, dt=1.0, slow_at=()):
     eng._fused_decode = wrapped_fused
 
 
-def pair(sparse=False):
+def pair(sparse=False, arch="granite-3-2b"):
     """(reference cfg, reference params, port cfg, port parameter tree)
-    for smoke granite-3-2b in float32, built once per process."""
-    if sparse not in _PAIRS:
+    for ``arch``'s smoke config in float32, built once per process."""
+    if (sparse, arch) not in _PAIRS:
         over = dict(FP32, **({"sparsity": SPARSE} if sparse else {}))
-        ref_cfg = dataclasses.replace(ref_get_smoke("granite-3-2b"), **over)
-        cfg = dataclasses.replace(get_smoke("granite-3-2b"), **over)
+        ref_cfg = dataclasses.replace(ref_get_smoke(arch), **over)
+        cfg = dataclasses.replace(get_smoke(arch), **over)
         ref_params = RefModel(ref_cfg).init(jax.random.PRNGKey(0))
         tree = params_from_numpy(cfg, jax.device_get(ref_params),
                                  device="cpu")
-        _PAIRS[sparse] = (ref_cfg, ref_params, cfg, tree)
-    return _PAIRS[sparse]
+        _PAIRS[sparse, arch] = (ref_cfg, ref_params, cfg, tree)
+    return _PAIRS[sparse, arch]
 
 
-def ref_engine(sparse=False, fault_cfg=None, **serve_kw):
-    ref_cfg, ref_params, _, _ = pair(sparse)
+def ref_engine(sparse=False, fault_cfg=None, arch="granite-3-2b",
+               **serve_kw):
+    ref_cfg, ref_params, _, _ = pair(sparse, arch)
     scfg = RefServeConfig(**serve_kw)
-    key = (sparse, scfg.max_seq)
+    key = (sparse, arch, scfg.max_seq)
     if key not in _REF_BASE:
         _REF_BASE[key] = RefEngine(ref_cfg, RefServeConfig(
             max_seq=scfg.max_seq), params=ref_params)
@@ -137,19 +138,21 @@ def ref_engine(sparse=False, fault_cfg=None, **serve_kw):
     return eng
 
 
-def port_engine(sparse=False, fault_cfg=None, **serve_kw):
-    _, _, cfg, tree = pair(sparse)
+def port_engine(sparse=False, fault_cfg=None, arch="granite-3-2b",
+                **serve_kw):
+    _, _, cfg, tree = pair(sparse, arch)
     return Engine(cfg, ServeConfig(**serve_kw), params=tree, device="cpu",
                   fault_cfg=fault_cfg)
 
 
 def engines(sparse=False, clock=False, fault_cfg=None, slow_at=(),
-            **serve_kw):
+            arch="granite-3-2b", **serve_kw):
     """A reference engine and a port engine on the same weights and
     configuration; with ``clock``, each on its own FakeClock advanced one
     second per decode step."""
-    pair_ = (ref_engine(sparse, **serve_kw),
-             port_engine(sparse, fault_cfg=fault_cfg, **serve_kw))
+    pair_ = (ref_engine(sparse, arch=arch, **serve_kw),
+             port_engine(sparse, fault_cfg=fault_cfg, arch=arch,
+                         **serve_kw))
     if fault_cfg is not None:
         pair_[0].fault_cfg = RefFaultConfig(**dataclasses.asdict(fault_cfg))
     if clock:

@@ -2,7 +2,8 @@
 cases of ``test_train.py``, and checkpoints written by either package read
 by the other — a smoke granite-3-2b parameter tree saved by the reference
 and restored into a port model gives the reference's logits, and a port
-tree saved by the port comes back equal through the reference."""
+tree saved by the port comes back equal through the reference; the same
+for the MoE, MLA and MTP families' trees."""
 import os
 
 import jax
@@ -125,3 +126,36 @@ def test_a_port_checkpoint_restores_in_the_reference(tmp_path):
     again, _ = restore(d, tree)
     assert again.keys() == tree.keys()
     assert len(again["layers"]) == len(tree["layers"])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
+                                  "deepseek-v3-671b"])
+def test_family_checkpoints_cross_both_ways(tmp_path, arch):
+    """The reference's tree (stacked experts, the router's bias, MLA's
+    projections, the MTP subtree) saved by the reference serves in the
+    port with its logits; the port's tensors in the reference's layout
+    (``reference_layout``) saved by the port restore in the reference
+    equal to its own tree."""
+    from repro_torch.models.model import reference_layout
+    ref_cfg, ref_params, cfg, _ = pair(arch=arch)
+    host = jax.device_get(ref_params)
+    ref_checkpoint.save(str(tmp_path / "ref"), 1, ref_params)
+    restored, _ = restore(str(tmp_path / "ref"), host)
+    model = LanguageModel(cfg, params_from_numpy(cfg, restored,
+                                                 device="cpu"))
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 10)).astype(
+        np.int32)
+    with torch.inference_mode():
+        got = model({"tokens": torch.from_numpy(toks)})[0]
+    want = RefModel(ref_cfg).forward(ref_params,
+                                     {"tokens": jnp.asarray(toks)})[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    tree = reference_layout(cfg, {k: t.numpy()
+                                  for k, t in model.tensors().items()})
+    save(str(tmp_path / "port"), 2, tree)
+    back, manifest = ref_checkpoint.restore(str(tmp_path / "port"), host)
+    assert manifest["keys"] == checkpoint._flatten_with_keys(host)[0]
+    for g, w in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(host)):
+        np.testing.assert_array_equal(g, w)

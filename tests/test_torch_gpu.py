@@ -361,6 +361,56 @@ def test_graph_replays_equal_eager_steps(cuda, layout):
         assert r_out == list(graph.generate(r.tokens[None, :], 6)[0])
 
 
+def _smoke_family(arch, dispatch=None):
+    """A family's smoke config in float32; minicpm3-4b with the RgCSR FFN
+    (K2), the MoE families with ``dispatch`` when given."""
+    over = dict(dtype="float32", kv_cache_dtype="float32")
+    cfg = get_smoke(arch)
+    if arch == "minicpm3-4b":
+        over["sparsity"] = SparsityConfig(enabled=True, density=0.25,
+                                          group_size=128, impl="kernel")
+    if dispatch:
+        over["moe"] = dataclasses.replace(cfg.moe, dispatch=dispatch)
+    return dataclasses.replace(cfg, **over)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+@pytest.mark.parametrize("arch,dispatch", [
+    ("granite-moe-1b-a400m", "einsum"), ("granite-moe-1b-a400m", "scatter"),
+    ("minicpm3-4b", None), ("deepseek-v3-671b", "einsum")])
+def test_moe_and_mla_graph_replays_equal_eager_steps(cuda, arch, dispatch,
+                                                     layout):
+    """The MoE routing and dispatch and the MLA decode (latent pages or
+    slabs) captured in the decode graph — no host sync in the step, or
+    the capture raises — replayed against the same step run eagerly on
+    the card: equal streams, caches within 1e-5 (the scatter dispatch's
+    ``index_add_`` sums with atomics on the card), and streams equal to
+    generate() of each request alone."""
+    cfg = _smoke_family(arch, dispatch)
+    kw = dict(max_seq=64, n_slots=2, page_size=4, kv_layout=layout,
+              decode_chunk=8)
+    graph = Engine(cfg, ServeConfig(**kw), device=cuda)
+    eager = Engine(cfg, ServeConfig(**kw), device=cuda)
+    assert graph._loop.graph is not None
+    eager._loop.graph = None
+    outs = []
+    for eng in (graph, eager):
+        reqs = _session_requests(8, (10, 13, 7), 6)
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        outs.append(([r.out for r in reqs], [
+            {k: t.cpu() for k, t in c.items()} for c in eng._loop.caches]))
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1], outs[1][1]):
+        for key in a:
+            torch.testing.assert_close(a[key], b[key], rtol=1e-5, atol=1e-5)
+    for r_out, r in zip(outs[0][0], _session_requests(8, (10, 13, 7), 6)):
+        assert r_out == list(graph.generate(r.tokens[None, :], 6)[0])
+    if arch == "minicpm3-4b":
+        assert graph._loop.launches_per_replay == {"rgcsr_spmm": 2}
+
+
 @pytest.mark.gpu
 def test_graph_counts_k2_once_per_layer_and_live_step(cuda):
     cfg = _smoke_rgcsr()

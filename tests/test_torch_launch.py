@@ -2,8 +2,9 @@
 ``main(argv)`` on smoke granite-3-2b on the CPU for a plain run, the
 failover drill (statuses and counters held against the reference
 launcher's run of the same argv), the crash drill, the page-corruption
-drill and a traced run whose export validates and cross-checks.  Every
-file goes to a temporary directory."""
+drill and a traced run whose export validates and cross-checks; the MoE
+and MLA families through both launchers.  Every file goes to a temporary
+directory."""
 import ast
 import json
 import weakref
@@ -13,6 +14,7 @@ import torch
 
 from repro.launch import serve as ref_launch
 from repro_torch.launch import serve as launch
+from repro_torch.launch import train as launch_train
 from repro_torch.obs import export
 from repro_torch.serve import Engine
 
@@ -117,3 +119,24 @@ def test_a_traced_failover_run_exports_a_valid_trace(capsys, tmp_path):
     assert "migrate×1" in _line(out, "trace events:")
     assert _line(out, "trace written to").startswith(
         f"trace written to {trace_path}")
+
+
+def test_the_serve_launcher_runs_granite_moe(capsys):
+    assert launch.main(["--arch", "granite-moe-1b-a400m", "--smoke",
+                        "--device", "cpu", "--requests", "4",
+                        "--max-seq", "64"]) == 0
+    out = capsys.readouterr().out
+    assert _statuses(out) == {"ok": 4}
+    assert "all done: True" in out
+    assert _line(out, "percentiles:").startswith("percentiles: queue_s")
+
+
+def test_the_train_launcher_runs_deepseek_v3(capsys):
+    tr, _ = launch_train.main(["--arch", "deepseek-v3-671b", "--smoke",
+                               "--device", "cpu", "--steps", "2", "--seq",
+                               "16", "--batch", "4"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last == f"done: 2 steps, final loss {tr.history[-1]['loss']:.4f}"
+    for h in tr.history:
+        assert {"ce", "load_balance", "mtp", "loss", "grad_norm"} <= set(h)
+    assert tr.model.mtp is not None

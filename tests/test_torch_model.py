@@ -1,6 +1,7 @@
 """The port's LM stack and ``Engine.generate`` against the reference's, on
-smoke configs, with the reference's parameters carried across through
-``params_from_numpy``.
+smoke configs (granite-3-2b and the other GQA families; granite-moe's MoE,
+minicpm3's MLA with the RgCSR FFN, deepseek-v3's MLA + MoE + MTP), with
+the reference's parameters carried across through ``params_from_numpy``.
 
 Bars: fp32 logits within rtol = atol = 1e-4; bf16 logits within 3e-2 of
 the largest reference logit (the frameworks round bf16 at other places);
@@ -15,13 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as ref_get_config
 from repro.configs import get_smoke as ref_get_smoke
 from repro.models import LanguageModel as RefModel
 from repro.models import attention as ref_attention
 from repro.serve import Engine as RefEngine, ServeConfig as RefServeConfig
-from repro_torch.configs import get_smoke
+from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import SparsityConfig
-from repro_torch.models import LanguageModel, attention, params_from_numpy
+from repro_torch.models import (LanguageModel, attention, model_spec,
+                                params_from_numpy)
+from repro_torch.models.spec import count_params
 from repro_torch.serve import Engine, ServeConfig
 
 torch.set_num_threads(1)
@@ -222,12 +226,78 @@ def test_param_count_and_layout_match_the_reference():
                                           ref_q[i])
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m",
-                                  "minicpm3-4b", "seamless-m4t-medium",
-                                  "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
+                                  "seamless-m4t-medium", "pixtral-12b"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LanguageModel(get_smoke(arch), device="cpu")
+
+
+# ---------------------------------------- MoE, MLA and MTP (deepseek-v3)
+
+# (arch, RgCSR FFN): minicpm3-4b is the dense-FFN family, so it carries
+# the RgCSR FFN; the reference sparsifies no MoE FFN
+FAMILIES = [("granite-moe-1b-a400m", False), ("minicpm3-4b", True),
+            ("deepseek-v3-671b", False)]
+FAMILY_IDS = ["granite-moe", "minicpm3-rgcsr", "deepseek-v3"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,sparse", FAMILIES, ids=FAMILY_IDS)
+def test_moe_and_mla_families_match(arch, sparse, dtype):
+    """forward (its MoE aux sums too), prefill and decode steps: MoE
+    dropless at inference, MLA over dense caches."""
+    ref_cfg, ref_params, cfg, model = _pair(arch, sparse=sparse, dtype=dtype)
+    toks = _tokens(cfg, 11)
+    ref_logits, _, ref_aux = jax.jit(lambda p, b: RefModel(ref_cfg).forward(
+        p, b))(ref_params, {"tokens": jnp.asarray(toks)})
+    with torch.inference_mode():
+        got, _, aux = model({"tokens": torch.from_numpy(toks)})
+    _close(got, ref_logits, dtype)
+    for k in ("load_balance", "router_z"):
+        np.testing.assert_allclose(aux[k].item(), float(ref_aux[k]),
+                                   rtol=1e-4 if dtype == "float32" else 3e-2)
+    assert (aux["load_balance"].item() > 0) == bool(cfg.moe.n_experts)
+    for got, want in _prefill_and_decode(ref_cfg, ref_params, model, toks,
+                                         24, steps=4):
+        _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("arch,sparse", FAMILIES, ids=FAMILY_IDS)
+def test_families_generate_token_identical(arch, sparse):
+    ref_cfg, ref_params, cfg, _ = _pair(arch, sparse=sparse, dtype="float32")
+    toks = _tokens(cfg, 12)
+    ref = RefEngine(ref_cfg, RefServeConfig(max_seq=32))
+    ref.params = ref_params
+    want = np.asarray(ref.generate(toks, max_new_tokens=10))
+    tree = params_from_numpy(cfg, jax.device_get(ref_params), device="cpu")
+    got = Engine(cfg, ServeConfig(max_seq=32), params=tree,
+                 device="cpu").generate(toks, max_new_tokens=10)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
+                                  "deepseek-v3-671b"])
+def test_family_param_counts_match_the_reference(arch):
+    """Smoke: the tree, every layer's place and the active count; full
+    size: the spec's counts, with no allocation."""
+    ref_cfg, ref_params, cfg, model = _pair(arch, dtype="float32")
+    ref_model = RefModel(ref_cfg)
+    assert model.n_params() == ref_model.n_params()
+    assert model.n_active_params() == ref_model.n_active_params()
+    assert len(model.layers) == cfg.n_layers
+    assert (model.mtp is not None) == bool(cfg.mtp_depth)
+    assert count_params(model_spec(get_config(arch))) == \
+        RefModel(ref_get_config(arch)).n_params()
+    if cfg.moe.n_experts:
+        body = ref_params["stack"]["body"]["0_moe"]["ffn"]
+        n_pre = len(cfg.prefix_pattern)
+        for r in range(cfg.pattern_repeats):
+            ffn = model.layers[n_pre + r].ffn
+            np.testing.assert_array_equal(ffn.experts.w_in.numpy(),
+                                          np.asarray(body["experts"]["w_in"]
+                                                     [r]))
+            assert hasattr(ffn.router, "bias") == cfg.moe.aux_free_bias
 
 
 def test_sampling_draws_from_the_top_k():

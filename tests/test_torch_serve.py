@@ -120,6 +120,30 @@ def test_rgcsr_ffn_serves_as_the_reference(layout):
         assert r.out == oracle(eng, r)
 
 
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+@pytest.mark.parametrize("arch,sparse", [("granite-moe-1b-a400m", False),
+                                         ("minicpm3-4b", True),
+                                         ("deepseek-v3-671b", False)],
+                         ids=["granite-moe", "minicpm3-rgcsr",
+                              "deepseek-v3"])
+def test_moe_and_mla_families_serve_as_the_reference(arch, sparse, layout):
+    """MoE dropless at prefill and in the fused decode steps, MLA's latent
+    caches paged (``ckv``/``krope`` pools) or dense, under chunked
+    serving and recompute preemption: streams, statuses and stats equal
+    to the reference's, and each stream equal to ``generate`` alone."""
+    ref, eng = engines(sparse=sparse, arch=arch, max_seq=S_MAX, n_slots=3,
+                       page_size=PS, n_pages=9, kv_layout=layout,
+                       decode_chunk=4)
+    ref_reqs, reqs = requests(7, (8, 13, 8, 9, 5), 6)
+    st = _serve(ref, eng, ref_reqs, reqs)
+    assert st["completed"] == 5
+    assert (st["preemptions"] > 0) == (layout == "paged")
+    keys = set(eng._loop.caches[0])
+    assert ({"ckv", "krope"} <= keys) == (arch != "granite-moe-1b-a400m")
+    for r in reqs:
+        assert r.out == oracle(eng, r)
+
+
 def test_fused_dispatch_count_amortized():
     ref, eng = engines(max_seq=S_MAX, n_slots=2, page_size=PS,
                        decode_chunk=8)
@@ -482,3 +506,23 @@ def test_the_fused_loop_refuses_a_weight_written_in_place():
         eng.model.layers[1].ffn.w_out.values2d.mul_(1.0)
     with pytest.raises(RuntimeError, match=r"values2d was written in place"):
         sess.step(1)
+
+
+def test_the_fused_loop_checks_latent_pools_and_expert_weights():
+    """deepseek-v3's paged MLA pools and its MoE weights are among what
+    the loop checks: a rebound ``ckv`` pool and an expert weight written
+    in place each raise before a chunk."""
+    cfg = pair(arch="deepseek-v3-671b")[2]
+    for what, change in (
+            (r"caches\[2\]\['ckv'\]", lambda eng: eng._loop.caches[2].update(
+                ckv=eng._loop.caches[2]["ckv"].clone())),
+            (r"ffn\.experts\.w_gate was written in place",
+             lambda eng: eng.model.layers[2].ffn.experts.w_gate.mul_(1.0))):
+        eng = Engine(cfg, ServeConfig(max_seq=S_MAX, n_slots=2,
+                                      page_size=PS), device="cpu")
+        sess = eng.start_session(requests(1, (8,), 6)[1])
+        sess.step(1)
+        with torch.no_grad():
+            change(eng)
+        with pytest.raises(RuntimeError, match=what):
+            sess.step(1)

@@ -148,22 +148,22 @@ def test_schedules_clipping_and_decay_mask_match_reference(schedule):
 _PAIRS = {}
 
 
-def _pair(sparse: bool):
-    """(reference cfg, reference params, port cfg, port tree): smoke
-    granite-3-2b in fp32, the FFN in RgCSR through the segment sum when
+def _pair(sparse: bool, arch: str = "granite-3-2b"):
+    """(reference cfg, reference params, port cfg, port tree): ``arch``'s
+    smoke config in fp32, the FFN in RgCSR through the segment sum when
     ``sparse`` (the launchers' ``--sparse-ffn``)."""
-    if sparse not in _PAIRS:
-        ref_cfg = dataclasses.replace(ref_get_smoke("granite-3-2b"), **FP32)
-        cfg = dataclasses.replace(get_smoke("granite-3-2b"), **FP32)
+    if (sparse, arch) not in _PAIRS:
+        ref_cfg = dataclasses.replace(ref_get_smoke(arch), **FP32)
+        cfg = dataclasses.replace(get_smoke(arch), **FP32)
         if sparse:
             sk = dict(enabled=True, density=0.25, group_size=128, impl="ref")
             ref_cfg = dataclasses.replace(
                 ref_cfg, sparsity=RefSparsityConfig(**sk))
             cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(**sk))
         ref_params = RefModel(ref_cfg).init(jax.random.PRNGKey(0))
-        _PAIRS[sparse] = (ref_cfg, ref_params, cfg,
-                          jax.device_get(ref_params))
-    return _PAIRS[sparse]
+        _PAIRS[sparse, arch] = (ref_cfg, ref_params, cfg,
+                                jax.device_get(ref_params))
+    return _PAIRS[sparse, arch]
 
 
 def _batch(cfg, step):
@@ -188,6 +188,61 @@ def test_loss_matches_reference(sparse):
     assert got.requires_grad
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-5)
     assert set(got_m) == set(want_m) == {"ce", "loss"}
+
+
+@pytest.mark.parametrize("arch,sparse", [("granite-moe-1b-a400m", False),
+                                         ("minicpm3-4b", True),
+                                         ("deepseek-v3-671b", False)],
+                         ids=["granite-moe", "minicpm3-sparse",
+                              "deepseek-v3"])
+def test_family_loss_terms_match_reference(arch, sparse):
+    """CE, the load-balance term (summed over the MoE layers, router-z in
+    the total), the MTP loss and the total, within 1e-5 — capacity drops
+    in train mode included (64 tokens on 4 experts)."""
+    ref_cfg, ref_params, cfg, host = _pair(sparse, arch)
+    batch = _batch(cfg, 0)
+    batch["labels"][1, :2] = -1
+    want, want_m = RefModel(ref_cfg).loss(
+        ref_params, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = _port_model(cfg, host)
+    with torch.no_grad():
+        got, got_m = model.loss({k: torch.from_numpy(v)
+                                 for k, v in batch.items()})
+    assert set(got_m) == set(want_m)
+    for k in want_m:
+        np.testing.assert_allclose(got_m[k].item(), float(want_m[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5,
+                               atol=1e-5)
+    with torch.no_grad():
+        _, _, aux = model({"tokens": torch.from_numpy(batch["tokens"])},
+                          mode="train")
+    _, _, ref_aux = RefModel(ref_cfg).forward(
+        ref_params, {"tokens": jnp.asarray(batch["tokens"])}, mode="train")
+    for k in ("load_balance", "router_z"):
+        np.testing.assert_allclose(aux[k].item(), float(ref_aux[k]),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+def test_one_adamw_step_of_the_moe_families_matches(arch):
+    """No weight decay (see below): metrics within 1e-4, every parameter
+    within 1e-5; the router's bias takes a zero gradient in both and
+    stays zero.  Adam's eps is 1e-6 here on both sides: a first step
+    moves each weight by lr·g/(|g| + eps), and a few of deepseek-v3's
+    gradients are ~6e-9, where the packages' fp32 gradients, equal
+    within 1e-9, would still move the weight by different fractions of
+    lr at eps = 1e-8."""
+    metrics, got, want, _ = _run_both(1, 1, arch=arch, sparse=False,
+                                      weight_decay=0.0, eps=1e-6)
+    _metrics_close(metrics)
+    assert got.keys() == want.keys()
+    for k, a in got.items():
+        np.testing.assert_allclose(a, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    biases = [k for k in got if k.endswith("router/bias")]
+    assert len(biases) == (2 if arch == "deepseek-v3-671b" else 0)
+    assert all(not got[k].any() for k in biases)
 
 
 def test_segment_sum_chunks_keep_the_forward_and_give_the_gradients(
@@ -225,11 +280,12 @@ def test_segment_sum_chunks_keep_the_forward_and_give_the_gradients(
     torch.testing.assert_close(gx, wx, rtol=1e-12, atol=1e-12)
 
 
-def _run_both(micro: int, n_steps: int, **okw):
+def _run_both(micro: int, n_steps: int, arch="granite-3-2b", sparse=True,
+              **okw):
     """``n_steps`` train steps of both packages from the same parameters
     on the same batches: (per-step metrics pairs, the port's tensors, the
     reference's parameters in the port's layout, the port's state)."""
-    ref_cfg, ref_params, cfg, host = _pair(True)
+    ref_cfg, ref_params, cfg, host = _pair(sparse, arch)
     okw = dict(dict(lr=3e-3, warmup_steps=2, decay_steps=10), **okw)
     ref_fn, ref_init = ref_steps.make_train_step(
         RefModel(ref_cfg), ref_opt.OptimizerConfig(**okw), micro)
@@ -251,7 +307,7 @@ def _run_both(micro: int, n_steps: int, **okw):
 
 def _metrics_close(metrics):
     for got, want in metrics:
-        for k in ("loss", "ce", "grad_norm"):
+        for k in want:
             np.testing.assert_allclose(float(got[k]), float(want[k]),
                                        rtol=1e-4, atol=1e-4, err_msg=k)
 
@@ -296,8 +352,22 @@ def test_a_reference_checkpoint_resumes_in_the_port(tmp_path):
     """The reference's Trainer saves at step 2; the port's restores it
     and takes step 3 with the reference's loss; the port's checkpoint
     restores in the reference."""
-    ref_cfg, _, cfg, _ = _pair(True)
-    d = str(tmp_path)
+    _resume_a_reference_checkpoint(str(tmp_path), *_pair(True)[::2])
+
+
+def test_a_reference_deepseek_v3_checkpoint_resumes_in_the_port(tmp_path):
+    """The same with smoke deepseek-v3: the MTP subtree, the MoE layers'
+    stacked experts and the router's bias (and their moments) cross into
+    the port's layout and back."""
+    ref_cfg, _, cfg, _ = _pair(False, "deepseek-v3-671b")
+    tr = _resume_a_reference_checkpoint(str(tmp_path), ref_cfg, cfg)
+    assert {"mtp", "load_balance", "ce"} <= set(tr.history[-1])
+    tensors = tr.model.tensors()
+    assert "mtp/block/attn/kv_down/kernel" in tensors
+    assert not tensors["layers/1/ffn/router/bias"].any()
+
+
+def _resume_a_reference_checkpoint(d, ref_cfg, cfg):
     okw = dict(lr=3e-3, warmup_steps=2, decay_steps=10)
     ref_tr = RefTrainer(ref_cfg, RefTrainConfig(
         steps=3, ckpt_every=2, ckpt_dir=d, log_every=100,
@@ -325,6 +395,7 @@ def test_a_reference_checkpoint_resumes_in_the_port(tmp_path):
     jax.tree_util.tree_map(
         lambda a, s: np.testing.assert_equal(np.shape(a), s.shape),
         restored, like)
+    return tr
 
 
 def test_trainer_loss_decreases_and_survives_fault(tmp_path):
