@@ -163,7 +163,39 @@ Phases (any failure exits non-zero and prints no result line):
    card): the dense prefix layer, sigmoid routing with a nonzero bias,
    the shared expert, MLA and MTP; the card's fp32 logits and loss terms
    within 1e-4 of the port's CPU run; grep ``^moe``;
-13. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+13. recurrent: (a) recurrentgemma-9b at its published width and depth
+   (38 layers: two ``rec`` then 12 × (``attn_local``, ``rec``, ``rec``);
+   d_model 4,096, MQA with 16 heads of 256, window 2,048, GeGLU d_ff
+   12,288, vocab 256,000) with the RgCSR FFN (``w_out`` is 32 groups of
+   3,072 slot rows), random weights from ``SEED``: in float32 (caches too)
+   ``generate``'s prefill logits within 1e-4 · (1 + max|logit|) of the
+   same weights with a dense-equivalent ``w_out`` and greedy tokens under
+   the margin rule, and a 300-token prefill plus 8 decode steps within
+   1e-4 · (1 + max|logit|) of one forward over the 308 tokens (the
+   log-depth scan and the ring against the step recurrence); in bfloat16
+   ``generate`` of 4 × 128 tokens, 32 new, with K2's counter at exactly
+   38 × 32 and no other kernel of the port, its times, the card's busy
+   time and K2's share; ``serve`` with the graph as in 11(b) (K2 = 38 ×
+   (decode steps + prefills), replays = decode steps, streams against
+   ``generate``); a dead replay of the graph leaving every state bit for
+   bit; K2 on layer 0's kept plan against its plain version at d ∈ {1,
+   4, 8, 512} (fp32, bf16, and fp32 with the split forced at 8-row
+   pieces) and timed at d = 4, 8, 512.  (b) mamba2-780m at its published
+   size (48 SSD layers, d_model 1,536, 48 heads of 64, d_state 128, chunk
+   256; no FFN, so no K1–K3): at 2 layers of full width the card's fp32
+   prefill and decode logits within 1e-4 · (1 + max|logit|) of the port's
+   CPU run; at full depth the 300 + 8 check above; bfloat16 ``generate``
+   times and ``serve`` with the graph (no layer holds an index), every
+   stream held to ``generate`` under the bf16 margin rule, and the dead
+   replay, all at the reference's draw of the weights (each body layer's
+   ``fan_in`` weights 1/√48 of the port's per-layer draw, as the
+   reference's stacked init gives them); the gap between a prompt's
+   prefill logits alone and in a batch of 4, at both draws in bf16 and
+   fp32; the same sessions in float32 at the port's draw, every stream
+   held to ``generate`` under the fp32 margin rule;
+   three AdamW steps of 4 × 128 tokens through ``launch/train.py``,
+   losses finite, peak memory; grep ``^recurrent``;
+14. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -232,6 +264,14 @@ FAM_K2_WIDTHS = (SERVE_BATCH, FAM_SLOTS, SERVE_BATCH * SERVE_PROMPT)
 FAM_PAGED_LENS = (SESS_PAGE * 3 + 1, SESS_PAGE * 3)
 FAM_PAGED_STEPS, FAM_PAGED_MAX_SEQ = 4, 64
 MOE_CPU_LAYERS, MOE_TRAIN_STEPS = 2, 3
+# phase 13: recurrentgemma-9b with the RgCSR FFN and mamba2-780m; a
+# prefill of REC_LONG tokens (two SSD chunks, the second ragged) then
+# REC_STEPS decode steps against one forward; K2 at recurrentgemma's w_out
+# also with the split forced at REC_PIECE_ROWS
+REC_RG_ARCH, REC_MAMBA_ARCH = "recurrentgemma-9b", "mamba2-780m"
+REC_LONG, REC_STEPS, REC_CPU_LAYERS, REC_TRAIN_STEPS = 300, 8, 2, 3
+REC_K2_WIDTHS = (1,) + FAM_K2_WIDTHS
+REC_PIECE_ROWS = 8
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -450,7 +490,9 @@ def main() -> int:
     from repro_torch.models import ffn as ffn_mod
     from repro_torch.models import init_params
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.spec import init_from_spec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import model_spec
+    from repro_torch.models.spec import P, count_params, init_from_spec
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.obs import export as obs_export
@@ -2205,12 +2247,13 @@ def main() -> int:
         if not same_:
             failures.append(f"{what}: greedy tokens")
 
-    def stream_line(what, eng, reqs, vocab):
-        exact, ok_, first = streams_vs_generate(eng, reqs, vocab, BF16_TOL)
+    def stream_line(what, eng, reqs, vocab, tol=BF16_TOL):
+        """Streams against ``generate`` under the margin rule at ``tol``."""
+        exact, ok_, first = streams_vs_generate(eng, reqs, vocab, tol)
         log(f"{what}: streams equal to generate() of their prompts: "
             f"{sum(exact)} of {len(reqs)}; the others leave it at steps "
             f"{sorted(first)}, each at or after a top-2 margin below "
-            f"{BF16_TOL:g} · max|logit| in generate's run: "
+            f"{tol:g} · max|logit| in generate's run: "
             f"{all(ok_)} {'ok' if all(ok_) else 'FAIL'}")
         if not all(ok_):
             failures.append(f"{what}: streams against generate")
@@ -2588,6 +2631,419 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 12 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 13. the recurrent families at published width and depth:
+    # recurrentgemma-9b (RG-LRU + local attention, the RgCSR FFN through
+    # K2) and mamba2-780m (Mamba-2 SSD; no FFN, so no K1–K3)
+    def state_tensors(loop):
+        return [t for c in loop.caches for k, t in c.items()
+                if k in ("conv", "ssm", "h")]
+
+    def prefill_decode_vs_forward(model, vocab, what):
+        """fp32: a prefill of REC_LONG tokens, then REC_STEPS decode steps,
+        against one forward over all REC_LONG + REC_STEPS tokens."""
+        n = REC_LONG + REC_STEPS
+        toks = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+            0, vocab, (1, n)).astype(np.int32)).to(dev)
+        with torch.inference_mode():
+            full = model({"tokens": toks})[0][0, REC_LONG - 1:, :vocab]
+            logits, caches = model.prefill({"tokens": toks[:, :REC_LONG]}, n)
+            got = [logits[0, -1, :vocab]]
+            for i in range(REC_LONG, n):
+                logits, caches = model.decode_step(caches, toks[:, i:i + 1])
+                got.append(logits[0, -1, :vocab])
+        got, full = torch.stack(got).float(), full.float()
+        err = ((got - full).abs().max() / (1 + full.abs().max())).item()
+        ok = bool(torch.isfinite(got).all()) and err <= LOGIT_TOL
+        log(f"{what} fp32: a prefill of {REC_LONG} tokens and {REC_STEPS} "
+            f"decode steps against one forward over {n}: largest |step - "
+            f"forward| / (1 + max|logit|) {err:.3e} (tol {LOGIT_TOL:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{what}: prefill + decode against a forward")
+
+    def reference_draw(cfg, tree):
+        """``tree`` (the port's draw) scaled to the reference's: its
+        ``fan_in`` init counts a body layer's stacked axis
+        (``src/repro/models/spec.py:66``), so each body layer's
+        ``fan_in`` weight is 1/√R of one layer's draw, R =
+        ``cfg.pattern_repeats``; nothing else changes."""
+        scale = cfg.pattern_repeats ** -0.5
+
+        def walk(spec, t):
+            if isinstance(spec, P):
+                return t * scale if spec.init == "fan_in" else t
+            if isinstance(spec, dict):
+                return {k: walk(spec[k], t[k]) for k in spec}
+            return [walk(a, b) for a, b in zip(spec, t, strict=True)]
+
+        n_prefix = len(cfg.prefix_pattern)
+        layers = [walk(sp, t) if i >= n_prefix else t for i, (sp, t) in
+                  enumerate(zip(model_spec(cfg)["layers"], tree["layers"],
+                                strict=True))]
+        return {**tree, "layers": layers}
+
+    def batch_gap(cfg, tree, tokens):
+        """Each prompt's prefill logits alone against the batch's: the
+        largest |alone - batch| / max|logit| over the prompts."""
+        model_ = LanguageModel(cfg, tree)
+        with torch.inference_mode():
+            together = model_.prefill({"tokens": tokens}, SERVE_MAX_SEQ)[0]
+            alone = torch.cat([model_.prefill(
+                {"tokens": tokens[i:i + 1]}, SERVE_MAX_SEQ)[0]
+                for i in range(tokens.shape[0])])
+        together, alone = (v[:, -1, :cfg.vocab].float()
+                           for v in (together, alone))
+        return ((together - alone).abs().amax(-1)
+                / together.abs().amax(-1)).max().item()
+
+    def dead_replay_check(eng, vocab, seed, what):
+        """One replay of the captured step after a chunk (``steps_ran ==
+        n_steps``: not live) leaves every recurrent state and index bit
+        for bit."""
+        sess = eng.start_session(family_requests(vocab, seed)[:FAM_SLOTS])
+        sess.step(SESS_CHUNK)
+        loop = eng._loop
+        states = state_tensors(loop)
+        held = states + [c["index"] for c in loop.caches if "index" in c]
+        before = [t.clone() for t in held]
+        with torch.inference_mode():   # no graph: a failure already
+            (loop.graph.replay if loop.graph is not None else loop._step)()
+        torch.cuda.synchronize()
+        same = all(torch.equal(t, b) for t, b in zip(held, before))
+        sess.step(1)
+        moved = all(not torch.equal(t, b) for t, b in zip(states, before))
+        sess.drain()
+        ok = same and moved
+        log(f"{what}: a replay past n_steps leaves {len(states)} state "
+            f"tensors ({sum(t.numel() for t in states)} values) and "
+            f"{len(held) - len(states)} indices bit-identical: {same}; the "
+            f"next live step moves "
+            f"every one: {moved} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{what}: dead replay")
+
+    # (a) recurrentgemma-9b with the RgCSR FFN
+    t0 = t13 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"recurrent: held from the earlier phases: {live_cuda()}")
+    torch.cuda.reset_peak_memory_stats()
+    rg_cfg = dataclasses.replace(get_config(REC_RG_ARCH),
+                                 sparsity=SparsityConfig(**SERVE_SPARSITY))
+    n_rg = rg_cfg.n_layers
+    rg_tree = init_params(rg_cfg,
+                          torch.Generator(device=dev).manual_seed(SEED))
+    rg_sc = ServeConfig(max_seq=SERVE_MAX_SEQ)
+    engine = Engine(rg_cfg, rg_sc, params=rg_tree, device=dev)
+    torch.cuda.synchronize()
+    rg_layers = [b.ffn.w_out for b in engine.model.layers
+                 if hasattr(b, "ffn")]
+    n_float = sum(t.numel() for t in engine.model.tensors().values()
+                  if t.is_floating_point())
+    n_dense = count_params(model_spec(get_config(REC_RG_ARCH)))
+    kinds = "".join(k[0] for k in tfm.layer_kinds(rg_cfg))
+    log(f"recurrent: {rg_cfg.name} {n_rg} layers ({kinds}: r = rec, a = "
+        f"attn_local), d_model {rg_cfg.d_model}, "
+        f"{rg_cfg.n_heads}/{rg_cfg.n_kv_heads} heads of {rg_cfg.head_dim}, "
+        f"window {rg_cfg.window}, d_ff {rg_cfg.d_ff}, vocab {rg_cfg.vocab}: "
+        f"{n_dense} parameters counted dense, {n_float} float ones held "
+        f"with w_out in RgCSR ({rg_layers[0].values2d.shape[0]}"
+        f" slot rows of {rg_layers[0].values2d.shape[1]} lanes, "
+        f"{-(-rg_cfg.d_model // 128)} groups); init and "
+        f"{engine.plans_warmed} plans in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if engine.plans_warmed != n_rg or len(rg_layers) != n_rg:
+        failures.append(f"recurrent: {engine.plans_warmed} plans warmed, "
+                        f"want {n_rg}")
+    prompts = np.random.default_rng(SEED + 16).integers(
+        0, rg_cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    tokens = torch.from_numpy(prompts).to(dev)
+
+    # float32 (the caches too): K2 against w_out as dense matmuls, then
+    # prefill + decode against one forward
+    t1 = time.perf_counter()
+    rg32 = dataclasses.replace(rg_cfg, dtype="float32",
+                               kv_cache_dtype="float32")
+    eng32 = Engine(rg32, rg_sc, params=rg_tree, device=dev)
+    dense_tree = dict(rg_tree, layers=[
+        dict(layer, ffn=dict(layer["ffn"], w_out={
+            "kernel": dense_equivalent(lay).T.contiguous()}))
+        for layer, lay in zip(rg_tree["layers"], rg_layers)])
+    eng32d = Engine(dataclasses.replace(rg32, sparsity=SparsityConfig()),
+                    rg_sc, params=dense_tree, device=dev)
+    torch.cuda.synchronize()
+    log(f"recurrent fp32: with the dense-equivalent w_out of every layer "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    fp32_against(eng32, eng32d, prompts, "recurrent rg fp32, K2 vs dense "
+                 "w_out")
+    del eng32d, dense_tree
+    prefill_decode_vs_forward(eng32.model, rg_cfg.vocab, "recurrent rg")
+    del eng32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"recurrent rg fp32 checks in {time.perf_counter() - t1:.1f} s")
+
+    # the main path, bfloat16: K2 launches per layer and token by width
+    engine.generate(prompts, SERVE_NEW)        # warm-up (casts, work lists)
+    widths = collections.Counter()
+    hooks = [lay.register_forward_pre_hook(count_width)
+             for lay in rg_layers]
+    reset_launch_counts()
+    out = engine.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    rg_counts = launch_counts()
+    for h in hooks:
+        h.remove()
+    want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_rg * SERVE_NEW,
+                   "ell_spmv": 0}
+    want_widths = {SERVE_BATCH * SERVE_PROMPT: n_rg,
+                   SERVE_BATCH: n_rg * (SERVE_NEW - 1)}
+    builds = {lay.plan_builds for lay in rg_layers}
+    ok = (rg_counts == want_counts and dict(widths) == want_widths
+          and builds == {1} and out.shape == (SERVE_BATCH, SERVE_NEW)
+          and bool(((out >= 0) & (out < rg_cfg.vocab)).all()))
+    log(f"recurrent rg main path: generate {SERVE_BATCH} x {SERVE_PROMPT} "
+        f"tokens, {SERVE_NEW} new: launch counts {rg_counts} (want "
+        f"{want_counts}), K2 calls by width {dict(widths)}, plan builds per "
+        f"layer {sorted(builds)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recurrent rg: generate's launches, widths or "
+                        "tokens")
+    pre_ms, dec_ms, caches, _ = timed_generate(engine, prompts,
+                                               SERVE_MAX_SEQ,
+                                               "recurrent rg bf16")
+    with torch.inference_mode():
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+        index0 = next(c["index"] for c in caches if "index" in c).clone()
+
+        def step():
+            engine._decode([dict(c, index=index0) if "index" in c else c
+                            for c in caches], tok)
+
+        step_wait = ms(step, 5)
+        profile_line("recurrent rg bf16 prefill", lambda: engine.model.prefill(
+            {"tokens": tokens}, SERVE_MAX_SEQ), 2, pre_ms)
+        profile_line("recurrent rg bf16 decode step", step, 5, step_wait)
+    del caches
+    log(f"recurrent rg bf16: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated with the compute-dtype copies, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB so far {tag}")
+
+    # (a') sessions: rings and recurrent states, the decode step a graph
+    t1 = time.perf_counter()
+    sess_eng = Engine(rg_cfg, ServeConfig(
+        max_seq=FAM_MAX_SEQ, n_slots=FAM_SLOTS, page_size=SESS_PAGE,
+        decode_chunk=SESS_CHUNK), params=engine.params)
+    reqs, st, prefills, replays, sess_counts, prefill_k2, k2_decode, _ = \
+        family_session(sess_eng, rg_cfg.vocab, SEED + 17,
+                       "recurrent rg session bf16")
+    want_k2 = n_rg * (st["decode_steps"] + prefills)
+    keys = [sorted(c) for c in sess_eng._loop.caches[:3]]
+    ok = (sess_counts == {"rgcsr_spmv": 0, "rgcsr_spmm": want_k2,
+                          "ell_spmv": 0}
+          and k2_decode == n_rg * st["decode_steps"]
+          and prefill_k2 == [n_rg] * prefills
+          and replays == st["decode_steps"]
+          and st["completed"] == len(reqs)
+          and keys == [["conv", "h"], ["conv", "h"], ["index", "k", "v"]])
+    log(f"recurrent rg session bf16: K2 want {n_rg} x ({st['decode_steps']} "
+        f"steps + {prefills} prefills) = {want_k2}, in the fused dispatches "
+        f"{k2_decode}, in the prefills {sum(prefill_k2)}; replays "
+        f"{replays} = decode steps; the first layers' caches {keys} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recurrent rg session: launches, replays or "
+                        "completions")
+    stream_line("recurrent rg session bf16", sess_eng, reqs, rg_cfg.vocab)
+    dead_replay_check(sess_eng, rg_cfg.vocab, SEED + 18,
+                      "recurrent rg dead step")
+    # K2 at recurrentgemma's w_out against its plain version, then times
+    lay = rg_layers[0]
+    plan = lay.plan_for(torch.bfloat16)
+    for d in REC_K2_WIDTHS:
+        xw = torch.from_numpy(rng.standard_normal(
+            (lay.d_in, d)).astype(np.float32)).to(dev)
+        k2_check(f"recurrentgemma w_out d{d} fp32 (kept plan)", plan, xw)
+        k2_check(f"recurrentgemma w_out d{d} bf16 (kept plan)", plan, xw,
+                 torch.bfloat16, BF16_TOL, key=f"recurrentgemma w_out d{d}")
+        k2_check(f"recurrentgemma w_out d{d} fp32 pieces{REC_PIECE_ROWS} "
+                 f"(kept plan)", plan, xw, piece_rows=REC_PIECE_ROWS)
+    rg_launches = {SERVE_BATCH: widths[SERVE_BATCH], FAM_SLOTS: k2_decode,
+                   SERVE_BATCH * SERVE_PROMPT: widths[SERVE_BATCH
+                                                      * SERVE_PROMPT]}
+    for d in FAM_K2_WIDTHS:
+        entries.append(k2_serving_entry(
+            lay, d, rg_launches[d], errs[("rgcsr_spmm",
+                                          f"recurrentgemma w_out d{d}")],
+            arch=REC_RG_ARCH))
+    torch.cuda.synchronize()
+    log(f"recurrent rg peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}; "
+        f"sessions and K2 in {time.perf_counter() - t1:.1f} s; "
+        f"recurrentgemma in {time.perf_counter() - t0:.1f} s")
+    del engine, sess_eng, rg_layers, rg_tree, lay, plan, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) mamba2-780m
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mb_cfg = get_config(REC_MAMBA_ARCH)
+    sm = mb_cfg.ssm
+    mb_tree = init_params(mb_cfg,
+                          torch.Generator(device=dev).manual_seed(SEED))
+    mb_sc = ServeConfig(max_seq=SERVE_MAX_SEQ)
+    prompts = np.random.default_rng(SEED + 19).integers(
+        0, mb_cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    mb32 = dataclasses.replace(mb_cfg, dtype="float32",
+                               kv_cache_dtype="float32")
+    model = LanguageModel(mb32, mb_tree)
+    log(f"recurrent: {mb_cfg.name} {mb_cfg.n_layers} SSD layers, d_model "
+        f"{mb_cfg.d_model}, {sm.expand * mb_cfg.d_model // sm.head_dim} heads "
+        f"of {sm.head_dim}, d_state {sm.d_state}, chunk {sm.chunk}, vocab "
+        f"{mb_cfg.vocab} (padded {mb_cfg.padded_vocab}): "
+        f"{model.n_params()} parameters")
+    prefill_decode_vs_forward(model, mb_cfg.vocab, "recurrent mamba2")
+    del model
+    # two layers at full width: the card against the port's CPU run
+    cfg2 = dataclasses.replace(mb32, n_layers=REC_CPU_LAYERS)
+    tree2 = init_params(cfg2, torch.Generator(device=dev).manual_seed(SEED))
+    outs = []
+    for device_ in (dev, torch.device("cpu")):
+        model = LanguageModel(cfg2, tree_to(tree2, device_))
+        tk = torch.from_numpy(prompts).to(device_)
+        with torch.inference_mode():
+            logits, caches = model.prefill({"tokens": tk}, SERVE_MAX_SEQ)
+            step_logits, _ = model.decode_step(caches, tk[:, :1])
+        outs.append([v[..., :mb_cfg.vocab].float().cpu()
+                     for v in (logits, step_logits)])
+    worst = max((g - w).abs().max().item() / (1 + w.abs().max().item())
+                for g, w in zip(*outs))
+    ok = worst <= LOGIT_TOL
+    log(f"recurrent mamba2 fp32, {REC_CPU_LAYERS} layers at full width: the "
+        f"card against the port's CPU run on the same weights, prefill and "
+        f"one decode step: largest |card - cpu| / (1 + max|logit|) "
+        f"{worst:.3e} (tol {LOGIT_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recurrent mamba2: the card against the CPU")
+    del tree2, model, outs, caches, logits, step_logits
+    # The port draws each layer's fan_in weights at 1/sqrt(d_in); the
+    # reference's stacked draw is 1/sqrt(R) smaller in the body.  At the
+    # port's draw this depth amplifies rounding: the same prompt's bf16
+    # logits move with the batch they are computed in.  Measured at both
+    # draws, each prompt alone against the batch of 4, in bf16 and fp32.
+    mb_ref = reference_draw(mb_cfg, mb_tree)
+    tokens = torch.from_numpy(prompts).to(dev)
+    gaps = {(draw, what): batch_gap(cfg_, tree_, tokens)
+            for draw, tree_ in (("port", mb_tree), ("reference", mb_ref))
+            for what, cfg_ in (("bf16", mb_cfg), ("fp32", mb32))}
+    log(f"recurrent mamba2 prefill logits, each prompt alone against the "
+        f"batch of {SERVE_BATCH}: largest |alone - batch| / max|logit| at "
+        f"the port's draw {gaps['port', 'bf16']:.3e} in bf16, "
+        f"{gaps['port', 'fp32']:.3e} in fp32; at the reference's draw "
+        f"(body fan_in weights / sqrt({mb_cfg.pattern_repeats})) "
+        f"{gaps['reference', 'bf16']:.3e} in bf16, "
+        f"{gaps['reference', 'fp32']:.3e} in fp32 (the bf16 bar is "
+        f"{BF16_TOL:g}) {tag}")
+    # bfloat16 times, then sessions with the graph, at the reference's draw
+    engine = Engine(mb_cfg, mb_sc, params=mb_ref, device=dev)
+    reset_launch_counts()
+    pre_ms, dec_ms, caches, out = timed_generate(engine, prompts,
+                                                 SERVE_MAX_SEQ,
+                                                 "recurrent mamba2 bf16")
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        failures.append(f"recurrent mamba2: kernels of the port launched "
+                        f"{launch_counts()}")
+    with torch.inference_mode():
+        tok = torch.from_numpy(out[:, :1]).to(dev)
+        profile_line("recurrent mamba2 bf16 prefill",
+                     lambda: engine.model.prefill({"tokens": tokens},
+                                                  SERVE_MAX_SEQ),
+                     2, pre_ms, k2=False)
+        step_wait = ms(lambda: engine._decode(caches, tok), 5)
+        profile_line("recurrent mamba2 bf16 decode step",
+                     lambda: engine._decode(caches, tok), 5, step_wait,
+                     k2=False)
+    del caches
+    sess_eng = Engine(mb_cfg, ServeConfig(
+        max_seq=FAM_MAX_SEQ, n_slots=FAM_SLOTS, page_size=SESS_PAGE,
+        decode_chunk=SESS_CHUNK), params=engine.params)
+    reqs, st, prefills, replays, sess_counts, _, _, _ = family_session(
+        sess_eng, mb_cfg.vocab, SEED + 20, "recurrent mamba2 session bf16")
+    loop = sess_eng._loop
+    ok = (not any(sess_counts.values()) and replays == st["decode_steps"]
+          and st["completed"] == len(reqs)
+          and all(sorted(c) == ["conv", "ssm"] for c in loop.caches))
+    log(f"recurrent mamba2 session bf16: replays {replays} = decode steps "
+        f"{st['decode_steps']}, no kernel of the port launched, completed "
+        f"{st['completed']}, every cache a state (conv, ssm), no index "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recurrent mamba2 session: launches, replays or "
+                        "completions")
+    stream_line("recurrent mamba2 session bf16", sess_eng, reqs,
+                mb_cfg.vocab)
+    dead_replay_check(sess_eng, mb_cfg.vocab, SEED + 21,
+                      "recurrent mamba2 dead step")
+    # float32 (the states too), at the port's draw: the same sessions
+    # through the graph, every stream held to generate under the fp32
+    # margin rule
+    sess32 = Engine(mb32, ServeConfig(
+        max_seq=FAM_MAX_SEQ, n_slots=FAM_SLOTS, page_size=SESS_PAGE,
+        decode_chunk=SESS_CHUNK), params=mb_tree, device=dev)
+    reqs = family_requests(mb_cfg.vocab, SEED + 20)
+    sess32.serve(reqs)
+    st = sess32.paging_stats
+    ok = (sess32._loop.graph is not None and st["completed"] == len(reqs)
+          and sess32._loop.replays == st["decode_steps"])
+    log(f"recurrent mamba2 session fp32, the port's draw: {len(reqs)} "
+        f"requests on "
+        f"{FAM_SLOTS} slots, decode steps {st['decode_steps']}, graph "
+        f"replays {sess32._loop.replays}, completed {st['completed']} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recurrent mamba2 session fp32: replays or "
+                        "completions")
+    stream_line("recurrent mamba2 session fp32", sess32, reqs, mb_cfg.vocab,
+                tol=MARGIN_TOL)
+    del sess32
+    log(f"recurrent mamba2 serving peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+    del engine, sess_eng, mb_tree, mb_ref, reqs, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # three AdamW steps through the launcher, bf16 compute
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr, state = launch_train.main([
+        "--arch", REC_MAMBA_ARCH, "--steps", str(REC_TRAIN_STEPS), "--seq",
+        str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--device", str(dev)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.history
+    ok = (len(hist) == REC_TRAIN_STEPS and tr.model.device.type == "cuda"
+          and all(np.isfinite([h[k] for h in hist for k in ("ce", "loss",
+                                                             "grad_norm")])))
+    for h in hist:
+        log(f"recurrent mamba2 train step {h['step']}: loss "
+            f"{h['loss']:.4f}, grad_norm {h['grad_norm']:.4f}, "
+            f"{h['step_time_s'] * 1e3:.1f} ms host (ending in a "
+            f"synchronize), {TRAIN_SEQ * TRAIN_BATCH / h['step_time_s']:.1f} "
+            f"tokens/s {tag}")
+    log(f"recurrent mamba2 train: {REC_TRAIN_STEPS} AdamW steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, bf16 compute, fp32 parameters: "
+        f"all finite {ok}; peak {peak / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failures.append("recurrent mamba2 train: losses not finite")
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"recurrent mamba2 in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 13 in {time.perf_counter() - t13:.1f} s")
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:

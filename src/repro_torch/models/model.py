@@ -26,8 +26,10 @@ Parameter tree (the port's layout)::
 the body layers on a leading axis; :func:`reference_layout` and
 :func:`port_layout` carry any tree of per-tensor leaves (parameters,
 optimizer moments) between ``tensors()``'s names and that layout, for
-checkpoints both packages read.  Vision and audio frontends and the
-encoder-decoder family are not ported yet (ROADMAP queue 1, item 1).
+checkpoints both packages read; a recurrent layer's subtree (``mixer``
+for ``ssm``, ``rec`` for ``rec``) rides along as any other.  Vision and
+audio frontends and the encoder-decoder family are not ported yet
+(ROADMAP queue 1, item 1).
 """
 from __future__ import annotations
 
@@ -226,7 +228,9 @@ class LanguageModel(nn.Module):
     def init_cache(self, batch_size: int, s_max: int, *,
                    shape_kind: str = "decode",
                    paging=None) -> List[Dict[str, Any]]:
-        """One KV cache per layer.  ``paging``: optional
+        """One cache per layer: KV (dense slab, ring or pages) for
+        attention, the recurrent state for ``ssm`` and ``rec``.
+        ``paging``: optional
         :class:`~repro_torch.models.attention.PageGeometry` — full-attention
         layers get paged (page-pool + block-table) caches instead of dense
         per-slot slabs."""
@@ -284,11 +288,15 @@ class MTP(nn.Module):
 
 
 def _cache_index(caches):
-    """The first layer's ``index`` (B,): all layers advance in lockstep."""
+    """The first ``index`` (B,) among the layers' caches: all layers
+    advance in lockstep.  A stack with none (every layer recurrent, as
+    mamba2's) reads no position: zeros, as the reference's."""
     for cache in caches:
         if isinstance(cache, dict) and "index" in cache:
             return cache["index"]
-    raise ValueError("no layer cache holds an index")
+    state = next(iter(caches[0].values()))
+    return torch.zeros((state.shape[0],), dtype=torch.int32,
+                       device=state.device)
 
 
 # ---------------------------------------------------------------------------

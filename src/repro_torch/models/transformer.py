@@ -10,8 +10,12 @@ parameters on a leading axis and scans over them.
 Kinds ported: ``attn`` (global attention + FFN), ``attn_local``
 (sliding-window attention + FFN) and ``moe`` (global attention + the MoE
 FFN, dropless whenever ``mode != "train"``), each with GQA or MLA
-attention per ``cfg.attn_kind``.  The recurrent and encoder-decoder kinds
-raise ``NotImplementedError`` naming their ROADMAP item.
+attention per ``cfg.attn_kind``; ``ssm`` (the Mamba-2 mixer alone — no
+FFN) and ``rec`` (the RG-LRU block + FFN), whose caches are recurrent
+states (``models/recurrent.py``): a prefill returns the state at the
+prompt's end, and a decode step returns the next state, never writing
+the one it was given.  The encoder-decoder kinds raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import recurrent as rec_mod
 from repro_torch.models.ffn import FFN, ffn_apply, ffn_spec
 from repro_torch.models.layers import RMSNorm, rmsnorm_spec
 from repro_torch.models.moe import MoE, moe_apply, moe_spec
@@ -31,12 +36,10 @@ __all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
 
 # Layer kinds that are not ported yet, and the ROADMAP item that brings them.
 _NOT_PORTED = {
-    "ssm": "ROADMAP queue 1, item 1: the recurrent families (Mamba-2 SSD)",
-    "rec": "ROADMAP queue 1, item 1: the recurrent families (RG-LRU)",
     "enc_attn": "ROADMAP queue 1, item 1: the encoder-decoder family",
     "dec_attn": "ROADMAP queue 1, item 1: the encoder-decoder family",
 }
-_KINDS = ("attn", "attn_local", "moe")
+_KINDS = ("attn", "attn_local", "moe", "ssm", "rec")
 
 
 def _check_kind(kind: str) -> None:
@@ -68,7 +71,11 @@ def _attn_apply(layer, cfg, x, positions, *, cache, window):
 def block_spec(cfg, kind: str):
     _check_kind(kind)
     d = cfg.d_model
-    return {"ln1": rmsnorm_spec(d), "attn": _attn_spec(cfg),
+    if kind == "ssm":                    # no FFN in Mamba-2 stacks
+        return {"ln1": rmsnorm_spec(d), "mixer": rec_mod.mamba2_spec(cfg)}
+    return {"ln1": rmsnorm_spec(d),
+            **({"rec": rec_mod.rglru_spec(cfg)} if kind == "rec"
+               else {"attn": _attn_spec(cfg)}),
             "ln2": rmsnorm_spec(d),
             "ffn": moe_spec(cfg) if kind == "moe" else ffn_spec(cfg)}
 
@@ -88,19 +95,47 @@ def _effective_window(cfg, kind: str, shape_kind: str) -> Optional[int]:
 
 
 class Block(nn.Module):
-    """One residual block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``, ``ffn``
-    (an FFN, or an :class:`~repro_torch.models.moe.MoE` for ``moe``)."""
+    """One residual block: ``ln1``, then ``attn`` (GQA or MLA), ``rec``
+    (an :class:`~repro_torch.models.recurrent.RGLRU`) or, for ``ssm``,
+    ``mixer`` (a :class:`~repro_torch.models.recurrent.Mamba2`, and
+    nothing after it); then ``ln2`` and ``ffn`` (an FFN, or an
+    :class:`~repro_torch.models.moe.MoE` for ``moe``)."""
 
     def __init__(self, params, cfg, kind: str):
         super().__init__()
         _check_kind(kind)
         self.kind = kind
         self.ln1 = RMSNorm(params["ln1"])
-        self.attn = attn_mod.MLA(params["attn"]) if cfg.attn_kind == "mla" \
-            else attn_mod.GQA(params["attn"])
+        if kind == "ssm":
+            self.mixer = rec_mod.Mamba2(params["mixer"])
+            return
+        if kind == "rec":
+            self.rec = rec_mod.RGLRU(params["rec"])
+        else:
+            self.attn = attn_mod.MLA(params["attn"]) \
+                if cfg.attn_kind == "mla" else attn_mod.GQA(params["attn"])
         self.ln2 = RMSNorm(params["ln2"])
         self.ffn = MoE(params["ffn"], cfg) if kind == "moe" \
             else FFN(params["ffn"], cfg)
+
+
+def _recurrent_apply(block: Block, cfg, kind: str, h, *, mode: str, cache):
+    """The mixer of an ``ssm`` or ``rec`` block: (y, new state).  Without
+    a cache the full-sequence path; with one, ``decode`` steps the state
+    one token and any other mode (prefill) returns the prompt's end
+    state, as the reference's ``block_apply`` does."""
+    if kind == "ssm":
+        layer, apply, decode = block.mixer, rec_mod.mamba2_apply, \
+            rec_mod.mamba2_decode
+    else:
+        layer, apply, decode = block.rec, rec_mod.rglru_apply, \
+            rec_mod.rglru_decode
+    if cache is None:
+        return apply(layer, cfg, h), None
+    if mode == "decode":
+        y, state = decode(layer, cfg, cache, h[:, 0, :])
+        return y[:, None, :], state
+    return apply(layer, cfg, h, return_state=True)
 
 
 def block_apply(block: Block, cfg, kind: str, x, positions, *,
@@ -108,9 +143,15 @@ def block_apply(block: Block, cfg, kind: str, x, positions, *,
     """One residual block.  Returns (x, new_cache, aux); ``aux`` holds an
     MoE block's routing terms."""
     h = block.ln1(x)
-    window = _effective_window(cfg, kind, shape_kind)
-    y, new_cache = _attn_apply(block.attn, cfg, h, positions, cache=cache,
-                               window=window)
+    if kind in ("ssm", "rec"):
+        y, new_cache = _recurrent_apply(block, cfg, kind, h, mode=mode,
+                                        cache=cache)
+        if kind == "ssm":
+            return x + y, new_cache, {}
+    else:
+        window = _effective_window(cfg, kind, shape_kind)
+        y, new_cache = _attn_apply(block.attn, cfg, h, positions,
+                                   cache=cache, window=window)
     x = x + y
     h2 = block.ln2(x)
     if kind == "moe":
@@ -125,8 +166,13 @@ def init_block_cache(cfg, kind: str, batch: int, s_max: int,
     """``paging``: an :class:`attn_mod.PageGeometry` — full-attention KV
     caches become shared page pools addressed per slot through block
     tables.  Windowed layers keep their dense rings (already O(window)
-    residency)."""
+    residency), and recurrent states are position-free: per slot, in any
+    layout."""
     _check_kind(kind)
+    if kind == "ssm":
+        return rec_mod.init_mamba2_state(cfg, batch, device=device)
+    if kind == "rec":
+        return rec_mod.init_rglru_state(cfg, batch, device=device)
     window = _effective_window(cfg, kind, shape_kind)
     paged = paging is not None and not window
     if cfg.attn_kind == "mla":

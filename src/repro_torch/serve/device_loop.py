@@ -19,11 +19,19 @@ cannot end early, so every state update of the body is gated on a flag
 the card computes at the start of each step,
 ``live = (steps_ran < n_steps) & any(active)`` — the reference's loop
 predicate: a step that is not live leaves ``steps_ran``, ``remaining``,
-``active``, ``cur_tok``, the token block and every cache's ``index`` as
-they were.  Its KV writes land at each slot's unadvanced ``index``, a
-position that no mask admits yet and that the next live step overwrites
-before it attends.  The host asks for ``min(chunk, max remaining)``
-steps, so without EOS every replay is live.
+``active``, ``cur_tok``, the token block, every cache's ``index`` and
+every recurrent state as they were.  Its KV writes land at each slot's
+unadvanced ``index``, a position that no mask admits yet and that the
+next live step overwrites before it attends.  A recurrent state update is
+not idempotent, so the decode step returns the next state (``conv``,
+``ssm``, ``h``) and the runner writes it in place as
+``where(live, new, old)``: a dead step leaves each state bit for bit.
+The host asks for ``min(chunk, max remaining)`` steps, so without EOS
+every replay is live.
+
+Every cache's ``index`` advances in lockstep (in RecurrentGemma layer 0
+is recurrent and holds none); a stack with no index at all (mamba2) has
+no position to advance: no layer of it reads one.
 
 State the graph reads (all of it is written in place, never replaced: the
 graph reads every tensor at the address it had when it was captured):
@@ -33,7 +41,8 @@ graph reads every tensor at the address it had when it was captured):
     outputs  (1 + 2·k_max·n,) int32  steps_ran, block (k_max, n), logit_ok
                                      (k_max, n) — one copy to the host
     cur_tok  (n, 1)           int32  last sampled token per slot
-    caches                           the session's KV caches
+    caches                           the session's KV caches and
+                                     recurrent states
 
 :class:`FusedDecode` records the address of each of those tensors and of
 the model's parameters and buffers, and each weight's version, when it is
@@ -60,6 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.models.recurrent import STATE_KEYS
 
 __all__ = ["sample_tokens", "make_decode_step", "build_fused_decode",
            "FusedDecode"]
@@ -131,6 +141,8 @@ class FusedDecode:
         self.block = self.outputs[1:1 + k * n].view(k, n)
         self.logit_ok = self.outputs[1 + k * n:].view(k, n)
         self.cur_tok = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        # the indices every live step advances (none in a stack of states)
+        self._indexes = [c["index"] for c in caches if "index" in c]
         self.graph = None
         self.launches_per_replay = {}
         self.replays = 0
@@ -148,13 +160,20 @@ class FusedDecode:
         ``live``; reads and writes only the runner's tensors."""
         act = self.active != 0
         live = (self.steps_ran[0] < self.n_steps[0]) & act.any()
-        index = self.caches[0]["index"]
-        logits, _ = self._decode(self.caches, self.cur_tok)
+        logits, new_caches = self._decode(self.caches, self.cur_tok)
         # the new caches' rebound index tensors are dropped: the index
-        # advances here, in place, when the step is live
-        new_index = torch.where(live, index + 1, index)
-        for cache in self.caches:
-            cache["index"].copy_(new_index)
+        # advances here, in place, when the step is live; so does each
+        # recurrent state, which the step returned anew
+        for cache, new in zip(self.caches, new_caches, strict=True):
+            for key in STATE_KEYS:
+                if key in cache:
+                    cache[key].copy_(torch.where(live, new[key],
+                                                 cache[key]))
+        if self._indexes:
+            index = self._indexes[0]
+            new_index = torch.where(live, index + 1, index)
+            for t in self._indexes:
+                t.copy_(new_index)
         # per-slot finiteness of the sampled position's logits — NaN/Inf
         # here means the KV pages this slot read are poisoned
         fin = torch.isfinite(logits[:, -1, :].float()).all(-1)

@@ -27,6 +27,14 @@ zeroes it, and the older one raises if it steps again.  Every host-side
 update (admission, preemption, block tables, tokens) writes into that
 state in place.
 
+The recurrent families ride the same session: an ``ssm`` or ``rec``
+layer's cache is its per-slot state (conv tail and SSD or RG-LRU state),
+installed whole at admission (``paging.commit_prefill``) and stepped by
+the fused loop only while it is live.  Such a layer holds no page, so a
+stack with none paged (mamba2; recurrentgemma, whose attention layers are
+windowed rings) keeps the allocator's host-side accounting and
+preemption exactly as the reference does, with no pool on the card.
+
 With an RgCSR FFN (``cfg.sparsity.enabled``, ``impl="kernel"``) every
 layer's ``w_out`` product runs through K2 — in each prefill and in every
 decode step, captured ones included — and ``Engine.__init__`` builds each

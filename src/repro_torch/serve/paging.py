@@ -33,7 +33,10 @@ address it had when the graph was captured, so a cache tensor is never
 replaced.
 
 The caches here are the port's: one dict per layer, in layer order (the
-reference stacks the body's layers on a leading axis).
+reference stacks the body's layers on a leading axis).  A recurrent
+layer's cache is its per-slot state (``conv``, ``ssm`` or ``h``): it holds
+no page, so the page routines pass it by, as they pass the rings of
+windowed layers.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.attention import PageGeometry
+from repro_torch.models.recurrent import STATE_KEYS
 from repro_torch.obs import metrics as obs_metrics
 
 __all__ = ["PageGeometry", "PageAllocator", "PoolExhausted", "geometry",
@@ -335,12 +339,16 @@ def commit_prefill(caches, slot_cache, slot: int, length: int,
     decode caches, in place.  Paged layers scatter the prompt's ``length``
     tokens into the slot's pages via ``table`` (the allocator's
     authoritative block table; token t -> (table[slot, t // ps], t % ps))
-    and take the whole table; every other layer (dense slab, ring) copies
-    the batch-1 cache into its slot row, index included.  In dense mode
-    pass ``table=None`` — no paged layer exists."""
+    and take the whole table; a recurrent layer's state (conv tail and
+    SSM or LRU state) is installed whole, so nothing of the slot's last
+    request survives; every other layer (dense slab, ring) copies the
+    batch-1 cache into its slot row, index included.  In dense mode pass
+    ``table=None`` — no paged layer exists (a stack with no paged layer
+    ignores the table)."""
     page_ids = offs = table_dev = None
-    if table is not None:
-        dev = next(c["block_table"].device for c in caches if _paged(c))
+    paged = [c for c in caches if _paged(c)]
+    if table is not None and paged:
+        dev = paged[0]["block_table"].device
         pos = np.arange(length)
         row = np.asarray(table)[slot]
         page_ids = torch.from_numpy(row[pos // page_size].astype(np.int64)
@@ -355,6 +363,15 @@ def commit_prefill(caches, slot_cache, slot: int, length: int,
                         full[key].dtype)
             full["index"][slot] = length
             full["block_table"].copy_(table_dev)
+        elif any(key in full for key in STATE_KEYS):
+            for key, t in full.items():
+                src = one[key][0]
+                if src.shape != t.shape[1:]:
+                    raise ValueError(
+                        f"recurrent state {key!r} of shape "
+                        f"{tuple(src.shape)} does not fill a slot's "
+                        f"{tuple(t.shape[1:])}")
+                t[slot].copy_(src)
         else:
             # a dense slab may be one row longer (the session's spare row)
             for key, t in full.items():

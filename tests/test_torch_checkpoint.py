@@ -129,10 +129,12 @@ def test_a_port_checkpoint_restores_in_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "mamba2-780m",
+                                  "recurrentgemma-9b"])
 def test_family_checkpoints_cross_both_ways(tmp_path, arch):
     """The reference's tree (stacked experts, the router's bias, MLA's
-    projections, the MTP subtree) saved by the reference serves in the
+    projections, the MTP subtree, the ``mixer`` and ``rec`` subtrees of
+    the recurrent layers) saved by the reference serves in the
     port with its logits; the port's tensors in the reference's layout
     (``reference_layout``) saved by the port restore in the reference
     equal to its own tree."""

@@ -180,7 +180,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "obs/export.py", "train/checkpoint.py",
                    "kernels/autotune.py", "train/data.py",
                    "train/optimizer.py", "train/trainer.py",
-                   "launch/steps.py", "launch/train.py", "models/moe.py"):
+                   "launch/steps.py", "launch/train.py", "models/moe.py",
+                   "models/recurrent.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)

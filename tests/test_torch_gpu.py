@@ -362,11 +362,12 @@ def test_graph_replays_equal_eager_steps(cuda, layout):
 
 
 def _smoke_family(arch, dispatch=None):
-    """A family's smoke config in float32; minicpm3-4b with the RgCSR FFN
-    (K2), the MoE families with ``dispatch`` when given."""
+    """A family's smoke config in float32; minicpm3-4b and
+    recurrentgemma-9b with the RgCSR FFN (K2), the MoE families with
+    ``dispatch`` when given."""
     over = dict(dtype="float32", kv_cache_dtype="float32")
     cfg = get_smoke(arch)
-    if arch == "minicpm3-4b":
+    if arch in ("minicpm3-4b", "recurrentgemma-9b"):
         over["sparsity"] = SparsityConfig(enabled=True, density=0.25,
                                           group_size=128, impl="kernel")
     if dispatch:
@@ -378,15 +379,17 @@ def _smoke_family(arch, dispatch=None):
 @pytest.mark.parametrize("layout", ["paged", "dense"])
 @pytest.mark.parametrize("arch,dispatch", [
     ("granite-moe-1b-a400m", "einsum"), ("granite-moe-1b-a400m", "scatter"),
-    ("minicpm3-4b", None), ("deepseek-v3-671b", "einsum")])
+    ("minicpm3-4b", None), ("deepseek-v3-671b", "einsum"),
+    ("mamba2-780m", None), ("recurrentgemma-9b", None)])
 def test_moe_and_mla_graph_replays_equal_eager_steps(cuda, arch, dispatch,
                                                      layout):
-    """The MoE routing and dispatch and the MLA decode (latent pages or
-    slabs) captured in the decode graph — no host sync in the step, or
-    the capture raises — replayed against the same step run eagerly on
-    the card: equal streams, caches within 1e-5 (the scatter dispatch's
-    ``index_add_`` sums with atomics on the card), and streams equal to
-    generate() of each request alone."""
+    """The MoE routing and dispatch, the MLA decode (latent pages or
+    slabs) and the recurrent steps (conv tail, SSD and RG-LRU states, each
+    written through ``where(live, ...)``) captured in the decode graph —
+    no host sync in the step, or the capture raises — replayed against
+    the same step run eagerly on the card: equal streams, caches within
+    1e-5 (the scatter dispatch's ``index_add_`` sums with atomics on the
+    card), and streams equal to generate() of each request alone."""
     cfg = _smoke_family(arch, dispatch)
     kw = dict(max_seq=64, n_slots=2, page_size=4, kv_layout=layout,
               decode_chunk=8)
@@ -409,6 +412,91 @@ def test_moe_and_mla_graph_replays_equal_eager_steps(cuda, arch, dispatch,
         assert r_out == list(graph.generate(r.tokens[None, :], 6)[0])
     if arch == "minicpm3-4b":
         assert graph._loop.launches_per_replay == {"rgcsr_spmm": 2}
+    if arch == "recurrentgemma-9b":
+        assert graph._loop.launches_per_replay == {"rgcsr_spmm": 8}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_dead_graph_replays_leave_the_recurrent_states_alone(cuda, arch):
+    """A replay of the captured step after the chunk's ``n_steps`` ran
+    (not live) leaves every recurrent state and index bit for bit; a
+    live chunk after it moves each state and goes on as generate()."""
+    cfg = _smoke_family(arch)
+    eng = Engine(cfg, ServeConfig(max_seq=64, n_slots=2, page_size=4,
+                                  decode_chunk=4), device=cuda)
+    reqs = _session_requests(11, (5, 2), 9)
+    sess = eng.start_session(reqs)
+    sess.step(3)
+    loop = eng._loop
+    states = [t for c in loop.caches for k, t in c.items()
+              if k in ("conv", "ssm", "h")]
+    held = states + [c["index"] for c in loop.caches if "index" in c]
+    before = [t.clone() for t in held]
+    loop.graph.replay()                    # steps_ran == n_steps: dead
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, b) for t, b in zip(held, before))
+    sess.step(1)
+    assert all(not torch.equal(t, b) for t, b in zip(states, before))
+    sess.drain()
+    for r in reqs:
+        assert r.out == list(eng.generate(r.tokens[None, :], 9)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_recurrent_prefill_and_decode_equal_a_full_forward(cuda, arch):
+    """On the card, fp32: a prefill of 21 tokens (a ragged SSD chunk) and
+    19 decode steps give the logits of one full forward over the 40
+    tokens (past the smoke window of 32) within 1e-5."""
+    from repro_torch.models import LanguageModel
+    cfg = _smoke_family(arch)
+    model = LanguageModel(cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab, (2, 40)).astype(np.int32)).to(cuda)
+    with torch.inference_mode():
+        full = model({"tokens": toks})[0]
+        logits, caches = model.prefill({"tokens": toks[:, :21]}, 48)
+        got = [logits[:, -1]]
+        for i in range(21, 40):
+            logits, caches = model.decode_step(caches, toks[:, i:i + 1])
+            got.append(logits[:, -1])
+    torch.testing.assert_close(torch.stack(got, 1), full[:, 20:],
+                               rtol=1e-5, atol=1e-5)
+
+
+_RG_W_OUT = {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("piece_rows", [None, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("d", [1, 8])
+def test_k2_cuda_matches_plain_at_recurrentgemma_w_out(cuda, d, dtype, tol,
+                                                       piece_rows):
+    """One w_out layer of recurrentgemma-9b: W (4096, 12288) at density
+    0.25, 32 groups of 3,072 slot rows — 48 pieces of 64 rows each, so
+    nearly all of it the split path and the combine."""
+    cfg = dataclasses.replace(
+        get_config("recurrentgemma-9b"), sparsity=SparsityConfig(
+            enabled=True, density=0.25, group_size=128, impl="kernel"))
+    if cuda not in _RG_W_OUT:
+        _RG_W_OUT[cuda] = init_from_spec(
+            ffn.sparse_linear_spec(cfg, cfg.d_ff, cfg.d_model),
+            torch.Generator(device=cuda).manual_seed(6), device=cuda)
+    plan = plan_from_params(_RG_W_OUT[cuda], dtype, d_out=4096, d_in=12288,
+                            group_size=128)
+    assert plan.values2d.shape == (32 * 3072, 128)
+    x = torch.from_numpy(_x(50 + d, 12288, d)).to(cuda, dtype)
+    got = rgcsr_spmm_launch(plan, x, piece_rows=piece_rows)
+    args = (plan.values2d, plan.columns2d, plan.step_group)
+    want = rgcsr_spmm_plain(*args, x, n_groups=32)
+    scale = rgcsr_spmm_plain(plan.values2d.float().abs(), plan.columns2d,
+                             plan.step_group, x.float().abs(), n_groups=32)
+    diff = (got.float() - want.float()).abs()
+    assert got.shape == (4096, d) and got.dtype == dtype
+    assert bool((diff <= tol * (1 + scale)).all()), diff.max().item()
 
 
 @pytest.mark.gpu

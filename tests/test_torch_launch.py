@@ -131,6 +131,24 @@ def test_the_serve_launcher_runs_granite_moe(capsys):
     assert _line(out, "percentiles:").startswith("percentiles: queue_s")
 
 
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_the_launchers_run_the_recurrent_families(capsys, arch):
+    """``launch/serve.py`` with its failover drill on two replicas, and
+    ``launch/train.py``, at each recurrent family's smoke size."""
+    assert launch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--requests", "4", "--max-seq", "64",
+                        "--replicas", "2", "--kill-replica", "1",
+                        "--kill-at-step", "2"]) == 0
+    out = capsys.readouterr().out
+    assert _statuses(out) == {"ok": 4}
+    assert "all done: True" in out
+    tr, _ = launch_train.main(["--arch", arch, "--smoke", "--device", "cpu",
+                               "--steps", "2", "--seq", "16", "--batch",
+                               "4"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last == f"done: 2 steps, final loss {tr.history[-1]['loss']:.4f}"
+
+
 def test_the_train_launcher_runs_deepseek_v3(capsys):
     tr, _ = launch_train.main(["--arch", "deepseek-v3-671b", "--smoke",
                                "--device", "cpu", "--steps", "2", "--seq",

@@ -1,6 +1,8 @@
 """The port's LM stack and ``Engine.generate`` against the reference's, on
 smoke configs (granite-3-2b and the other GQA families; granite-moe's MoE,
-minicpm3's MLA with the RgCSR FFN, deepseek-v3's MLA + MoE + MTP), with
+minicpm3's MLA with the RgCSR FFN, deepseek-v3's MLA + MoE + MTP;
+mamba2's SSD stack and recurrentgemma's RG-LRU + local attention with the
+RgCSR FFN), with
 the reference's parameters carried across through ``params_from_numpy``.
 
 Bars: fp32 logits within rtol = atol = 1e-4; bf16 logits within 3e-2 of
@@ -226,8 +228,7 @@ def test_param_count_and_layout_match_the_reference():
                                           ref_q[i])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b",
-                                  "seamless-m4t-medium", "pixtral-12b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
 def test_families_not_ported_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LanguageModel(get_smoke(arch), device="cpu")
@@ -235,18 +236,22 @@ def test_families_not_ported_raise(arch):
 
 # ---------------------------------------- MoE, MLA and MTP (deepseek-v3)
 
-# (arch, RgCSR FFN): minicpm3-4b is the dense-FFN family, so it carries
-# the RgCSR FFN; the reference sparsifies no MoE FFN
+# (arch, RgCSR FFN): minicpm3-4b and recurrentgemma-9b are dense-FFN
+# families, so they carry the RgCSR FFN; the reference sparsifies no MoE
+# FFN, and mamba2 has no FFN
 FAMILIES = [("granite-moe-1b-a400m", False), ("minicpm3-4b", True),
-            ("deepseek-v3-671b", False)]
-FAMILY_IDS = ["granite-moe", "minicpm3-rgcsr", "deepseek-v3"]
+            ("deepseek-v3-671b", False), ("mamba2-780m", False),
+            ("recurrentgemma-9b", True)]
+FAMILY_IDS = ["granite-moe", "minicpm3-rgcsr", "deepseek-v3", "mamba2",
+              "recurrentgemma-rgcsr"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch,sparse", FAMILIES, ids=FAMILY_IDS)
 def test_moe_and_mla_families_match(arch, sparse, dtype):
     """forward (its MoE aux sums too), prefill and decode steps: MoE
-    dropless at inference, MLA over dense caches."""
+    dropless at inference, MLA over dense caches, the recurrent states
+    handed from prefill to decode."""
     ref_cfg, ref_params, cfg, model = _pair(arch, sparse=sparse, dtype=dtype)
     toks = _tokens(cfg, 11)
     ref_logits, _, ref_aux = jax.jit(lambda p, b: RefModel(ref_cfg).forward(
@@ -277,7 +282,8 @@ def test_families_generate_token_identical(arch, sparse):
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "mamba2-780m",
+                                  "recurrentgemma-9b"])
 def test_family_param_counts_match_the_reference(arch):
     """Smoke: the tree, every layer's place and the active count; full
     size: the spec's counts, with no allocation."""

@@ -123,14 +123,20 @@ def test_rgcsr_ffn_serves_as_the_reference(layout):
 @pytest.mark.parametrize("layout", ["paged", "dense"])
 @pytest.mark.parametrize("arch,sparse", [("granite-moe-1b-a400m", False),
                                          ("minicpm3-4b", True),
-                                         ("deepseek-v3-671b", False)],
+                                         ("deepseek-v3-671b", False),
+                                         ("mamba2-780m", False),
+                                         ("recurrentgemma-9b", True)],
                          ids=["granite-moe", "minicpm3-rgcsr",
-                              "deepseek-v3"])
+                              "deepseek-v3", "mamba2",
+                              "recurrentgemma-rgcsr"])
 def test_moe_and_mla_families_serve_as_the_reference(arch, sparse, layout):
     """MoE dropless at prefill and in the fused decode steps, MLA's latent
-    caches paged (``ckv``/``krope`` pools) or dense, under chunked
-    serving and recompute preemption: streams, statuses and stats equal
-    to the reference's, and each stream equal to ``generate`` alone."""
+    caches paged (``ckv``/``krope`` pools) or dense, recurrent states
+    installed whole at admission (mamba2 holds no page at all; the
+    allocator still accounts its requests' pages, as the reference's),
+    under chunked serving and recompute preemption: streams, statuses and
+    stats equal to the reference's, and each stream equal to
+    ``generate`` alone."""
     ref, eng = engines(sparse=sparse, arch=arch, max_seq=S_MAX, n_slots=3,
                        page_size=PS, n_pages=9, kv_layout=layout,
                        decode_chunk=4)
@@ -139,9 +145,70 @@ def test_moe_and_mla_families_serve_as_the_reference(arch, sparse, layout):
     assert st["completed"] == 5
     assert (st["preemptions"] > 0) == (layout == "paged")
     keys = set(eng._loop.caches[0])
-    assert ({"ckv", "krope"} <= keys) == (arch != "granite-moe-1b-a400m")
+    assert ({"ckv", "krope"} <= keys) == (eng.model.cfg.attn_kind == "mla")
+    assert (keys == {"conv", "ssm"}) == (arch == "mamba2-780m")
+    assert (keys == {"conv", "h"}) == (arch == "recurrentgemma-9b")
     for r in reqs:
         assert r.out == oracle(eng, r)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_short_prompts_serve_with_a_right_aligned_conv_tail(arch):
+    """Prompts of 1, 2, 3 and 4 tokens on 2 reused slots: every stream
+    equals ``generate`` of its prompt alone, and the logits it came from
+    equal the reference's full ``forward`` over prompt + stream (the
+    reference's own prefill hands on a conv tail as short as a prompt
+    below 3 tokens, which its serve splices at the top of a slot's tail,
+    next to a stale row)."""
+    import jax.numpy as jnp
+    from repro.models import LanguageModel as RefModel
+    ref_cfg, ref_params, _, _ = pair(arch=arch)
+    eng = port_engine(arch=arch, max_seq=S_MAX, n_slots=2, page_size=PS,
+                      decode_chunk=3)
+    _, reqs = requests(9, (3, 1, 4, 2, 2, 1), 7)
+    eng.serve(reqs)
+    assert [r.status for r in reqs] == ["ok"] * 6
+    ref_model = RefModel(ref_cfg)
+    for r in reqs:
+        assert r.out == oracle(eng, r)
+        seq = np.concatenate([r.tokens, r.out[:-1]]).astype(np.int32)
+        logits = np.asarray(ref_model.forward(
+            ref_params, {"tokens": jnp.asarray(seq[None])})[0])[0]
+        want = logits[len(r.tokens) - 1:].argmax(-1)
+        assert r.out == [int(t) for t in want]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_dead_steps_leave_the_recurrent_states_alone(arch):
+    """A step of the fused loop past ``n_steps`` (not live) leaves every
+    recurrent state and the caches' indices bit for bit (its ring KV
+    write lands at the unadvanced index, which the next live step
+    rewrites); a live step moves every slot's state.  mamba2 holds no
+    index at all."""
+    eng = port_engine(arch=arch, max_seq=S_MAX, n_slots=2, page_size=PS,
+                      decode_chunk=4)
+    sess = eng.start_session(requests(4, (5, 9), 10)[1])
+    sess.step(2)
+    loop = eng._loop
+    states = [t for c in loop.caches for k, t in c.items()
+              if k in ("conv", "ssm", "h")]
+    indexes = [c["index"] for c in loop.caches if "index" in c]
+    held = states + indexes
+    before = [t.clone() for t in held]
+    assert loop.steps_ran.item() == loop.n_steps.item() == 2
+    with torch.inference_mode():
+        loop._step()                       # n_steps exhausted: dead
+    for t, b in zip(held, before):
+        assert torch.equal(t, b)
+    assert bool(indexes) == (arch == "recurrentgemma-9b")
+    assert all(t.tolist() == [7, 11] for t in indexes)  # prompt + 2 steps
+    loop.n_steps.fill_(3)
+    with torch.inference_mode():
+        loop._step()                       # live
+    assert all(t.tolist() == [8, 12] for t in indexes)
+    assert all(not torch.equal(t[s], b[s]) for t, b in zip(states, before)
+               for s in range(2))
+    sess.drain()
 
 
 def test_fused_dispatch_count_amortized():

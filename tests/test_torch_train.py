@@ -192,9 +192,12 @@ def test_loss_matches_reference(sparse):
 
 @pytest.mark.parametrize("arch,sparse", [("granite-moe-1b-a400m", False),
                                          ("minicpm3-4b", True),
-                                         ("deepseek-v3-671b", False)],
+                                         ("deepseek-v3-671b", False),
+                                         ("mamba2-780m", False),
+                                         ("recurrentgemma-9b", True)],
                          ids=["granite-moe", "minicpm3-sparse",
-                              "deepseek-v3"])
+                              "deepseek-v3", "mamba2",
+                              "recurrentgemma-sparse"])
 def test_family_loss_terms_match_reference(arch, sparse):
     """CE, the load-balance term (summed over the MoE layers, router-z in
     the total), the MTP loss and the total, within 1e-5 — capacity drops
@@ -243,6 +246,91 @@ def test_one_adamw_step_of_the_moe_families_matches(arch):
     biases = [k for k in got if k.endswith("router/bias")]
     assert len(biases) == (2 if arch == "deepseek-v3-671b" else 0)
     assert all(not got[k].any() for k in biases)
+
+
+@pytest.mark.parametrize("arch,sparse", [("mamba2-780m", False),
+                                         ("recurrentgemma-9b", True)],
+                         ids=["mamba2", "recurrentgemma-sparse"])
+def test_three_train_steps_of_the_recurrent_families_match(arch, sparse):
+    """Three AdamW steps without weight decay through the SSD chunks and
+    the log-depth scan (and the segment sum of recurrentgemma's RgCSR
+    FFN): metrics within 1e-4, every parameter within 1e-5.  Adam's eps
+    is 1e-5 on both sides: some of the RG-LRU gates' gradients are
+    ~1e-7, where the packages' fp32 gradients (equal within ~6e-9, the
+    other summation order of the scan) move a weight by lr·g/(|g| + eps),
+    fractions of lr that differ by ~1e-5 at eps = 1e-8.  A gradient far
+    below eps hardly moves its weight, so the next test holds the
+    gradients themselves."""
+    metrics, got, want, _ = _run_both(1, 3, arch=arch, sparse=sparse,
+                                      weight_decay=0.0, eps=1e-5)
+    _metrics_close(metrics)
+    assert got.keys() == want.keys()
+    for k, a in got.items():
+        np.testing.assert_allclose(a, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("arch,sparse", [("mamba2-780m", False),
+                                         ("recurrentgemma-9b", True)],
+                         ids=["mamba2", "recurrentgemma-sparse"])
+def test_first_step_gradients_of_the_recurrent_families_match(arch, sparse):
+    """The loss's gradient, leaf by leaf, against the reference's: within
+    1e-4 of the leaf's largest |gradient| (and 1e-5 relative), so a wrong
+    gradient on a leaf of small gradients (the RG-LRU gates, the SSD's
+    ``a_log``) shows here even where Adam's eps hides it in a step."""
+    ref_cfg, ref_params, cfg, host = _pair(sparse, arch)
+    batch = _batch(cfg, 0)
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    grads = jax.grad(lambda p: RefModel(ref_cfg).loss(p, jbatch)[0],
+                     allow_int=True)(ref_params)
+    grads = jax.tree_util.tree_map(      # integer leaves: float0 tangents
+        lambda g, p: np.zeros(p.shape, p.dtype)
+        if g.dtype == jax.dtypes.float0 else np.asarray(g),
+        grads, ref_params)
+    want = port_layout(cfg, grads)
+    model = _port_model(cfg, host)
+    loss, _ = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    leaves = {k: t for k, t in model.tensors().items() if t.requires_grad}
+    got = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    assert set(got) == {k for k, a in want.items() if a.dtype.kind == "f"}
+    for k, g in got.items():
+        scale = float(np.abs(want[k]).max())
+        assert scale > 0, k
+        np.testing.assert_allclose(g.numpy(), want[k], rtol=1e-5,
+                                   atol=1e-4 * scale, err_msg=k)
+
+
+def test_weight_decay_skips_each_layers_recurrent_vectors():
+    """One step with weight decay 0.1 on smoke recurrentgemma: the port
+    decays no 1-D vector of a recurrent layer (``lam``, the conv's ``b``)
+    nor a norm scale, and differs from the reference by exactly the
+    reference's decay on those of the body layers, whose stacked (2-D)
+    arrays its mask decays; the prefix layers' vectors are 1-D in both
+    and stay undecayed, and every 2-D weight is decayed in both.  Adam's
+    eps is 1e-5, as in the test above."""
+    metrics, got, want, _ = _run_both(1, 1, arch="recurrentgemma-9b",
+                                      sparse=False, weight_decay=0.1,
+                                      eps=1e-5)
+    _metrics_close(metrics)
+    cfg = _pair(False, "recurrentgemma-9b")[2]
+    ocfg = optimizer.OptimizerConfig(lr=3e-3, warmup_steps=2,
+                                     decay_steps=10, eps=1e-5)
+    shrink = 1 - 0.1 * float(optimizer._schedule(ocfg)(1))
+    n_pre = len(cfg.prefix_pattern)
+    decayed = {}
+    for k, a in got.items():
+        parts = k.split("/")
+        if k.startswith("layers/") and a.ndim == 1 and \
+                int(parts[1]) >= n_pre:
+            if parts[-1] != "b":     # the conv bias is still ~1e-3
+                assert not np.allclose(a, want[k], rtol=1e-5, atol=1e-5), k
+            a = a * shrink                       # the reference's decay
+            decayed[parts[-1]] = decayed.get(parts[-1], 0) + 1
+        np.testing.assert_allclose(a, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
+    n_rec = sum(k == "rec" for k in cfg.layer_pattern) * cfg.pattern_repeats
+    n_body = cfg.n_layers - n_pre
+    assert decayed == {"lam": n_rec, "b": n_rec, "scale": 2 * n_body}
 
 
 def test_segment_sum_chunks_keep_the_forward_and_give_the_gradients(
@@ -365,6 +453,18 @@ def test_a_reference_deepseek_v3_checkpoint_resumes_in_the_port(tmp_path):
     tensors = tr.model.tensors()
     assert "mtp/block/attn/kv_down/kernel" in tensors
     assert not tensors["layers/1/ffn/router/bias"].any()
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_a_reference_recurrent_checkpoint_resumes_in_the_port(tmp_path,
+                                                             arch):
+    """The same with the recurrent families: the ``mixer`` and ``rec``
+    subtrees (and their moments) cross into the port's layout and back."""
+    ref_cfg, _, cfg, _ = _pair(False, arch)
+    tr = _resume_a_reference_checkpoint(str(tmp_path), ref_cfg, cfg)
+    key = "layers/0/mixer/a_log" if arch == "mamba2-780m" \
+        else "layers/0/rec/lam"
+    assert key in tr.model.tensors()
 
 
 def _resume_a_reference_checkpoint(d, ref_cfg, cfg):
