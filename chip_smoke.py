@@ -195,7 +195,38 @@ Phases (any failure exits non-zero and prints no result line):
    held to ``generate`` under the fp32 margin rule;
    three AdamW steps of 4 × 128 tokens through ``launch/train.py``,
    losses finite, peak memory; grep ``^recurrent``;
-14. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+14. encdec: the encoder-decoder family and the vision frontend at their
+   published sizes with the RgCSR FFN (phase 6's sparsity), random
+   weights from ``SEED``, served as the reference serves them:
+   ``Engine._prefill`` with the whole batch (frames or patch embeddings
+   beside the tokens), then ``_sample`` and ``_decode`` per token, 32
+   greedy tokens.  (a) seamless-m4t-medium (12 encoder + 12 decoder
+   layers, d_model 1,024, 16 heads of 64, GeGLU d_ff 4,096, vocab 256,206
+   padded to 256,256, tied; every ``w_out``, the encoder's too, 8 groups
+   of 1,024 slot rows), 4 requests of 512 frames and 16 tokens: in
+   float32 (caches too) the prefill logits within 1e-4 · (1 + max|logit|)
+   of the same weights with dense-equivalent ``w_out``s and greedy tokens
+   under the margin rule; a prefill of 16 tokens and 8 decode steps
+   against one forward over the 24; at 2 + 2 layers of full width the
+   card against the port's CPU run; in bfloat16 K2's counter at exactly
+   24 for the prefill and 12 per decode step (396) and no other kernel,
+   the prefill's and a decode step's times for a caller and on the card
+   (``torch.profiler``) with K2's share; three AdamW steps of 4 × 128
+   frames and tokens through ``launch/train.py --sparse-ffn``.  (b)
+   pixtral-12b (40 layers, d_model 5,120, 32/8 heads of 128, SwiGLU d_ff
+   14,336, vocab 131,072, ``frontend_proj`` 1,024 → 5,120; ``w_out`` 40
+   groups of 3,584 slot rows), 2 requests of 1,024 patches and 64 tokens,
+   ``max_seq`` 1,120: its memory plan reckoned from the spec and logged
+   before anything is allocated; the float32 check against the
+   dense-equivalent ``w_out`` at full depth when the reckoned peak stays
+   under 72 GiB, else at 8 layers; in bfloat16 K2 at exactly 40 × 32 =
+   1,280, times and K2's share as in (a); peak memory.  K2 on layer 0's
+   kept plan against its plain version (fp32, bf16, and fp32 with the
+   split forced at 8-row pieces) at seamless's d ∈ {1, 4, 64, 2,048} and
+   pixtral's d ∈ {1, 2, 2,176}, then timed at the widths the main paths
+   ran beside its bound, its plain version, the CSR call and the dense
+   bf16 product; grep ``^encdec``;
+15. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -272,6 +303,18 @@ REC_RG_ARCH, REC_MAMBA_ARCH = "recurrentgemma-9b", "mamba2-780m"
 REC_LONG, REC_STEPS, REC_CPU_LAYERS, REC_TRAIN_STEPS = 300, 8, 2, 3
 REC_K2_WIDTHS = (1,) + FAM_K2_WIDTHS
 REC_PIECE_ROWS = 8
+# phase 14: seamless-m4t-medium (ENC_BATCH requests of ENC_FRAMES frames and
+# ENC_PROMPT tokens; a prefill of ENC_PROMPT then ENC_STEPS decode steps
+# against one forward; ENC_CPU_LAYERS + ENC_CPU_LAYERS layers against the
+# CPU) and pixtral-12b (VLM_BATCH requests of its 1,024 patches and
+# VLM_PROMPT tokens), each SERVE_NEW greedy tokens.  pixtral's fp32 check
+# runs at full depth when its reckoned peak (VLM_ACT_BYTES for activations)
+# stays under VLM_PEAK_GIB, else at VLM_CUT_LAYERS layers
+ENC_ARCH, VLM_ARCH = "seamless-m4t-medium", "pixtral-12b"
+ENC_BATCH, ENC_FRAMES, ENC_PROMPT, ENC_MAX_SEQ = 4, 512, 16, 64
+ENC_STEPS, ENC_CPU_LAYERS, ENC_TRAIN_STEPS = 8, 2, 3
+VLM_BATCH, VLM_PROMPT = 2, 64
+VLM_PEAK_GIB, VLM_ACT_BYTES, VLM_CUT_LAYERS = 72, 4 * 2**30, 8
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -463,6 +506,7 @@ def greedy_trace(model, tokens, s_max: int, n_new: int, vocab: int):
 
 
 def main() -> int:
+    t_all = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -492,7 +536,8 @@ def main() -> int:
     from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tfm
     from repro_torch.models import model_spec
-    from repro_torch.models.spec import P, count_params, init_from_spec
+    from repro_torch.models.spec import (P, count_params, init_from_spec,
+                                         spec_leaves)
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.obs import export as obs_export
@@ -3045,6 +3090,442 @@ def main() -> int:
     log(f"recurrent mamba2 in {time.perf_counter() - t0:.1f} s")
     log(f"phase 13 in {time.perf_counter() - t13:.1f} s")
 
+    # ---- 14. the encoder-decoder family and the vision frontend at
+    # published width and depth, the RgCSR FFN through K2: seamless-m4t-
+    # medium (its encoder's FFNs too) and pixtral-12b, served as the
+    # reference serves them (Engine._prefill with the frames or patches,
+    # then _sample and _decode per token)
+    def frontend_batch(cfg, b, prompt, seed, frames=0):
+        """``prompt`` random tokens per request and the frontend's input
+        from ``seed``: ``frames`` (b, frames, d_frontend) for the encoder,
+        or ``patch_embeds`` (b, frontend_tokens, d_frontend)."""
+        r = np.random.default_rng(seed)
+        out = {"tokens": r.integers(0, cfg.vocab, (b, prompt)).astype(
+            np.int32)}
+        shape = (b, frames if cfg.enc_dec else cfg.frontend_tokens,
+                 cfg.d_frontend)
+        out["frames" if cfg.enc_dec else "patch_embeds"] = \
+            r.standard_normal(shape).astype(np.float32)
+        return {k: torch.from_numpy(v).to(dev) for k, v in out.items()}
+
+    def serve_frontend(eng, batch, n_new, trace=False):
+        """Greedy tokens (B, n_new) through ``eng._prefill(batch)``, then
+        ``_sample`` and ``_decode`` per token (the reference's
+        ``test_encdec_generate``); with ``trace`` per step the smallest
+        top-2 margin over the batch and the largest |logit|."""
+        vocab_ = eng.model.cfg.vocab
+        toks, margins_, peaks_ = [], [], []
+        with torch.inference_mode():
+            logits, caches_ = eng._prefill(batch)
+            for i in range(n_new):
+                if trace:
+                    last = logits[:, -1, :vocab_].float()
+                    top2 = torch.topk(last, 2, dim=-1).values
+                    margins_.append((top2[:, 0] - top2[:, 1]).min().item())
+                    peaks_.append(last.abs().max().item())
+                tok_ = eng._sample(logits)[:, None]
+                toks.append(tok_)
+                if i + 1 < n_new:
+                    logits, caches_ = eng._decode(caches_, tok_)
+        return torch.cat(toks, 1).cpu().numpy(), margins_, peaks_
+
+    def frontend_against(eng_a, eng_b, batch, what):
+        """fp32: prefill logits of two engines within LOGIT_TOL · (1 +
+        max|logit|), ``eng_a``'s greedy tokens against ``eng_b``'s under
+        the margin rule."""
+        vocab_ = eng_b.model.cfg.vocab
+        with torch.inference_mode():
+            la, lb = (e._prefill(batch)[0][..., :vocab_].float()
+                      for e in (eng_a, eng_b))
+        peak_ = lb.abs().max().item()
+        err_ = (la - lb).abs().max().item()
+        ok_ = bool(torch.isfinite(la).all()) and \
+            err_ <= LOGIT_TOL * (1 + peak_)
+        got_ = serve_frontend(eng_a, batch, SERVE_NEW)[0]
+        want_, margins_, peaks_ = serve_frontend(eng_b, batch, SERVE_NEW,
+                                                 trace=True)
+        close_ = [i for i, (m, p) in enumerate(zip(margins_, peaks_))
+                  if m < MARGIN_TOL * p]
+        upto = close_[0] if close_ else SERVE_NEW
+        same_ = bool((got_[:, :upto] == want_[:, :upto]).all())
+        log(f"{what}: prefill logits max_abs_err {err_:.3e}, max|logit| "
+            f"{peak_:.3f} (tol {LOGIT_TOL:g} · (1 + max|logit|)) "
+            f"{'ok' if ok_ else 'FAIL'}; greedy tokens identical through "
+            f"step {upto} of {SERVE_NEW}: {same_} (smallest top-2 margin "
+            f"{min(margins_):.3e}; all steps identical: "
+            f"{bool((got_ == want_).all())})")
+        if not ok_:
+            failures.append(f"{what}: prefill logits")
+        if not same_:
+            failures.append(f"{what}: greedy tokens")
+
+    def dense_w_out(tree_, layers_, key):
+        """``tree_`` with the ``key`` stack's (``"layers"`` or
+        ``"encoder"``) ``w_out`` as its dense equivalent; every other
+        tensor shared."""
+        return dict(tree_, **{key: [
+            dict(layer, ffn=dict(layer["ffn"], w_out={
+                "kernel": dense_equivalent(lay).T.contiguous()}))
+            for layer, lay in zip(tree_[key], layers_, strict=True)]})
+
+    def rewound(caches_, index_):
+        """Caches whose every position index is ``index_`` (a decoder
+        layer's in its ``self`` cache): a timed decode step never runs
+        past the cache."""
+        return [dict(c, self=dict(c["self"], index=index_)) if "self" in c
+                else dict(c, index=index_) for c in caches_]
+
+    def frontend_main_path(eng, batch, k2_layers, want_counts, want_widths,
+                           what):
+        """K2's launches over one ``serve_frontend`` run (a warm-up run
+        first), counted by width; returns (tokens, counts, widths)."""
+        warm = serve_frontend(eng, batch, SERVE_NEW)[0]        # warm-up
+        widths.clear()
+        hooks_ = [lay.register_forward_pre_hook(count_width)
+                  for lay in k2_layers]
+        reset_launch_counts()
+        out_ = serve_frontend(eng, batch, SERVE_NEW)[0]
+        torch.cuda.synchronize()
+        counts_ = launch_counts()
+        for h in hooks_:
+            h.remove()
+        builds_ = {lay.plan_builds for lay in k2_layers}
+        ok_ = (counts_ == want_counts and dict(widths) == want_widths
+               and builds_ == {1} and bool((out_ == warm).all())
+               and bool(((out_ >= 0)
+                         & (out_ < eng.model.cfg.vocab)).all()))
+        log(f"{what} main path: _prefill + {SERVE_NEW - 1} x (_sample, "
+            f"_decode), {out_.shape[0]} requests: launch counts {counts_} "
+            f"(want {want_counts}), K2 calls by width {dict(widths)} (want "
+            f"{want_widths}), plan builds per layer {sorted(builds_)}, the "
+            f"warm-up's tokens again: {bool((out_ == warm).all())} "
+            f"{'ok' if ok_ else 'FAIL'}")
+        if not ok_:
+            failures.append(f"{what}: launches, widths or tokens")
+        return out_, counts_, dict(widths)
+
+    def frontend_times(eng, batch, out_, what):
+        """bf16: what a caller waits for ``_prefill`` (median of 3) and
+        per decode step of a ``serve_frontend`` run, the card's busy time
+        of each (``torch.profiler``) and K2's share."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        serve_frontend(eng, batch, SERVE_NEW)
+        torch.cuda.synchronize()
+        run_ms = (time.perf_counter() - t) * 1e3
+        walls = []
+        with torch.inference_mode():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, caches_ = eng._prefill(batch)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            pre = float(np.median(walls))
+            dec = (run_ms - pre) / (SERVE_NEW - 1)
+            b_, n_ = batch["tokens"].shape
+            front = (f"{batch['frames'].shape[1]} frames" if "frames" in batch
+                     else f"{batch['patch_embeds'].shape[1]} patches")
+            finite = bool(torch.isfinite(
+                logits[..., :eng.model.cfg.vocab]).all())
+            log(f"{what}: prefill {pre:.3f} ms for a caller ({b_} requests "
+                f"of {front} and {n_} tokens), {SERVE_NEW} tokens in "
+                f"{run_ms:.3f} ms, decode {dec:.3f} ms per token, "
+                f"{b_ * SERVE_NEW / run_ms * 1e3:.1f} tokens/s; prefill "
+                f"logits finite: {finite} {tag}")
+            if not finite:
+                failures.append(f"{what}: prefill logits not finite")
+            tok_ = torch.from_numpy(out_[:, :1]).to(dev)
+            first = caches_[0]
+            index_ = (first["self"] if "self" in first else first)[
+                "index"].clone()
+
+            def step_():
+                eng._decode(rewound(caches_, index_), tok_)
+
+            step_wait_ = ms(step_, 5)
+            profile_line(f"{what} prefill", lambda: eng._prefill(batch), 2,
+                         pre)
+            profile_line(f"{what} decode step", step_, 5, step_wait_)
+        return pre, dec
+
+    def frontend_k2(lay, widths_, arch, launches):
+        """K2 on ``lay``'s kept plan against its plain version at each of
+        ``widths_`` (fp32, bf16, and fp32 with the split forced at
+        REC_PIECE_ROWS-row pieces), then timed at the widths the main path
+        ran (``launches``: width -> its launches there)."""
+        plan_ = lay.plan_for(torch.bfloat16)
+        name_ = arch.split("-")[0]
+        for d in widths_:
+            xw = torch.from_numpy(rng.standard_normal(
+                (lay.d_in, d)).astype(np.float32)).to(dev)
+            k2_check(f"{name_} w_out d{d} fp32 (kept plan)", plan_, xw)
+            k2_check(f"{name_} w_out d{d} bf16 (kept plan)", plan_, xw,
+                     torch.bfloat16, BF16_TOL, key=f"{name_} w_out d{d}")
+            k2_check(f"{name_} w_out d{d} fp32 pieces{REC_PIECE_ROWS} "
+                     f"(kept plan)", plan_, xw, piece_rows=REC_PIECE_ROWS)
+        for d, n in sorted(launches.items()):
+            entries.append(k2_serving_entry(
+                lay, d, n, errs[("rgcsr_spmm", f"{name_} w_out d{d}")],
+                arch=arch))
+
+    # (a) seamless-m4t-medium with the RgCSR FFN
+    t0 = t14 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"encdec: held from the earlier phases: {live_cuda()}")
+    torch.cuda.reset_peak_memory_stats()
+    s_cfg = dataclasses.replace(get_config(ENC_ARCH),
+                                sparsity=SparsityConfig(**SERVE_SPARSITY))
+    n_dec, n_enc = s_cfg.n_layers, s_cfg.n_enc_layers
+    s_tree = init_params(s_cfg, torch.Generator(device=dev).manual_seed(SEED))
+    s_sc = ServeConfig(max_seq=ENC_MAX_SEQ)
+    s32 = dataclasses.replace(s_cfg, dtype="float32",
+                              kv_cache_dtype="float32")
+    eng32 = Engine(s32, s_sc, params=s_tree, device=dev)
+    enc_layers = [b.ffn.w_out for b in eng32.model.encoder]
+    dec_layers = [b.ffn.w_out for b in eng32.model.layers]
+    n_float = sum(t.numel() for t in eng32.model.tensors().values()
+                  if t.is_floating_point())
+    log(f"encdec: {s_cfg.name} {n_enc} encoder + {n_dec} decoder layers, "
+        f"d_model {s_cfg.d_model}, {s_cfg.n_heads} heads of "
+        f"{s_cfg.head_dim}, {s_cfg.activation} gated d_ff {s_cfg.d_ff}, vocab "
+        f"{s_cfg.vocab} (padded {s_cfg.padded_vocab}), frontend "
+        f"{s_cfg.d_frontend} -> {s_cfg.d_model}: "
+        f"{count_params(model_spec(get_config(ENC_ARCH)))} parameters "
+        f"counted dense, {eng32.model.n_params()} with w_out in RgCSR "
+        f"({n_float} floats; {dec_layers[0].values2d.shape[0]} slot rows of "
+        f"{dec_layers[0].values2d.shape[1]} lanes); {eng32.plans_warmed} "
+        f"plans warmed (want {n_enc + n_dec}); "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if eng32.plans_warmed != n_enc + n_dec:
+        failures.append(f"encdec: {eng32.plans_warmed} plans warmed, want "
+                        f"{n_enc + n_dec}")
+    s_batch = frontend_batch(s_cfg, ENC_BATCH, ENC_PROMPT, SEED + 22,
+                             frames=ENC_FRAMES)
+    # float32 (the caches too): K2 against every w_out as its dense
+    # equivalent, encoder's included; then prefill + decode against one
+    # forward over the same tokens and frames
+    t1 = time.perf_counter()
+    dense_tree = dense_w_out(dense_w_out(s_tree, dec_layers, "layers"),
+                             enc_layers, "encoder")
+    eng32d = Engine(dataclasses.replace(s32, sparsity=SparsityConfig()),
+                    s_sc, params=dense_tree, device=dev)
+    frontend_against(eng32, eng32d, s_batch,
+                     "encdec seamless fp32, K2 vs dense w_out")
+    del eng32d, dense_tree
+    long_batch = frontend_batch(s_cfg, ENC_BATCH, ENC_PROMPT + ENC_STEPS,
+                                SEED + 23, frames=ENC_FRAMES)
+    with torch.inference_mode():
+        model = eng32.model
+        full = model(long_batch)[0][:, ENC_PROMPT - 1:, :s_cfg.vocab]
+        logits, caches = model.prefill(dict(long_batch, tokens=long_batch[
+            "tokens"][:, :ENC_PROMPT]), ENC_MAX_SEQ)
+        got = [logits[:, -1, :s_cfg.vocab]]
+        for i in range(ENC_PROMPT, ENC_PROMPT + ENC_STEPS):
+            logits, caches = model.decode_step(
+                caches, long_batch["tokens"][:, i:i + 1])
+            got.append(logits[:, -1, :s_cfg.vocab])
+    got, full = torch.stack(got, 1).float(), full.float()
+    err = ((got - full).abs().max() / (1 + full.abs().max())).item()
+    ok = bool(torch.isfinite(got).all()) and err <= LOGIT_TOL
+    log(f"encdec seamless fp32: a prefill of {ENC_PROMPT} tokens and "
+        f"{ENC_STEPS} decode steps against one forward over "
+        f"{ENC_PROMPT + ENC_STEPS} ({ENC_FRAMES} frames each): largest "
+        f"|step - forward| / (1 + max|logit|) {err:.3e} (tol "
+        f"{LOGIT_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("encdec seamless: prefill + decode against a "
+                        "forward")
+    del eng32, model, caches, logits, got, full, long_batch
+    # two encoder and two decoder layers at full width: the card against
+    # the port's CPU run on the same weights (one request)
+    cfg2 = dataclasses.replace(s32, n_layers=ENC_CPU_LAYERS,
+                               n_enc_layers=ENC_CPU_LAYERS)
+    tree2 = init_params(cfg2, torch.Generator(device=dev).manual_seed(SEED))
+    one = {k: v[:1] for k, v in s_batch.items()}
+    outs = []
+    for device_ in (dev, torch.device("cpu")):
+        model = LanguageModel(cfg2, tree_to(tree2, device_))
+        with torch.inference_mode():
+            logits, caches = model.prefill(tree_to(one, device_),
+                                           ENC_MAX_SEQ)
+            step_logits, _ = model.decode_step(
+                caches, tree_to(one["tokens"][:, :1], device_))
+        outs.append([v[..., :s_cfg.vocab].float().cpu()
+                     for v in (logits, step_logits)])
+    worst = max((g - w).abs().max().item() / (1 + w.abs().max().item())
+                for g, w in zip(*outs))
+    ok = worst <= LOGIT_TOL
+    log(f"encdec seamless fp32, {ENC_CPU_LAYERS} + {ENC_CPU_LAYERS} layers "
+        f"at full width: the card against the port's CPU run on the same "
+        f"weights, prefill ({ENC_FRAMES} frames, {ENC_PROMPT} tokens) and "
+        f"one decode step: largest |card - cpu| / (1 + max|logit|) "
+        f"{worst:.3e} (tol {LOGIT_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("encdec seamless: the card against the CPU")
+    del tree2, model, outs, caches, logits, step_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"encdec seamless fp32 checks in {time.perf_counter() - t1:.1f} s")
+
+    # the main path, bfloat16: K2 in every encoder and decoder layer
+    engine = Engine(s_cfg, s_sc, params=s_tree, device=dev)
+    enc_layers = [b.ffn.w_out for b in engine.model.encoder]
+    dec_layers = [b.ffn.w_out for b in engine.model.layers]
+    want_counts = {"rgcsr_spmv": 0,
+                   "rgcsr_spmm": n_enc + n_dec * SERVE_NEW, "ell_spmv": 0}
+    want_widths = {ENC_BATCH * ENC_FRAMES: n_enc,
+                   ENC_BATCH * ENC_PROMPT: n_dec,
+                   ENC_BATCH: n_dec * (SERVE_NEW - 1)}
+    out, s_counts, s_widths = frontend_main_path(
+        engine, s_batch, enc_layers + dec_layers, want_counts, want_widths,
+        "encdec seamless bf16")
+    frontend_times(engine, s_batch, out, "encdec seamless bf16")
+    log(f"encdec seamless bf16: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated with the compute-dtype copies, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB so far {tag}")
+    frontend_k2(dec_layers[0], (1, ENC_BATCH, ENC_BATCH * ENC_PROMPT,
+                                ENC_BATCH * ENC_FRAMES), ENC_ARCH,
+                s_widths)
+    torch.cuda.synchronize()
+    log(f"encdec seamless serving peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+    del engine, s_tree, enc_layers, dec_layers, s_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # three AdamW steps through the launcher (frames and tokens), bf16
+    t1 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tr, state = launch_train.main([
+        "--arch", ENC_ARCH, "--sparse-ffn", "--steps", str(ENC_TRAIN_STEPS),
+        "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--device",
+        str(dev)])
+    torch.cuda.synchronize()
+    hist = tr.history
+    ok = (len(hist) == ENC_TRAIN_STEPS and tr.model.device.type == "cuda"
+          and tr.model.encoder is not None
+          and all(np.isfinite([h[k] for h in hist for k in ("ce", "loss",
+                                                             "grad_norm")])))
+    for h in hist:
+        log(f"encdec seamless train step {h['step']}: loss {h['loss']:.4f}, "
+            f"grad_norm {h['grad_norm']:.4f}, {h['step_time_s'] * 1e3:.1f} "
+            f"ms host (ending in a synchronize) {tag}")
+    log(f"encdec seamless train: {ENC_TRAIN_STEPS} AdamW steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} frames and tokens, --sparse-ffn, bf16 "
+        f"compute, fp32 parameters: all finite {ok}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failures.append("encdec seamless train: losses not finite")
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"encdec seamless in {time.perf_counter() - t0:.1f} s")
+
+    # (b) pixtral-12b with the RgCSR FFN.  Its memory plan, reckoned from
+    # the spec before anything is allocated: float32 parameters, int32
+    # columns, the bf16 copies the bf16 engine casts, and the fp32 check's
+    # dense-equivalent w_out; the fp32 check runs first, before any cast
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p_cfg = dataclasses.replace(get_config(VLM_ARCH),
+                                sparsity=SparsityConfig(**SERVE_SPARSITY))
+    n_p = p_cfg.n_layers
+    leaves = list(spec_leaves(model_spec(p_cfg)))
+    floats = sum(int(np.prod(p.shape)) for p in leaves if p.dtype is None)
+    ints = sum(int(np.prod(p.shape)) for p in leaves if p.dtype is not None)
+    dense_eq = n_p * p_cfg.d_ff * p_cfg.d_model * 4
+    held = torch.cuda.memory_allocated()
+    fp32_need = held + floats * 4 + ints * 4 + dense_eq + VLM_ACT_BYTES
+    bf16_need = held + floats * 4 + ints * 4 + floats * 2 + VLM_ACT_BYTES
+    cut = fp32_need > VLM_PEAK_GIB * 2**30
+    log(f"encdec pixtral memory plan: {held / 2**30:.2f} GiB held from the "
+        f"earlier phases; {floats} float parameters ({floats * 4 / 2**30:.2f} "
+        f"GiB in fp32), {ints} int32 structure entries "
+        f"({ints * 4 / 2**30:.2f} GiB), bf16 copies up to "
+        f"{floats * 2 / 2**30:.2f} GiB, the fp32 check's dense-equivalent "
+        f"w_out {dense_eq / 2**30:.2f} GiB, {VLM_ACT_BYTES / 2**30:.1f} GiB "
+        f"for activations: fp32 check {fp32_need / 2**30:.2f} GiB, bf16 "
+        f"serving {bf16_need / 2**30:.2f} GiB (limit {VLM_PEAK_GIB} GiB): "
+        f"the fp32 check at "
+        f"{f'{VLM_CUT_LAYERS} layers (cut)' if cut else 'full depth'}")
+    p_tree = init_params(p_cfg, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"encdec: {p_cfg.name} {n_p} layers, d_model {p_cfg.d_model}, "
+        f"{p_cfg.n_heads}/{p_cfg.n_kv_heads} heads of {p_cfg.head_dim}, "
+        f"{p_cfg.activation} gated d_ff {p_cfg.d_ff}, vocab {p_cfg.vocab}, "
+        f"frontend_proj {p_cfg.d_frontend} -> {p_cfg.d_model} over "
+        f"{p_cfg.frontend_tokens} patches: "
+        f"{count_params(model_spec(get_config(VLM_ARCH)))} parameters "
+        f"counted dense, {floats + ints} with w_out in RgCSR; init in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    p_batch = frontend_batch(p_cfg, VLM_BATCH, VLM_PROMPT, SEED + 24)
+    p_sc = ServeConfig(max_seq=p_cfg.frontend_tokens + VLM_PROMPT
+                       + SERVE_NEW)
+    # float32 (the caches too): K2 against the dense-equivalent w_out
+    t1 = time.perf_counter()
+    p32 = dataclasses.replace(p_cfg, dtype="float32", kv_cache_dtype="float32")
+    c_tree = p_tree
+    if cut:
+        p32 = dataclasses.replace(p32, n_layers=VLM_CUT_LAYERS)
+        c_tree = dict(p_tree, layers=p_tree["layers"][:VLM_CUT_LAYERS])
+    eng32 = Engine(p32, p_sc, params=c_tree, device=dev)
+    eng32d = Engine(dataclasses.replace(p32, sparsity=SparsityConfig()),
+                    p_sc, params=dense_w_out(c_tree, [
+                        b.ffn.w_out for b in eng32.model.layers], "layers"),
+                    device=dev)
+    torch.cuda.synchronize()
+    log(f"encdec pixtral fp32: {p32.n_layers} layers, with the "
+        f"dense-equivalent w_out {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated")
+    frontend_against(eng32, eng32d, p_batch,
+                     f"encdec pixtral fp32 ({p32.n_layers} layers), K2 vs "
+                     f"dense w_out")
+    del eng32, eng32d, c_tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"encdec pixtral fp32 check in {time.perf_counter() - t1:.1f} s; "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+    # the main path, bfloat16, full depth
+    engine = Engine(p_cfg, p_sc, params=p_tree, device=dev)
+    p_layers = [b.ffn.w_out for b in engine.model.layers]
+    if engine.plans_warmed != n_p:
+        failures.append(f"encdec pixtral: {engine.plans_warmed} plans "
+                        f"warmed, want {n_p}")
+    n_seq = p_cfg.frontend_tokens + VLM_PROMPT
+    want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_p * SERVE_NEW,
+                   "ell_spmv": 0}
+    want_widths = {VLM_BATCH * n_seq: n_p,
+                   VLM_BATCH: n_p * (SERVE_NEW - 1)}
+    out, p_counts, p_widths = frontend_main_path(
+        engine, p_batch, p_layers, want_counts, want_widths,
+        "encdec pixtral bf16")
+    frontend_times(engine, p_batch, out, "encdec pixtral bf16")
+    log(f"encdec pixtral bf16: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated with the compute-dtype copies, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}")
+    # K2 on layer 0 alone, the rest of the model freed first: the split
+    # forced at 8-row pieces at d = 2,176 writes 17,920 partial tiles
+    # (18.6 GiB of fp32 workspace)
+    lay = p_layers[0]
+    del engine, p_tree, p_layers, p_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    frontend_k2(lay, (1, VLM_BATCH, VLM_BATCH * n_seq), VLM_ARCH, p_widths)
+    torch.cuda.synchronize()
+    log(f"encdec pixtral K2 checks and times: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}; "
+        f"pixtral in {time.perf_counter() - t0:.1f} s")
+    del lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 in {time.perf_counter() - t14:.1f} s")
+
+
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:
             failures.append(f"{kernel} was not launched on the main path")
@@ -3052,6 +3533,7 @@ def main() -> int:
         for f in failures:
             print(f"chip_smoke: FAIL: {f}", file=sys.stderr)
         return 1
+    log(f"all phases in {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": entries}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 """Attention: grouped-query (GQA/MHA/MQA) and multi-head latent (MLA),
-with dense and paged KV caches.
+with dense and paged KV caches, and cross-attention.
 
-The PyTorch counterpart of ``repro.models.attention`` but for
-cross-attention.
+The PyTorch counterpart of ``repro.models.attention``.
 Attention is plain tensor code in the reference (no Pallas kernel), and
 plain torch here; the arithmetic mirrors the reference's — logits in
 float32, masked positions set to ``-1e30`` before the softmax,
@@ -47,8 +46,14 @@ of per-head K/V — ``{"ckv": (B, S_max, r_kv), "krope": (B, S_max, Dr),
 the block table — in ``cfg.dtype`` (the int8 KV path is GQA-only, as in
 the reference).  The same out-of-range rules hold for their writes; a
 multi-token dense write drops the positions past the slab, as JAX's
-scatter does.  Cross-attention (the encoder-decoder family) is not ported
-yet (ROADMAP queue 1, item 1: the encoder-decoder family).
+scatter does.
+
+**Cross-attention** (the encoder-decoder family's decoder) reads keys and
+values projected from the encoder's output, never roped and never
+written to a self-attention cache: :func:`gqa_apply` with
+``mode="cross"`` projects them at every call, and a serving decoder
+keeps them per layer in ``cfg.dtype`` (:func:`make_cross_cache`, once
+per request) and attends to them with :func:`cross_attend_cached`.
 """
 from __future__ import annotations
 
@@ -64,7 +69,8 @@ from repro_torch.models.spec import P
 __all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache",
            "init_gqa_paged_cache", "PageGeometry", "gqa_apply",
            "shard_attn_qkv", "GQA", "mla_spec", "init_mla_cache",
-           "init_mla_paged_cache", "mla_apply", "MLA"]
+           "init_mla_paged_cache", "mla_apply", "MLA", "make_cross_cache",
+           "cross_attend_cached"]
 
 # At/above this many kv positions a multi-token attend takes the chunked
 # online-softmax path — the same math with O(chunk²) live scores instead of
@@ -407,21 +413,31 @@ def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
 
 
 def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
-              cache=None, window: Optional[int] = None):
-    """mode: causal | full (encoder).  With ``cache``: writes the new kv
-    at cache["index"] and attends over the whole (ring) buffer.  Returns
-    (y, new_cache) — new_cache is None when no cache was passed."""
-    if mode not in ("causal", "full"):
-        raise NotImplementedError(
-            f"attention mode {mode!r} (cross-attention) is not ported yet "
-            f"(ROADMAP queue 1, item 1: the encoder-decoder family)")
+              cache=None, window: Optional[int] = None, kv_x=None):
+    """mode: causal | full (the encoder: no mask) | cross (keys and values
+    from ``kv_x``, the encoder's output; no rope, no cache).  ``causal``
+    and ``full`` rope q and k at ``positions``.  With ``cache``: writes
+    the new kv at cache["index"] and attends over the whole (ring)
+    buffer.  Returns (y, new_cache) — new_cache is None when no cache was
+    passed."""
+    if mode not in ("causal", "full", "cross"):
+        raise ValueError(f"unknown attention mode {mode!r}")
+    if (mode == "cross") != (kv_x is not None):
+        # the reference attends to x itself in "cross" mode without kv_x,
+        # and fails on a rope at no positions with kv_x in another mode
+        raise ValueError(f"attention mode {mode!r} "
+                         f"{'needs' if mode == 'cross' else 'takes no'} "
+                         f"kv_x (the encoder's output)")
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_src = x if kv_x is None else kv_x
+    t = kv_src.shape[1]
     q = layer.q(x).reshape(b, s, hq, dh)
-    k = layer.k(x).reshape(b, s, hkv, dh)
-    v = layer.v(x).reshape(b, s, hkv, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    k = layer.k(kv_src).reshape(b, t, hkv, dh)
+    v = layer.v(kv_src).reshape(b, t, hkv, dh)
+    if mode != "cross":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -458,10 +474,31 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
                 y = attend(q, k, v, mask_info=mi)
     else:
         q, k, v = shard_attn_qkv(cfg, q, k, v)
-        mi = MaskInfo(causal=mode != "full", window=window)
+        mi = MaskInfo(causal=mode == "causal", window=window)
         y = attend(q, k, v, mask_info=mi)
     y = layer.o(y.reshape(b, s, hq * dh))
     return y, new_cache
+
+
+def make_cross_cache(layer: "GQA", cfg, enc_out):
+    """A decoder layer's cross-attention keys and values from the encoder's
+    output ``enc_out`` (B, T, d), in its dtype (``cfg.dtype``), unroped:
+    (ck, cv), each (B, T, Hkv, Dh).  Made once per request, so that no
+    decode step projects the encoder's output again."""
+    b, t, _ = enc_out.shape
+    hkv, dh = cfg.n_kv_heads, cfg.head_dim
+    return (layer.k(enc_out).reshape(b, t, hkv, dh),
+            layer.v(enc_out).reshape(b, t, hkv, dh))
+
+
+def cross_attend_cached(layer: "GQA", cfg, x, ck, cv):
+    """Cross-attention of ``x`` (B, S, d) against the kept keys and values
+    of :func:`make_cross_cache`: every encoder position visible."""
+    b, s, _ = x.shape
+    hq, dh = cfg.n_heads, cfg.head_dim
+    q = layer.q(x).reshape(b, s, hq, dh)
+    y = attend(q, ck, cv, mask_info=MaskInfo(causal=False))
+    return layer.o(y.reshape(b, s, hq * dh))
 
 
 class GQA(nn.Module):

@@ -1,8 +1,20 @@
 """LanguageModel: the public model API over the layer stack.
 
-The PyTorch counterpart of ``repro.models.model`` for decoder-only text
-models.  A :class:`LanguageModel` holds its parameters (the reference
-passes a parameter tree to every call):
+The PyTorch counterpart of ``repro.models.model``.  Families
+(``cfg.family``):
+
+* decoder-only text (dense, MoE, SSM, hybrid): ``batch = {tokens,
+  labels}``;
+* ``vlm``: + ``patch_embeds (B, frontend_tokens, d_frontend)`` — the ViT
+  frontend is a stub (precomputed patch embeddings); patches are
+  projected (``frontend_proj``) and prepended to the text, and the loss
+  skips their positions;
+* ``audio``: encoder-decoder — + ``frames (B, S, d_frontend)``, the
+  (stubbed) speech frontend's output, projected and run through the
+  encoder stack; every decoder layer cross-attends to its output.
+
+A :class:`LanguageModel` holds its parameters (the reference passes a
+parameter tree to every call):
 
 * ``spec()`` / ``init(generator)`` — the parameter spec and a tree of
   tensors drawn from it (also :func:`model_spec` / :func:`init_params`,
@@ -13,26 +25,29 @@ passes a parameter tree to every call):
   reference's coefficients; differentiable once the parameters take
   gradients (``requires_grad_(True)``).
 * ``tensors()``                     — every parameter and buffer by name.
-* ``prefill(batch, s_max)``         — last-position logits + filled caches.
+* ``prefill(batch, s_max)``         — last-position logits + filled caches
+  (a decoder layer's cache also holds its cross keys and values).
 * ``decode_step(caches, tokens)``   — one token; the serving step.
 
 Parameter tree (the port's layout)::
 
     {"embed": {"table"}, "final_norm": {"scale"},
      "layers": [block tree, one per layer], ["lm_head": {"kernel"}],
+     ["frontend_proj": {"kernel"}],
+     ["encoder": [block tree, one per encoder layer], "enc_norm"],
      ["mtp": {"proj", "norm_h", "norm_e", "block"}]}
 
 :func:`params_from_numpy` builds it from the reference's tree, which stacks
-the body layers on a leading axis; :func:`reference_layout` and
-:func:`port_layout` carry any tree of per-tensor leaves (parameters,
-optimizer moments) between ``tensors()``'s names and that layout, for
-checkpoints both packages read; a recurrent layer's subtree (``mixer``
-for ``ssm``, ``rec`` for ``rec``) rides along as any other.  Vision and
-audio frontends and the encoder-decoder family are not ported yet
-(ROADMAP queue 1, item 1).
+the body layers (the encoder's too) on a leading axis;
+:func:`reference_layout` and :func:`port_layout` carry any tree of
+per-tensor leaves (parameters, optimizer moments) between ``tensors()``'s
+names and that layout, for checkpoints both packages read; a recurrent
+layer's subtree (``mixer`` for ``ssm``, ``rec`` for ``rec``) and a decoder
+layer's ``ln_cross`` and ``cross`` ride along as any other.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List
 
 import numpy as np
@@ -40,6 +55,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.formats import resolve_device
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import _NEG
 from repro_torch.models.layers import (Dense, Embed, RMSNorm, dense_spec,
@@ -56,22 +72,15 @@ _LB_COEF = 0.01
 _Z_COEF = 1e-4
 
 
-def _check_supported(cfg) -> None:
-    missing = []
-    if cfg.frontend != "none":
-        missing.append(f"the {cfg.frontend} frontend")
-    if cfg.enc_dec:
-        missing.append("the encoder-decoder family")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet ("
-            f"ROADMAP queue 1, item 1: the encoder-decoder family and the "
-            f"frontends)")
+def encoder_cfg(cfg):
+    """The encoder stack's config: ``cfg.n_enc_layers`` ``enc_attn``
+    layers, no prefix."""
+    return dataclasses.replace(cfg, layer_pattern=("enc_attn",),
+                               prefix_pattern=(), n_layers=cfg.n_enc_layers)
 
 
 def model_spec(cfg) -> Dict[str, Any]:
     """The parameter spec of the whole model, in the port's layout."""
-    _check_supported(cfg)
     spec: Dict[str, Any] = {
         # 1/sqrt(d) embedding init keeps tied-head logits O(1); rows padded
         # to cfg.padded_vocab (logits past cfg.vocab are masked)
@@ -83,6 +92,12 @@ def model_spec(cfg) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         spec["lm_head"] = dense_spec(cfg.d_model, cfg.padded_vocab,
                                      ("embed", "vocab"))
+    if cfg.enc_dec:
+        spec["encoder"] = tfm.stack_spec(encoder_cfg(cfg))
+        spec["enc_norm"] = rmsnorm_spec(cfg.d_model)
+    if cfg.frontend != "none" or cfg.enc_dec:
+        spec["frontend_proj"] = dense_spec(cfg.d_frontend, cfg.d_model,
+                                           ("frontend", "embed"))
     if cfg.mtp_depth:
         spec["mtp"] = {
             "proj": dense_spec(2 * cfg.d_model, cfg.d_model,
@@ -103,7 +118,7 @@ def init_params(cfg, generator: torch.Generator):
 
 
 class LanguageModel(nn.Module):
-    """A decoder-only LM holding its parameters.
+    """An LM holding its parameters (the encoder's too, for ``enc_dec``).
 
     ``params``: a parameter tree (see the module's note), e.g. from
     :func:`params_from_numpy`; its tensors are used as they are, on their
@@ -113,7 +128,6 @@ class LanguageModel(nn.Module):
 
     def __init__(self, cfg, params=None, *, device="cuda", seed: int = 0):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.dtype)
         if params is None:
@@ -126,6 +140,13 @@ class LanguageModel(nn.Module):
             for p, kind in zip(params["layers"], tfm.layer_kinds(cfg),
                                strict=True))
         self.lm_head = None if cfg.tie_embeddings else Dense(params["lm_head"])
+        self.frontend_proj = Dense(params["frontend_proj"]) \
+            if "frontend_proj" in params else None
+        self.encoder = self.enc_norm = None
+        if cfg.enc_dec:
+            self.encoder = nn.ModuleList(
+                tfm.Block(p, cfg, "enc_attn") for p in params["encoder"])
+            self.enc_norm = RMSNorm(params["enc_norm"])
         self.mtp = MTP(params["mtp"], cfg) if cfg.mtp_depth else None
 
     @property
@@ -156,7 +177,24 @@ class LanguageModel(nn.Module):
 
     # ------------------------------------------------------------- embedding
     def _embed_sequence(self, batch):
-        return self.embed.lookup(batch["tokens"], self.compute_dtype)
+        """The decoder's input: the tokens' embeddings, after the projected
+        patches for ``vlm``."""
+        x = self.embed.lookup(batch["tokens"], self.compute_dtype)
+        if self.cfg.frontend == "vision":
+            patches = self.frontend_proj(
+                batch["patch_embeds"].to(x.device, self.compute_dtype))
+            x = torch.cat([patches, x], dim=1)
+        return x
+
+    def _encode(self, frames):
+        """The encoder's output: projected frames through the encoder stack
+        (every position sees every other; train mode, as the reference
+        runs it), then ``enc_norm``."""
+        h = self.frontend_proj(frames.to(self.device, self.compute_dtype))
+        pos = rope_positions(h.shape[0], h.shape[1], device=h.device)
+        h, _, _ = tfm.stack_apply(self.encoder, encoder_cfg(self.cfg), h,
+                                  pos, mode="train", shape_kind="train")
+        return self.enc_norm(h)
 
     def _logits(self, h):
         if self.lm_head is None:
@@ -170,10 +208,12 @@ class LanguageModel(nn.Module):
     # ---------------------------------------------------------------- forward
     def forward(self, batch, *, shape_kind: str = "train", mode: str = "eval"):
         """Full-sequence forward: (logits, final hidden, aux)."""
+        enc_out = self._encode(batch["frames"]) if self.cfg.enc_dec \
+            else None
         x = self._embed_sequence(batch)
         pos = rope_positions(x.shape[0], x.shape[1], device=x.device)
         x, _, aux = tfm.stack_apply(self.layers, self.cfg, x, pos, mode=mode,
-                                    shape_kind=shape_kind)
+                                    shape_kind=shape_kind, enc_out=enc_out)
         h = self.final_norm(x)
         return self._logits(h), h, aux
 
@@ -183,12 +223,16 @@ class LanguageModel(nn.Module):
         after position ``t``; labels below 0 are masked out), plus for MoE
         models ``_LB_COEF`` · load-balance + ``_Z_COEF`` · router-z (summed
         over the MoE layers) and with MTP ``_MTP_WEIGHT`` · the MTP loss.
-        Metrics: ``ce``, ``load_balance`` and ``mtp`` where they apply,
-        ``loss``."""
+        For ``vlm`` the patches' positions carry no label.  Metrics:
+        ``ce``, ``load_balance`` and ``mtp`` where they apply, ``loss``."""
         cfg = self.cfg
         logits, h, aux = self.forward(batch, shape_kind=shape_kind,
                                       mode="train")
-        loss = _masked_ce(logits, batch["labels"])
+        labels = batch["labels"].to(logits.device)
+        if cfg.frontend == "vision":
+            pad = labels.new_full((labels.shape[0], cfg.frontend_tokens), -1)
+            labels = torch.cat([pad, labels], dim=1)
+        loss = _masked_ce(logits, labels)
         metrics = {"ce": loss}
         if cfg.moe.n_experts:
             loss = loss + _LB_COEF * aux["load_balance"] \
@@ -204,7 +248,10 @@ class LanguageModel(nn.Module):
     def _mtp_loss(self, h, batch):
         """DeepSeek-V3 multi-token prediction (depth 1): predict token
         t+2 from [norm(h_t); norm(emb(tok_{t+1}))] through one extra
-        ``attn`` block, the main model's final norm and head."""
+        ``attn`` block, the main model's final norm and head.  Zero for
+        ``vlm``, as the reference's."""
+        if self.cfg.frontend == "vision":
+            return torch.zeros((), device=h.device)
         mtp = self.mtp
         tokens, labels = batch["tokens"], batch["labels"]
         emb_next = self.embed.lookup(tokens[:, 1:], self.compute_dtype)
@@ -226,30 +273,55 @@ class LanguageModel(nn.Module):
 
     # -------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, s_max: int, *,
-                   shape_kind: str = "decode",
+                   shape_kind: str = "decode", enc_len: int = 0,
                    paging=None) -> List[Dict[str, Any]]:
         """One cache per layer: KV (dense slab, ring or pages) for
-        attention, the recurrent state for ``ssm`` and ``rec``.
-        ``paging``: optional
-        :class:`~repro_torch.models.attention.PageGeometry` — full-attention
-        layers get paged (page-pool + block-table) caches instead of dense
-        per-slot slabs."""
+        attention, the recurrent state for ``ssm`` and ``rec``, and with
+        ``enc_len`` ``{"self", "ck", "cv"}`` for ``dec_attn`` (cross keys
+        and values zeros until :meth:`prefill` fills them).  ``paging``:
+        optional :class:`~repro_torch.models.attention.PageGeometry` —
+        full-attention layers get paged (page-pool + block-table) caches
+        instead of dense per-slot slabs."""
         return [tfm.init_block_cache(self.cfg, block.kind, batch_size, s_max,
                                      shape_kind, device=self.device,
-                                     paging=paging)
+                                     paging=paging, enc_len=enc_len)
                 for block in self.layers]
 
     def prefill(self, batch, s_max: int, *, shape_kind: str = "prefill"):
-        """Run the prompt through the stack, filling fresh caches.
-        Returns (last-position logits (B, 1, V), caches)."""
+        """Run the prompt (after its patches, for ``vlm``) through the
+        stack, filling fresh caches; for ``enc_dec`` the frames through
+        the encoder first, and each decoder layer's cross keys and values
+        from its output.  Returns (last-position logits (B, 1, V),
+        caches)."""
+        enc_out, enc_len = None, 0
+        if self.cfg.enc_dec:
+            enc_out = self._encode(batch["frames"])
+            enc_len = enc_out.shape[1]
         x = self._embed_sequence(batch)
-        caches = self.init_cache(x.shape[0], s_max, shape_kind=shape_kind)
+        caches = self.init_cache(x.shape[0], s_max, shape_kind=shape_kind,
+                                 enc_len=enc_len)
+        if enc_out is not None:
+            caches = self._fill_cross_caches(caches, enc_out)
         pos = rope_positions(x.shape[0], x.shape[1], device=x.device)
         x, caches, _ = tfm.stack_apply(self.layers, self.cfg, x, pos,
                                        mode="prefill", shape_kind=shape_kind,
-                                       caches=caches)
+                                       caches=caches, enc_out=enc_out)
         h = self.final_norm(x)
         return self._logits(h[:, -1:, :]), caches
+
+    def _fill_cross_caches(self, caches, enc_out):
+        """Each decoder layer's cache with its cross keys and values made
+        from ``enc_out`` (``attention.make_cross_cache``, one layer at a
+        time where the reference maps over the stacked body); other
+        caches as they are."""
+        out = []
+        for block, cache in zip(self.layers, caches, strict=True):
+            if isinstance(cache, dict) and "ck" in cache:
+                ck, cv = attn_mod.make_cross_cache(block.cross, self.cfg,
+                                                   enc_out)
+                cache = {"self": cache["self"], "ck": ck, "cv": cv}
+            out.append(cache)
+        return out
 
     def decode_step(self, caches, tokens, *, shape_kind: str = "decode"):
         """One-token serve step. tokens: (B, 1). Returns (logits, caches);
@@ -288,12 +360,16 @@ class MTP(nn.Module):
 
 
 def _cache_index(caches):
-    """The first ``index`` (B,) among the layers' caches: all layers
-    advance in lockstep.  A stack with none (every layer recurrent, as
-    mamba2's) reads no position: zeros, as the reference's."""
+    """The first ``index`` (B,) among the layers' caches (a decoder
+    layer's is its ``self`` cache's): all layers advance in lockstep.  A
+    stack with none (every layer recurrent, as mamba2's) reads no
+    position: zeros, as the reference's."""
     for cache in caches:
-        if isinstance(cache, dict) and "index" in cache:
-            return cache["index"]
+        if isinstance(cache, dict):
+            if "index" in cache:
+                return cache["index"]
+            if "index" in cache.get("self", ()):
+                return cache["self"]["index"]
     state = next(iter(caches[0].values()))
     return torch.zeros((state.shape[0],), dtype=torch.int32,
                        device=state.device)
@@ -311,46 +387,62 @@ def _tensors(node, device, pick=lambda a: a):
     return torch.from_numpy(arr).to(device)
 
 
+def _unstack(cfg, stack, dev):
+    """One tree per layer of a stack of the reference's tree (``{"prefix",
+    "body"}``, each body leaf stacked on a leading axis of
+    ``cfg.pattern_repeats``), in its scan order."""
+    layers = [_tensors(stack["prefix"][f"{i}_{kind}"], dev)
+              for i, kind in enumerate(cfg.prefix_pattern)]
+    for r in range(cfg.pattern_repeats):
+        for i, kind in enumerate(cfg.layer_pattern):
+            layers.append(_tensors(stack["body"][f"{i}_{kind}"], dev,
+                                   lambda a, r=r: a[r]))
+    return layers
+
+
 def params_from_numpy(cfg, tree, *, device="cuda"):
     """The port's parameter tree from the reference's, as
     ``LanguageModel.init`` returns it and ``jax.device_get`` brings it to
-    numpy: ``{"embed", "final_norm", "stack": {"prefix", "body"}}``, with
-    each body layer's arrays stacked on a leading axis of
-    ``cfg.pattern_repeats``.  The only change of layout in the port: the
-    body is unstacked into one tree per layer, in the reference's scan
-    order (repeat-major, then pattern position).  Dense kernels keep the
-    reference's ``(d_in, d_out)`` layout, and the MTP subtree and the MoE
-    router's bias keep their places."""
-    _check_supported(cfg)
+    numpy: ``{"embed", "final_norm", "stack": {"prefix", "body"}}`` (and
+    ``encoder`` of the same form, ``enc_norm``, ``frontend_proj``,
+    ``lm_head``, ``mtp`` where the config has them), with each body
+    layer's arrays stacked on a leading axis of ``cfg.pattern_repeats``.
+    The only change of layout in the port: each stack's body is unstacked
+    into one tree per layer, in the reference's scan order (repeat-major,
+    then pattern position).  Dense kernels keep the reference's ``(d_in,
+    d_out)`` layout, and the MTP subtree and the MoE router's bias keep
+    their places."""
     dev = resolve_device(device)
-    extra = set(tree) - {"embed", "final_norm", "stack", "lm_head", "mtp"}
-    if extra:
-        raise NotImplementedError(f"parameters {sorted(extra)} belong to "
-                                  f"parts of the model not ported yet")
-    out = {"embed": _tensors(tree["embed"], dev),
-           "final_norm": _tensors(tree["final_norm"], dev)}
-    layers = [_tensors(tree["stack"]["prefix"][f"{i}_{kind}"], dev)
-              for i, kind in enumerate(cfg.prefix_pattern)]
-    body = tree["stack"]["body"]
-    for r in range(cfg.pattern_repeats):
-        for i, kind in enumerate(cfg.layer_pattern):
-            layers.append(_tensors(body[f"{i}_{kind}"], dev,
-                                   lambda a, r=r: a[r]))
-    out["layers"] = layers
-    for key in ("lm_head", "mtp"):
-        if key in tree:
-            out[key] = _tensors(tree[key], dev)
+    want = set(model_spec(cfg)) - {"layers"} | {"stack"}
+    if set(tree) != want:
+        raise ValueError(f"{cfg.name}: the reference's tree holds "
+                         f"{sorted(tree)}, the config asks for "
+                         f"{sorted(want)}")
+    out = {k: _tensors(v, dev) for k, v in tree.items()
+           if k not in ("stack", "encoder")}
+    out["layers"] = _unstack(cfg, tree["stack"], dev)
+    if cfg.enc_dec:
+        out["encoder"] = _unstack(encoder_cfg(cfg), tree["encoder"], dev)
     return out
 
 
-def _layer_places(cfg):
-    """Each layer's place in the reference's tree: (path, body repeat or
-    None for a prefix layer), in layer order."""
-    places = [(("stack", "prefix", f"{i}_{kind}"), None)
+def _stacks(cfg):
+    """Each layer stack: (its key in the port's tree, its key in the
+    reference's, its config)."""
+    out = [("layers", "stack", cfg)]
+    if cfg.enc_dec:
+        out.append(("encoder", "encoder", encoder_cfg(cfg)))
+    return out
+
+
+def _layer_places(cfg, root: str = "stack"):
+    """Each layer's place in the reference's tree under ``root``: (path,
+    body repeat or None for a prefix layer), in layer order."""
+    places = [((root, "prefix", f"{i}_{kind}"), None)
               for i, kind in enumerate(cfg.prefix_pattern)]
     for r in range(cfg.pattern_repeats):
         for i, kind in enumerate(cfg.layer_pattern):
-            places.append((("stack", "body", f"{i}_{kind}"), r))
+            places.append(((root, "body", f"{i}_{kind}"), r))
     return places
 
 
@@ -367,15 +459,16 @@ def reference_layout(cfg, flat: Dict[str, Any]) -> Dict[str, Any]:
     leading axis; a leaf that is 0-d in every body layer (an optimizer's
     zero for an integer buffer) stays one 0-d leaf, as the reference's
     optimizer makes it for the stacked buffer."""
-    places = _layer_places(cfg)
+    places = {port: _layer_places(scfg, ref)
+              for port, ref, scfg in _stacks(cfg)}
     tree: Dict[str, Any] = {}
     stacked: Dict[tuple, Dict[int, Any]] = {}
     for key, leaf in flat.items():
         parts = tuple(key.split("/"))
-        if parts[0] != "layers":
+        if parts[0] not in places:
             _put(tree, parts, leaf)
             continue
-        path, r = places[int(parts[1])]
+        path, r = places[parts[0]][int(parts[1])]
         if r is None:
             _put(tree, path + parts[2:], leaf)
         else:
@@ -391,10 +484,11 @@ def port_layout(cfg, tree) -> Dict[str, Any]:
     """The inverse of :func:`reference_layout`: numpy leaves keyed like
     :meth:`LanguageModel.tensors`, the body unstacked (a 0-d body leaf is
     every layer's)."""
-    places = _layer_places(cfg)
     where = {}
-    for layer, (path, r) in enumerate(places):
-        where.setdefault(path, []).append((layer, r))
+    for port, ref, scfg in _stacks(cfg):
+        for layer, (path, r) in enumerate(_layer_places(scfg, ref)):
+            where.setdefault(path, []).append((port, layer, r))
+    roots = {ref for _, ref, _ in _stacks(cfg)}
     flat: Dict[str, Any] = {}
 
     def walk(node, path):
@@ -402,12 +496,12 @@ def port_layout(cfg, tree) -> Dict[str, Any]:
             for k, v in node.items():
                 walk(v, path + (k,))
             return
-        if path[0] != "stack":
+        if path[0] not in roots:
             flat["/".join(path)] = node
             return
-        for layer, r in where[path[:3]]:
+        for port, layer, r in where[path[:3]]:
             leaf = node if r is None or np.ndim(node) == 0 else node[r]
-            flat["/".join(("layers", str(layer)) + path[3:])] = leaf
+            flat["/".join((port, str(layer)) + path[3:])] = leaf
 
     walk(tree, ())
     return flat

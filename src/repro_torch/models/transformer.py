@@ -14,8 +14,13 @@ attention per ``cfg.attn_kind``; ``ssm`` (the Mamba-2 mixer alone — no
 FFN) and ``rec`` (the RG-LRU block + FFN), whose caches are recurrent
 states (``models/recurrent.py``): a prefill returns the state at the
 prompt's end, and a decode step returns the next state, never writing
-the one it was given.  The encoder-decoder kinds raise
-``NotImplementedError`` naming their ROADMAP item.
+the one it was given; ``enc_attn`` (the encoder's bidirectional
+attention + FFN) and ``dec_attn`` (causal self-attention, then
+cross-attention to the encoder's output ``enc_out``, then the FFN).  A
+serving ``dec_attn`` layer's cache is ``{"self": its KV cache, "ck",
+"cv"}``: the cross-attention keys and values, made once per request from
+the encoder's output (``LanguageModel.prefill``); without them the layer
+needs ``enc_out``.
 """
 from __future__ import annotations
 
@@ -34,18 +39,10 @@ from repro_torch.models.moe import MoE, moe_apply, moe_spec
 __all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
            "stack_apply", "init_block_cache", "Block"]
 
-# Layer kinds that are not ported yet, and the ROADMAP item that brings them.
-_NOT_PORTED = {
-    "enc_attn": "ROADMAP queue 1, item 1: the encoder-decoder family",
-    "dec_attn": "ROADMAP queue 1, item 1: the encoder-decoder family",
-}
-_KINDS = ("attn", "attn_local", "moe", "ssm", "rec")
+_KINDS = ("attn", "attn_local", "moe", "ssm", "rec", "enc_attn", "dec_attn")
 
 
 def _check_kind(kind: str) -> None:
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet ({_NOT_PORTED[kind]})")
     if kind not in _KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
@@ -62,9 +59,9 @@ def _attn_spec(cfg):
         else attn_mod.gqa_spec(cfg)
 
 
-def _attn_apply(layer, cfg, x, positions, *, cache, window):
+def _attn_apply(layer, cfg, x, positions, *, mode, cache, window):
     fn = attn_mod.mla_apply if cfg.attn_kind == "mla" else attn_mod.gqa_apply
-    return fn(layer, cfg, x, positions, mode="causal", cache=cache,
+    return fn(layer, cfg, x, positions, mode=mode, cache=cache,
               window=window)
 
 
@@ -73,11 +70,15 @@ def block_spec(cfg, kind: str):
     d = cfg.d_model
     if kind == "ssm":                    # no FFN in Mamba-2 stacks
         return {"ln1": rmsnorm_spec(d), "mixer": rec_mod.mamba2_spec(cfg)}
-    return {"ln1": rmsnorm_spec(d),
+    spec = {"ln1": rmsnorm_spec(d),
             **({"rec": rec_mod.rglru_spec(cfg)} if kind == "rec"
-               else {"attn": _attn_spec(cfg)}),
-            "ln2": rmsnorm_spec(d),
-            "ffn": moe_spec(cfg) if kind == "moe" else ffn_spec(cfg)}
+               else {"attn": _attn_spec(cfg)})}
+    if kind == "dec_attn":
+        spec["ln_cross"] = rmsnorm_spec(d)
+        spec["cross"] = attn_mod.gqa_spec(cfg)
+    spec["ln2"] = rmsnorm_spec(d)
+    spec["ffn"] = moe_spec(cfg) if kind == "moe" else ffn_spec(cfg)
+    return spec
 
 
 def stack_spec(cfg):
@@ -98,7 +99,8 @@ class Block(nn.Module):
     """One residual block: ``ln1``, then ``attn`` (GQA or MLA), ``rec``
     (an :class:`~repro_torch.models.recurrent.RGLRU`) or, for ``ssm``,
     ``mixer`` (a :class:`~repro_torch.models.recurrent.Mamba2`, and
-    nothing after it); then ``ln2`` and ``ffn`` (an FFN, or an
+    nothing after it); for ``dec_attn`` then ``ln_cross`` and ``cross``
+    (a GQA); then ``ln2`` and ``ffn`` (an FFN, or an
     :class:`~repro_torch.models.moe.MoE` for ``moe``)."""
 
     def __init__(self, params, cfg, kind: str):
@@ -114,6 +116,9 @@ class Block(nn.Module):
         else:
             self.attn = attn_mod.MLA(params["attn"]) \
                 if cfg.attn_kind == "mla" else attn_mod.GQA(params["attn"])
+        if kind == "dec_attn":
+            self.ln_cross = RMSNorm(params["ln_cross"])
+            self.cross = attn_mod.GQA(params["cross"])
         self.ln2 = RMSNorm(params["ln2"])
         self.ffn = MoE(params["ffn"], cfg) if kind == "moe" \
             else FFN(params["ffn"], cfg)
@@ -138,21 +143,49 @@ def _recurrent_apply(block: Block, cfg, kind: str, h, *, mode: str, cache):
     return apply(layer, cfg, h, return_state=True)
 
 
+def _cross_apply(block: Block, cfg, x, cache, enc_out):
+    """A ``dec_attn`` block's cross-attention residual: against the kept
+    ``ck``/``cv`` of its cache, else against ``enc_out``."""
+    hc = block.ln_cross(x)
+    if cache is not None and "ck" in cache:
+        return x + attn_mod.cross_attend_cached(block.cross, cfg, hc,
+                                                cache["ck"], cache["cv"])
+    if enc_out is None:
+        # the reference cross-attends to the layer's own input here
+        raise ValueError("a dec_attn layer needs its cross cache (ck, cv) "
+                         "or the encoder's output (enc_out)")
+    y, _ = attn_mod.gqa_apply(block.cross, cfg, hc, None, mode="cross",
+                              kv_x=enc_out)
+    return x + y
+
+
 def block_apply(block: Block, cfg, kind: str, x, positions, *,
-                mode: str = "train", shape_kind: str = "train", cache=None):
+                mode: str = "train", shape_kind: str = "train", cache=None,
+                enc_out=None):
     """One residual block.  Returns (x, new_cache, aux); ``aux`` holds an
-    MoE block's routing terms."""
+    MoE block's routing terms.  A ``dec_attn`` block's cache is
+    ``{"self", "ck", "cv"}`` (or its self-attention cache alone, with
+    ``enc_out``)."""
     h = block.ln1(x)
     if kind in ("ssm", "rec"):
         y, new_cache = _recurrent_apply(block, cfg, kind, h, mode=mode,
                                         cache=cache)
         if kind == "ssm":
             return x + y, new_cache, {}
+        x = x + y
     else:
         window = _effective_window(cfg, kind, shape_kind)
-        y, new_cache = _attn_apply(block.attn, cfg, h, positions,
-                                   cache=cache, window=window)
-    x = x + y
+        crossed = isinstance(cache, dict) and "ck" in cache
+        y, new_cache = _attn_apply(
+            block.attn, cfg, h, positions,
+            mode="full" if kind == "enc_attn" else "causal",
+            cache=cache["self"] if crossed else cache, window=window)
+        x = x + y
+        if kind == "dec_attn":
+            x = _cross_apply(block, cfg, x, cache, enc_out)
+            if crossed:
+                new_cache = {"self": new_cache, "ck": cache["ck"],
+                             "cv": cache["cv"]}
     h2 = block.ln2(x)
     if kind == "moe":
         y2, aux = moe_apply(block.ffn, cfg, h2, dropless=mode != "train")
@@ -162,19 +195,23 @@ def block_apply(block: Block, cfg, kind: str, x, positions, *,
 
 
 def init_block_cache(cfg, kind: str, batch: int, s_max: int,
-                     shape_kind: str = "decode", device="cuda", paging=None):
+                     shape_kind: str = "decode", device="cuda", paging=None,
+                     enc_len: int = 0):
     """``paging``: an :class:`attn_mod.PageGeometry` — full-attention KV
     caches become shared page pools addressed per slot through block
     tables.  Windowed layers keep their dense rings (already O(window)
-    residency), and recurrent states are position-free: per slot, in any
-    layout."""
+    residency), recurrent states are position-free: per slot, in any
+    layout, and a ``dec_attn`` layer's self cache is never paged.  With
+    ``enc_len`` a ``dec_attn`` layer's cache is ``{"self", "ck", "cv"}``,
+    the cross keys and values zeros of (batch, enc_len, Hkv, Dh) in
+    ``cfg.dtype``, filled by ``LanguageModel.prefill``."""
     _check_kind(kind)
     if kind == "ssm":
         return rec_mod.init_mamba2_state(cfg, batch, device=device)
     if kind == "rec":
         return rec_mod.init_rglru_state(cfg, batch, device=device)
     window = _effective_window(cfg, kind, shape_kind)
-    paged = paging is not None and not window
+    paged = paging is not None and not window and kind != "dec_attn"
     if cfg.attn_kind == "mla":
         if paged:
             return attn_mod.init_mla_paged_cache(cfg, batch, paging,
@@ -184,7 +221,14 @@ def init_block_cache(cfg, kind: str, batch: int, s_max: int,
     if paged:
         return attn_mod.init_gqa_paged_cache(cfg, batch, paging,
                                              device=device)
-    return attn_mod.init_gqa_cache(cfg, batch, s_max, window, device=device)
+    cache = attn_mod.init_gqa_cache(cfg, batch, s_max, window, device=device)
+    if kind == "dec_attn" and enc_len:
+        shape = (batch, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        dt = getattr(torch, cfg.dtype)
+        cache = {"self": cache,
+                 "ck": torch.zeros(shape, dtype=dt, device=device),
+                 "cv": torch.zeros(shape, dtype=dt, device=device)}
+    return cache
 
 
 def _remat(cfg, fn):
@@ -206,14 +250,15 @@ def _remat(cfg, fn):
 
 def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
                 shape_kind: str = "train",
-                caches: Optional[List[Dict[str, Any]]] = None):
+                caches: Optional[List[Dict[str, Any]]] = None, enc_out=None):
     """Run every layer in order.  Returns (x, new_caches, aux_sums):
     ``aux_sums`` holds ``load_balance`` and ``router_z`` summed over the
     MoE layers, in layer order, as the reference sums them (never
     averaged; ``expert_fraction`` is not summed).  ``caches`` is one cache
     per layer (or None).  Without caches, each repeat of ``layer_pattern``
     after the prefix runs under ``cfg.remat`` (the reference's scanned
-    period body)."""
+    period body).  ``enc_out``: the encoder's output, which the
+    ``dec_attn`` layers without a cross cache attend to."""
     keys = ("load_balance", "router_z")
     new_caches = [] if caches is not None else None
     n_prefix, period = len(cfg.prefix_pattern), len(cfg.layer_pattern)
@@ -227,7 +272,8 @@ def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
             for i in range(lo, hi):
                 x, _, aux = block_apply(layers[i], cfg, layers[i].kind, x,
                                         positions, mode=mode,
-                                        shape_kind=shape_kind)
+                                        shape_kind=shape_kind,
+                                        enc_out=enc_out)
                 sums = add(sums, aux)
             return (x, *sums)
         return body
@@ -241,7 +287,7 @@ def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
     for i, block in enumerate(layers):
         x, new_cache, aux = block_apply(
             block, cfg, block.kind, x, positions, mode=mode,
-            shape_kind=shape_kind, cache=caches[i])
+            shape_kind=shape_kind, cache=caches[i], enc_out=enc_out)
         sums = add(sums, aux)
         new_caches.append(new_cache)
     return x, new_caches, dict(zip(keys, sums))

@@ -35,6 +35,15 @@ stack with none paged (mamba2; recurrentgemma, whose attention layers are
 windowed rings) keeps the allocator's host-side accounting and
 preemption exactly as the reference does, with no pool on the card.
 
+The encoder-decoder family (seamless-m4t-medium) and the vision
+frontend (pixtral-12b) need ``frames`` or ``patch_embeds`` beside the
+tokens: they are served as the reference serves them, by
+``_prefill(batch)`` with the whole batch, then ``_decode(caches, tok)``
+and ``_sample(logits)`` per token (a decoder layer's cache carries its
+cross keys and values).  ``generate`` and the sessions take tokens only,
+so they raise a ``ValueError`` for those configs, where the reference's
+fail on the missing key.
+
 With an RgCSR FFN (``cfg.sparsity.enabled``, ``impl="kernel"``) every
 layer's ``w_out`` product runs through K2 — in each prefill and in every
 decode step, captured ones included — and ``Engine.__init__`` builds each
@@ -337,6 +346,18 @@ class Engine:
                 "plans_warmed": self.plans_warmed,
                 "spmv_plans_warmed": self.spmv_plans_warmed}
 
+    def _check_tokens_only(self, what: str) -> None:
+        """``what`` passes prompts as tokens alone: refuse a config whose
+        prefill needs frames or patches."""
+        cfg = self.model.cfg
+        if cfg.enc_dec or cfg.frontend != "none":
+            need = "frames (the encoder's input)" if cfg.enc_dec \
+                else "patch_embeds (the vision frontend's input)"
+            raise ValueError(
+                f"{cfg.name}: {what} takes prompts as tokens alone, and this "
+                f"config's prefill needs {need}; serve it through "
+                f"_prefill(batch), _decode(caches, tok) and _sample(logits)")
+
     # ---------------------------------------------------------------- steps
     def _prefill(self, batch):
         return self.model.prefill(batch, self.cfg.max_seq)
@@ -367,6 +388,7 @@ class Engine:
         Without ``eos_id`` the host never waits for the card before the
         end.
         """
+        self._check_tokens_only("generate")
         prompts = np.asarray(prompts, np.int32)
         b, s = prompts.shape
         if s + max_new_tokens - 1 > self.cfg.max_seq:
@@ -405,7 +427,10 @@ class Engine:
         at any time, ``step(k)`` runs up to ``k`` decode steps (admissions,
         deadline sweeps and completions happen at chunk boundaries), and
         ``drain()`` runs to quiescence.  The session takes over this
-        engine's serving state (see the module's note)."""
+        engine's serving state (see the module's note).  A config whose
+        prefill needs frames or patches raises ``ValueError``: a session
+        admits tokens only."""
+        self._check_tokens_only("a serving session")
         injector = fault_injector if fault_injector is not None \
             else self.fault_injector
         return EngineSession(self, requests or [], injector)

@@ -342,7 +342,9 @@ def commit_prefill(caches, slot_cache, slot: int, length: int,
     and take the whole table; a recurrent layer's state (conv tail and
     SSM or LRU state) is installed whole, so nothing of the slot's last
     request survives; every other layer (dense slab, ring) copies the
-    batch-1 cache into its slot row, index included.  In dense mode pass
+    batch-1 cache into its slot row, index included; a decoder layer's
+    ``{"self", "ck", "cv"}`` commits its self cache so and copies the cross
+    keys and values into the slot.  In dense mode pass
     ``table=None`` — no paged layer exists (a stack with no paged layer
     ignores the table)."""
     page_ids = offs = table_dev = None
@@ -356,6 +358,10 @@ def commit_prefill(caches, slot_cache, slot: int, length: int,
         offs = torch.from_numpy((pos % page_size).astype(np.int64)).to(dev)
         table_dev = torch.from_numpy(np.asarray(table, np.int32)).to(dev)
     for full, one in zip(caches, slot_cache, strict=True):
+        if "self" in full:                  # dec_attn: self + cross k/v
+            for key in ("ck", "cv"):
+                full[key][slot].copy_(one[key][0])
+            full, one = full["self"], one["self"]
         if _paged(full):
             for key in _POOL_KEYS:
                 if key in full:

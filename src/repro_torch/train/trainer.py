@@ -97,7 +97,10 @@ class Trainer:
         self.model: Optional[LanguageModel] = None
         self.fault_injector = fault_injector
         self.data_cfg = DataConfig(
-            vocab=model_cfg.vocab, seq_len=0, global_batch=0,
+            vocab=model_cfg.vocab,
+            seq_len=model_cfg.frontend_tokens + 32
+            if model_cfg.family == "vlm" else 0,  # init_state sets it
+            global_batch=0,
             family=model_cfg.family, d_frontend=model_cfg.d_frontend,
             frontend_tokens=model_cfg.frontend_tokens, seed=train_cfg.seed)
         self.train_step = self.opt_init = None

@@ -26,6 +26,22 @@ def skewed(seed, n=300, m=280):
     return a
 
 
+def model_inputs(cfg, seed, b=2, s=8, enc_len=12):
+    """A prompt batch for ``cfg`` as numpy arrays from ``seed``: ``tokens``
+    (b, s), and ``frames`` (b, enc_len, d_frontend) for the
+    encoder-decoder family or ``patch_embeds`` (b, frontend_tokens,
+    d_frontend) for the vision frontend."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.enc_dec:
+        out["frames"] = rng.standard_normal(
+            (b, enc_len, cfg.d_frontend)).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_frontend)).astype(np.float32)
+    return out
+
+
 def host(v):
     """numpy view of a jax array, a torch tensor, or a plain value."""
     if isinstance(v, torch.Tensor):

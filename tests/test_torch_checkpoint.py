@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import model_inputs
 from _torch_serving import pair
 from repro.models import LanguageModel as RefModel
 from repro.train import checkpoint as ref_checkpoint
@@ -130,11 +131,13 @@ def test_a_port_checkpoint_restores_in_the_reference(tmp_path):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b",
                                   "deepseek-v3-671b", "mamba2-780m",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "seamless-m4t-medium",
+                                  "pixtral-12b"])
 def test_family_checkpoints_cross_both_ways(tmp_path, arch):
     """The reference's tree (stacked experts, the router's bias, MLA's
     projections, the MTP subtree, the ``mixer`` and ``rec`` subtrees of
-    the recurrent layers) saved by the reference serves in the
+    the recurrent layers, the stacked encoder, ``enc_norm`` and
+    ``frontend_proj``) saved by the reference serves in the
     port with its logits; the port's tensors in the reference's layout
     (``reference_layout``) saved by the port restore in the reference
     equal to its own tree."""
@@ -145,12 +148,11 @@ def test_family_checkpoints_cross_both_ways(tmp_path, arch):
     restored, _ = restore(str(tmp_path / "ref"), host)
     model = LanguageModel(cfg, params_from_numpy(cfg, restored,
                                                  device="cpu"))
-    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 10)).astype(
-        np.int32)
+    batch = model_inputs(cfg, 1, s=10)
     with torch.inference_mode():
-        got = model({"tokens": torch.from_numpy(toks)})[0]
-    want = RefModel(ref_cfg).forward(ref_params,
-                                     {"tokens": jnp.asarray(toks)})[0]
+        got = model({k: torch.from_numpy(v) for k, v in batch.items()})[0]
+    want = RefModel(ref_cfg).forward(
+        ref_params, {k: jnp.asarray(v) for k, v in batch.items()})[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
     tree = reference_layout(cfg, {k: t.numpy()

@@ -722,3 +722,70 @@ def test_one_smoke_train_step_on_the_card(cuda):
     assert all(t.device.type == "cuda" for t in params.values())
     assert int(opt_state["step"]) == 2
     assert not any(launch_counts().values())
+
+
+def _frontend_inputs(cfg, seed, b=2, s=6, enc_len=12):
+    """Tokens and the frontend's input (frames or patch embeddings)."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.enc_dec:
+        out["frames"] = rng.standard_normal(
+            (b, enc_len, cfg.d_frontend)).astype(np.float32)
+    else:
+        out["patch_embeds"] = rng.standard_normal(
+            (b, cfg.frontend_tokens, cfg.d_frontend)).astype(np.float32)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_frontend_families_on_the_card_match_the_cpu(cuda, arch):
+    """fp32 smoke configs with the RgCSR FFN, the same weights on the card
+    and on the CPU, served as the reference serves them: ``_prefill`` with
+    the frames or patches, then three ``_decode`` steps of the CPU's
+    greedy tokens.  The card's logits within 1e-4 · (1 + max|logit|) of
+    the CPU's; K2 launched once per encoder and decoder layer in the
+    prefill and once per decoder layer in each step, nothing else."""
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(
+        get_smoke(arch), dtype="float32", kv_cache_dtype="float32",
+        sparsity=SparsityConfig(enabled=True, density=0.25, group_size=128,
+                                impl="kernel"))
+    tree = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = _frontend_inputs(cfg, 3)
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        eng = Engine(cfg, ServeConfig(max_seq=32), params=_tree_to(tree, dev),
+                     device=dev)
+        counts, logits_seen = [], []
+        with torch.inference_mode():
+            reset_launch_counts()
+            logits, caches = eng._prefill({k: torch.from_numpy(v).to(dev)
+                                           for k, v in batch.items()})
+            counts.append(launch_counts())
+            logits_seen.append(logits.cpu())
+            for i in range(3):
+                tok = (runs[0][0][i] if runs else logits).argmax(-1).int()
+                reset_launch_counts()
+                logits, caches = eng._decode(caches, tok.to(dev))
+                counts.append(launch_counts())
+                logits_seen.append(logits.cpu())
+        runs.append((logits_seen, counts))
+    (want, cpu_counts), (got, card_counts) = runs
+    assert not any(n for c in cpu_counts for n in c.values())
+    n_pre = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
+    assert card_counts == [{"rgcsr_spmv": 0, "rgcsr_spmm": n_pre,
+                            "ell_spmv": 0}] + [
+        {"rgcsr_spmv": 0, "rgcsr_spmm": cfg.n_layers, "ell_spmv": 0}] * 3
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=0,
+                                   atol=1e-4 * (1 + w.abs().max().item()))
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)

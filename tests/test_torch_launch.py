@@ -7,6 +7,7 @@ and MLA families through both launchers.  Every file goes to a temporary
 directory."""
 import ast
 import json
+import math
 import weakref
 
 import pytest
@@ -147,6 +148,24 @@ def test_the_launchers_run_the_recurrent_families(capsys, arch):
                                "4"])
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert last == f"done: 2 steps, final loss {tr.history[-1]['loss']:.4f}"
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_the_train_launcher_runs_the_frontend_families(capsys, arch):
+    """``launch/train.py --sparse-ffn`` at the encoder-decoder family's and
+    the vision frontend's smoke sizes, losses finite; ``launch/serve.py``
+    admits tokens alone, as the reference's, and refuses both configs by
+    name."""
+    tr, _ = launch_train.main(["--arch", arch, "--smoke", "--sparse-ffn",
+                               "--device", "cpu", "--steps", "2", "--seq",
+                               "16", "--batch", "4"])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert last == f"done: 2 steps, final loss {tr.history[-1]['loss']:.4f}"
+    assert all(math.isfinite(h["loss"]) for h in tr.history)
+    assert (tr.model.encoder is not None) == (arch == "seamless-m4t-medium")
+    with pytest.raises(ValueError, match="tokens alone"):
+        launch.main(["--arch", arch, "--smoke", "--device", "cpu",
+                     "--requests", "2", "--max-seq", "64"])
 
 
 def test_the_train_launcher_runs_deepseek_v3(capsys):

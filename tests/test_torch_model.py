@@ -228,12 +228,6 @@ def test_param_count_and_layout_match_the_reference():
                                           ref_q[i])
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LanguageModel(get_smoke(arch), device="cpu")
-
-
 # ---------------------------------------- MoE, MLA and MTP (deepseek-v3)
 
 # (arch, RgCSR FFN): minicpm3-4b and recurrentgemma-9b are dense-FFN

@@ -167,8 +167,12 @@ def _pair(sparse: bool, arch: str = "granite-3-2b"):
 
 
 def _batch(cfg, step):
-    return data.make_batch(data.DataConfig(vocab=cfg.vocab, seq_len=SEQ,
-                                           global_batch=BATCH, seed=1), step)
+    """``make_batch``'s batch for ``cfg``'s family: frames (audio) or
+    patch embeddings (vlm) beside the tokens."""
+    return data.make_batch(data.DataConfig(
+        vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH, seed=1,
+        family=cfg.family, d_frontend=cfg.d_frontend,
+        frontend_tokens=cfg.frontend_tokens), step)
 
 
 def _port_model(cfg, host):
@@ -194,14 +198,18 @@ def test_loss_matches_reference(sparse):
                                          ("minicpm3-4b", True),
                                          ("deepseek-v3-671b", False),
                                          ("mamba2-780m", False),
-                                         ("recurrentgemma-9b", True)],
+                                         ("recurrentgemma-9b", True),
+                                         ("seamless-m4t-medium", True),
+                                         ("pixtral-12b", True)],
                          ids=["granite-moe", "minicpm3-sparse",
                               "deepseek-v3", "mamba2",
-                              "recurrentgemma-sparse"])
+                              "recurrentgemma-sparse", "seamless-sparse",
+                              "pixtral-sparse"])
 def test_family_loss_terms_match_reference(arch, sparse):
     """CE, the load-balance term (summed over the MoE layers, router-z in
     the total), the MTP loss and the total, within 1e-5 — capacity drops
-    in train mode included (64 tokens on 4 experts)."""
+    in train mode included (64 tokens on 4 experts); the encoder's frames
+    and the vision patches (their positions unlabelled) in the batch."""
     ref_cfg, ref_params, cfg, host = _pair(sparse, arch)
     batch = _batch(cfg, 0)
     batch["labels"][1, :2] = -1
@@ -217,11 +225,13 @@ def test_family_loss_terms_match_reference(arch, sparse):
                                    rtol=1e-5, atol=1e-5, err_msg=k)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5,
                                atol=1e-5)
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
     with torch.no_grad():
-        _, _, aux = model({"tokens": torch.from_numpy(batch["tokens"])},
+        _, _, aux = model({k: torch.from_numpy(v) for k, v in inputs.items()},
                           mode="train")
     _, _, ref_aux = RefModel(ref_cfg).forward(
-        ref_params, {"tokens": jnp.asarray(batch["tokens"])}, mode="train")
+        ref_params, {k: jnp.asarray(v) for k, v in inputs.items()},
+        mode="train")
     for k in ("load_balance", "router_z"):
         np.testing.assert_allclose(aux[k].item(), float(ref_aux[k]),
                                    rtol=1e-5, atol=1e-5, err_msg=k)
@@ -465,6 +475,20 @@ def test_a_reference_recurrent_checkpoint_resumes_in_the_port(tmp_path,
     key = "layers/0/mixer/a_log" if arch == "mamba2-780m" \
         else "layers/0/rec/lam"
     assert key in tr.model.tensors()
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "pixtral-12b"])
+def test_a_reference_frontend_family_checkpoint_resumes_in_the_port(
+        tmp_path, arch):
+    """The same with the encoder-decoder family (the ``encoder`` stack,
+    ``enc_norm``, ``frontend_proj``, each decoder layer's ``cross``) and
+    the vision frontend, their batches from ``make_batch``."""
+    ref_cfg, _, cfg, _ = _pair(False, arch)
+    tr = _resume_a_reference_checkpoint(str(tmp_path), ref_cfg, cfg)
+    tensors = tr.model.tensors()
+    assert "frontend_proj/kernel" in tensors
+    assert ("encoder/1/attn/q/kernel" in tensors
+            and "layers/0/cross/k/kernel" in tensors) == cfg.enc_dec
 
 
 def _resume_a_reference_checkpoint(d, ref_cfg, cfg):
