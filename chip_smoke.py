@@ -120,13 +120,14 @@ Phases (any failure exits non-zero and prints no result line):
    an uninterrupted run from the same seed (``index_add_`` on CUDA is not
    bitwise repeatable), the last checkpoint restored into a new
    ``Trainer`` with parameters and moments bitwise equal;
-11. mla: minicpm3-4b at its published width and depth (62 layers, d_model
+11. mla: minicpm3-4b at its published width, depth cut from 62 to
+   ``MLA_LAYERS`` = 16 layers (for the time limit; d_model
    2,560, 40 heads; MLA with q_lora 768, kv_lora 256, nope 64, rope 32,
    v 64; d_ff 6,400, vocab 73,448) with the RgCSR FFN (density 0.25,
    G = 128, ``impl="kernel"``: ``w_out`` is 20 groups of 1,600 slot rows),
    random weights from ``SEED``.  (a) ``Engine.generate`` of 4 prompts of
-   128 tokens, 32 new, ``max_seq`` 256: K2's counter reads exactly 62 × 32
-   and no other kernel of the port launches; in float32 (caches too) the
+   128 tokens, 32 new, ``max_seq`` 256: K2's counter reads exactly layers
+   × 32 and no other kernel of the port launches; in float32 (caches too) the
    prefill logits within 1e-4 · (1 + max|logit|) of the same weights with
    a dense-equivalent ``w_out`` (TF32 off) and greedy tokens identical
    under the margin rule; paged MLA decode (``ckv``/``krope`` pages, one
@@ -139,7 +140,7 @@ Phases (any failure exits non-zero and prints no result line):
    peak memory.  (b) ``Engine.serve`` on paged MLA caches, the decode step
    a CUDA graph, bf16: 16 requests on 8 slots (prompts of 64–256 tokens
    drawn from four lengths, 64 new each, ``max_seq`` 512): K2 reads
-   exactly 62 × (decode steps + prefills), replays = decode steps, every
+   exactly layers × (decode steps + prefills), replays = decode steps, every
    stream equal to ``generate`` of its prompt (each length's prompts as
    one batch) up to the first step whose top-2 margin in generate's run is
    below 3e-2 · max|logit| (the bf16 bar: a bf16 logit carries 8
@@ -163,8 +164,10 @@ Phases (any failure exits non-zero and prints no result line):
    card): the dense prefix layer, sigmoid routing with a nonzero bias,
    the shared expert, MLA and MTP; the card's fp32 logits and loss terms
    within 1e-4 of the port's CPU run; grep ``^moe``;
-13. recurrent: (a) recurrentgemma-9b at its published width and depth
-   (38 layers: two ``rec`` then 12 × (``attn_local``, ``rec``, ``rec``);
+13. recurrent: (a) recurrentgemma-9b at its published width, depth cut
+   from 38 layers (two ``rec`` then 12 × (``attn_local``, ``rec``,
+   ``rec``)) to ``RG_LAYERS`` = 14 (the two, then 4 periods, for the
+   time limit);
    d_model 4,096, MQA with 16 heads of 256, window 2,048, GeGLU d_ff
    12,288, vocab 256,000) with the RgCSR FFN (``w_out`` is 32 groups of
    3,072 slot rows), random weights from ``SEED``: in float32 (caches too)
@@ -174,8 +177,8 @@ Phases (any failure exits non-zero and prints no result line):
    1e-4 · (1 + max|logit|) of one forward over the 308 tokens (the
    log-depth scan and the ring against the step recurrence); in bfloat16
    ``generate`` of 4 × 128 tokens, 32 new, with K2's counter at exactly
-   38 × 32 and no other kernel of the port, its times, the card's busy
-   time and K2's share; ``serve`` with the graph as in 11(b) (K2 = 38 ×
+   layers × 32 and no other kernel of the port, its times, the card's busy
+   time and K2's share; ``serve`` with the graph as in 11(b) (K2 = layers ×
    (decode steps + prefills), replays = decode steps, streams against
    ``generate``); a dead replay of the graph leaving every state bit for
    bit; K2 on layer 0's kept plan against its plain version at d ∈ {1,
@@ -226,7 +229,42 @@ Phases (any failure exits non-zero and prints no result line):
    pixtral's d ∈ {1, 2, 2,176}, then timed at the widths the main paths
    ran beside its bound, its plain version, the CSR call and the dense
    bf16 product; grep ``^encdec``;
-15. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+15. shard: row-sharded SpMV/SpMM over ``torch.distributed``
+   (``core.spmv``/``spmm`` with ``mesh=``).  (a) One rank on NCCL in this
+   process, a ``("model",)`` mesh of 1: both matrices, both x modes,
+   block and adaptive spill64, SpMV and SpMM at d = 64 — the one-shard
+   plan's arrays equal the single-device plan's, K1/K2's outputs and
+   the block results equal the single-device ones bit for bit (the
+   adaptive ones within 1e-5: the spill tail adds with atomics), one
+   launch per call, no exchange.  (b) ``SHARD_WORLD`` = 4 ranks spawned
+   (``torch.multiprocessing``, ``spawn``) on cuda:0 over gloo — the card's
+   machine shows one card and NCCL refuses two ranks on one device;
+   the kernels were built here first, the ranks load them.  On a
+   ``("model",)`` mesh of 4, fem2d_2048 (1,048,576 rows a shard) and
+   raj1_full (65,936 rows a shard, the last 65,935) in both x modes with
+   block and per-shard configs: the launch counters, set to 0 just before
+   each matrix's runs, read 4 K1 and 4 K2 launches on every rank; each
+   shard's rows within 1e-4 of float64 scipy and 1e-5 of the single-device
+   K1/K2 (the SpMV and raj1's SpMM also gathered across the ranks); each
+   kernel against its plain version on every shard's plan; fem2d's exact
+   geometry (8,388,608 stored slots a shard replicated; 2,048 / 4,096 /
+   4,096 / 2,048 remote columns, ``e_max`` 2,048, 8,192 / 16,384 fp32
+   exchange bytes split); per shard its stored slots, steps, live slot
+   rows, remote columns and received entries; the bytes the rank holds
+   on the card (its shard's view alone: the sharded matrices and the
+   stacked plans stay on the host); each rank's K1/K2 times with the card
+   to itself (one rank at a time) against the bound of the shard's live
+   slots (``bound_ms``), that of its nonzeros alone (``nnz_bound_ms``)
+   and the CSR call on its rows; the gloo exchange's
+   wall time (host-staged on one card: no multi-card figure).  (c) On the
+   same ranks, ``Engine.warm_spmv_plans(mesh=)`` of raj1_full in split
+   mode on the profiler's clock (the ranks' searches one at a time): the
+   shard winners logged, the four plans' fingerprints equal; on a (2, 2)
+   ``("data", "model")`` mesh (without per-shard searches) a new 2-shard
+   plan, equal on every rank.
+   fem2d's per-shard configs come from ``autotune_spmv_per_shard``
+   across the ranks; grep ``^shard``;
+16. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -243,6 +281,8 @@ import dataclasses
 import gc
 import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -289,6 +329,9 @@ REPLAY_TOL = 5e-2
 # tokens), prompt lengths drawn from FAM_LENS, FAM_SLOTS slots.
 MLA_ARCH, MOE_ARCH, DEEPSEEK_ARCH = ("minicpm3-4b", "granite-moe-1b-a400m",
                                      "deepseek-v3-671b")
+# minicpm3-4b's depth, cut from 62 so that the script keeps its time limit
+# with phase 15
+MLA_LAYERS = 16
 FAM_MIX, FAM_LENS, FAM_SLOTS, FAM_MAX_SEQ = (16, 64), (64, 128, 192, 256), \
     8, 512
 FAM_K2_WIDTHS = (SERVE_BATCH, FAM_SLOTS, SERVE_BATCH * SERVE_PROMPT)
@@ -300,6 +343,9 @@ MOE_CPU_LAYERS, MOE_TRAIN_STEPS = 2, 3
 # REC_STEPS decode steps against one forward; K2 at recurrentgemma's w_out
 # also with the split forced at REC_PIECE_ROWS
 REC_RG_ARCH, REC_MAMBA_ARCH = "recurrentgemma-9b", "mamba2-780m"
+# recurrentgemma-9b's depth, cut from 38 (rec, rec + 12 × (attn_local, rec,
+# rec)) to the prefix and 4 periods, for the time limit
+RG_LAYERS = 14
 REC_LONG, REC_STEPS, REC_CPU_LAYERS, REC_TRAIN_STEPS = 300, 8, 2, 3
 REC_K2_WIDTHS = (1,) + FAM_K2_WIDTHS
 REC_PIECE_ROWS = 8
@@ -315,6 +361,9 @@ ENC_BATCH, ENC_FRAMES, ENC_PROMPT, ENC_MAX_SEQ = 4, 512, 16, 64
 ENC_STEPS, ENC_CPU_LAYERS, ENC_TRAIN_STEPS = 8, 2, 3
 VLM_BATCH, VLM_PROMPT = 2, 64
 VLM_PEAK_GIB, VLM_ACT_BYTES, VLM_CUT_LAYERS = 72, 4 * 2**30, 8
+# phase 15: SHARD_WORLD ranks share the card over gloo; a rank's collective
+# gives up after SHARD_TIMEOUT_S, the phase after SHARD_DEADLINE_S
+SHARD_WORLD, SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 4, 240, 360
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -388,6 +437,20 @@ def raj1_csr(n: int = 263743, seed: int = 1, n_dense_rows: int = 4,
     a = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
     a.sort_indices()
     return a
+
+
+def main_inputs(fem_csr, raj_csr):
+    """``(rng, x, X)``: the main path's x ``(n,)`` and X ``(n, D_SPMM)`` per
+    matrix, float32, drawn from ``SEED``, and the generator, whose later
+    draws go on from there."""
+    rng = np.random.default_rng(SEED)
+    x_np = {"fem2d_2048": rng.standard_normal(fem_csr.shape[1])
+            .astype(np.float32),
+            "raj1_full": rng.standard_normal(raj_csr.shape[1])
+            .astype(np.float32)}
+    xm_np = {k: rng.standard_normal((len(v), D_SPMM)).astype(np.float32)
+             for k, v in x_np.items()}
+    return rng, x_np, xm_np
 
 
 def ell_head_csr(a, k1: int):
@@ -502,6 +565,592 @@ def greedy_trace(model, tokens, s_max: int, n_new: int, vocab: int):
     return torch.cat(toks, 1).cpu().numpy(), margins, peaks
 
 
+def card_ms(fn, calls, dev, **kw):
+    """Per call of ``fn``: the time a caller waits (no keyword), the card's
+    time with the host hidden (``hold=True``), or from HBM after an L2
+    flush (``cold=True``) — see ``core/timing.py``."""
+    from repro_torch.core.timing import time_us
+    return time_us(fn, calls=calls, device=dev, **kw) / 1e3
+
+
+def bound(nbytes, flops, peak=FP32_FLOPS_PER_S):
+    """The least time in ms for ``nbytes`` of memory traffic and ``flops``
+    operations, and which of the two bounds it."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
+
+
+def sparse_csr(a, dev, index_dtype=np.int64):
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(index_dtype)),
+        torch.from_numpy(a.indices.astype(index_dtype)),
+        torch.from_numpy(a.data), size=a.shape).to(dev)
+
+
+def library_times(a, operand, calls, dev):
+    """The PyTorch CSR product on ``a`` with int64 and int32 indices: card
+    time warm and cold, per index type."""
+    out = {}
+    for tag, dt in (("int64", np.int64), ("int32", np.int32)):
+        a_t = sparse_csr(a, dev, dt)
+        try:
+            out[tag] = (card_ms(lambda: a_t @ operand, calls, dev, hold=True),
+                        card_ms(lambda: a_t @ operand, calls, dev, cold=True))
+        except RuntimeError as err:     # a yardstick only
+            log(f"library {tag} indices: {err}")
+        del a_t
+    return out
+
+
+# ------------------------------------------------- phase 15: sharded ranks
+
+
+def _float64_rows(a, xv, lo, hi):
+    """``(a[lo:hi] @ xv, |a[lo:hi]| @ |xv|)`` in float64, on the host,
+    reading only the rows of ``xv`` that the rows' columns reference."""
+    import scipy.sparse as sp
+    rows = a[lo:hi]
+    cols = np.unique(rows.indices)
+    sub = sp.csr_matrix((rows.data.astype(np.float64),
+                         np.searchsorted(cols, rows.indices), rows.indptr),
+                        shape=(rows.shape[0], len(cols)))
+    x64 = xv[cols].astype(np.float64)
+    return sub @ x64, abs(sub) @ abs(x64)
+
+
+def _shard_checks(say, failures, label, got, want, scale, single):
+    """``got`` (card tensor): rows of ``a @ x`` held against float64 scipy
+    (``want``) within MAIN_TOL and against the single-device K1/K2 rows
+    ``single`` within FP32_TOL, each per element as ``tol · (1 + scale)``,
+    ``scale`` = Σ_j |a_ij x_j|."""
+    g = got.double().cpu().numpy()
+    for what, ref, tol in (("float64 scipy", want, MAIN_TOL),
+                           ("single-device", np.asarray(single), FP32_TOL)):
+        ok = g.shape == ref.shape and bool(np.all(
+            np.abs(g - ref) <= tol * (1 + scale)))
+        err = float(np.abs(g - ref).max()) if g.size else 0.0
+        say(f"{label}: max_abs_err vs {what} {err:.3e} (tol {tol:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} vs {what}")
+
+
+def shard_rank(rank, world, tmp, timeout_s):
+    """Phase 15 (b) and (c): rank ``rank`` of ``world`` ranks that share
+    cuda:0 over gloo, spawned by :func:`sharded_phase` after the kernels
+    were built; writes its entries and failures to
+    ``tmp/rank<rank>.json``."""
+    import datetime
+    import logging
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import ShardedRgCSR, spmm, spmv
+    from repro_torch.kernels import (autotune, launch_counts, ops,
+                                     reset_launch_counts)
+    from repro_torch.kernels.rgcsr_spmm import (rgcsr_spmm_launch,
+                                                rgcsr_spmm_plain)
+    from repro_torch.kernels.rgcsr_spmv import (rgcsr_spmv_launch,
+                                                rgcsr_spmv_plain)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import Engine, ServeConfig
+
+    def say(msg):     # one write per line: the ranks share stdout
+        os.write(1, f"shard r{rank}: {msg}\n".encode())
+
+    warnings.filterwarnings("ignore", message="Sparse")   # beta notices
+    warnings.filterwarnings("ignore", message="Warning: Profiler clears")
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter(f"shard r{rank}: %(message)s"))
+    logging.getLogger("repro_torch").addHandler(handler)
+    logging.getLogger("repro_torch").setLevel(logging.INFO)
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    failures, out = [], {"entries": {}, "launches": {}, "errs": {}}
+    t0 = time.perf_counter()
+    try:     # a rank that raises fails the spawn, which ends the others
+        # the profiler's probe (its first session starts CUPTI, slowly) on
+        # every rank at once; the searches below take turns
+        source = autotune.timing_source()
+        csr = {"fem2d_2048": fem2d_csr(2048, 2048), "raj1_full": raj1_csr()}
+        _, x_np, xm_np = main_inputs(csr["fem2d_2048"], csr["raj1_full"])
+        x = {k: torch.from_numpy(v).to(dev) for k, v in x_np.items()}
+        xm = {k: torch.from_numpy(v).to(dev) for k, v in xm_np.items()}
+        tuples = {k: (a.data, a.indices, a.indptr, a.shape)
+                  for k, a in csr.items()}
+        mesh = make_mesh((world,), ("model",))
+        shard, group = ops.mesh_shard(mesh, "model")
+        if shard != rank:
+            failures.append(f"rank {rank} holds shard {shard}")
+
+        def agree(what, value):
+            """Every rank's ``value`` equal (gathered over all ranks)."""
+            got = [None] * world
+            dist.all_gather_object(got, value)
+            ok = len(set(got)) == 1
+            say(f"{what} {'agree' if ok else 'DIFFER'} on all ranks: "
+                f"{got[0] if ok else got}")
+            if not ok:
+                failures.append(f"{what} differ across ranks")
+
+        # ---- (c) Engine.warm_spmv_plans on the mesh: raj1_full, split
+        t1 = time.perf_counter()
+        if source != "profiler":
+            failures.append(f"the searches' clock is {source}")
+        eng = Engine(get_smoke("granite-3-2b"), ServeConfig(max_seq=32),
+                     device=dev)
+        winners = eng.warm_spmv_plans([tuples["raj1_full"]], mesh=mesh,
+                                      x_mode="split")
+        st = eng.sharded_spmv_shard_stats[0]
+        (_, raj_plan), = eng._warm_sharded.values()
+        clocks = {r.timing_source for r in autotune._MEMO.values()}
+        say(f"warm raj1_full split on ({world},) model: global winner "
+            f"{winners[0]}, shard winners {st['shard_winners']}, kernel "
+            f"cps {st['kernel_chunks_per_step']}, stored slot rows "
+            f"{st['stored_slots']}, steps {st['num_steps']}, remote "
+            f"columns {st['remote_cols']}, exchange bytes "
+            f"{st['exchange_bytes']}; searches timed by {sorted(clocks)}; "
+            f"{time.perf_counter() - t1:.1f} s")
+        if clocks != {"profiler"}:
+            failures.append(f"warm-up searches timed by {clocks}")
+        agree("warm raj1_full 4-shard plan fingerprints",
+              raj_plan.fingerprint())
+        mesh2 = make_mesh((2, world // 2), ("data", "model"))
+        eng.warm_spmv_plans([tuples["raj1_full"]], mesh=mesh2,
+                            x_mode="split", per_shard_tune=False)
+        st2 = eng.sharded_spmv_shard_stats[1]
+        cache = eng.plan_cache_stats()["sharded_plan_cache"]
+        plan2 = [p for _, p in eng._warm_sharded.values()
+                 if p.n_shards == world // 2]
+        say(f"re-warm on (2, {world // 2}) data x model, no per-shard "
+            f"search: {st2['n_shards']} shards, configs "
+            f"{st2['shard_winners']}, sharded plan "
+            f"cache {cache}, {len(eng._warm_sharded)} plans kept")
+        if st2["n_shards"] != world // 2 or len(plan2) != 1 \
+                or len(eng._warm_sharded) != 2 or cache["entries"] < 2:
+            failures.append("the re-warm on a resized mesh built no new "
+                            "plan")
+        agree("re-warm 2-shard plan fingerprints",
+              plan2[0].fingerprint() if plan2 else None)
+        say(f"warm-ups in {time.perf_counter() - t1:.1f} s")
+        cfgs = {"raj1_full": raj_plan.shard_configs}
+        del eng, raj_plan, plan2
+        # per-shard configs of fem2d: each rank tunes its own split block
+        t1 = time.perf_counter()
+        res = autotune.autotune_spmv_per_shard(
+            tuples["fem2d_2048"], world, group_size=128, repeats=1,
+            x_mode="split", device=dev, group=group)
+        cfgs["fem2d_2048"] = tuple(
+            (c.chunks_per_step, c.ordering, c.spill_threshold)
+            for c in autotune.harmonize_shard_winners(res))
+        say(f"fem2d_2048 per-shard search (split blocks): winners "
+            f"{[tuple(vars(r.config).values()) for r in res]}, harmonized "
+            f"{cfgs['fem2d_2048']}; {time.perf_counter() - t1:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- (b) the sharded main path: both matrices, both x modes,
+        # block and per-shard configs, SpMV and SpMM
+        t1 = time.perf_counter()
+        # the sharded matrices and stacked plans stay on the host: each
+        # rank moves only its own shard's view to the card
+        sms = {k: ShardedRgCSR.from_csr(*t, world, device="cpu")
+               for k, t in tuples.items()}
+        modes, plans = {}, {}
+        for name, sm in sms.items():
+            labels = [("block", {})]
+            if set(cfgs[name]) == {(1, "block", 0)}:
+                say(f"{name}: the per-shard configs are the block plan's; "
+                    f"it runs once")
+            else:
+                labels.append(("tuned", {"shard_configs": cfgs[name]}))
+            modes[name] = [(xmode, label, kw)
+                           for xmode in ("replicated", "split")
+                           for label, kw in labels]
+            for xmode, label, kw in modes[name]:
+                plans[name, xmode, label] = (ops.get_sharded_plan(
+                    sm, x_mode=xmode, **kw), kw)
+        torch.cuda.synchronize()
+        say(f"sharded matrices and {len(plans)} plans built in "
+            f"{time.perf_counter() - t1:.1f} s")
+        results = {}
+        for name, sm in sms.items():
+            reset_launch_counts()
+            for xmode, label, _ in modes[name]:
+                plan, kw = plans[name, xmode, label]
+                xs, xms = x[name], xm[name]
+                if xmode == "split":
+                    xs = ops.split_x(plan, xs, shard)
+                    xms = ops.split_x(plan, xms, shard)
+                y = spmv(sm, xs, mesh=mesh, x_mode=xmode, **kw)
+                ym = spmm(sm, xms, mesh=mesh, mesh_axis="model",
+                          x_mode=xmode, **kw)
+                results[name, xmode, label] = (y, ym, xs, xms)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            out["launches"][name] = counts
+            want = {"rgcsr_spmv": len(modes[name]),
+                    "rgcsr_spmm": len(modes[name]), "ell_spmv": 0}
+            say(f"main {name}: launches {counts} (want {want})")
+            if counts != want:
+                failures.append(f"{name} sharded launches {counts}")
+
+        # what each shard holds and exchanges; fem2d's exact geometry
+        for name, sm in sms.items():
+            lo, hi = sm.shard_rows(shard)
+            for xmode, label, _ in modes[name]:
+                plan, _ = plans[name, xmode, label]
+                view = plan.local(shard, dev)
+                say(f"{name} {xmode} {label}: shard {shard} rows [{lo}, "
+                    f"{hi}) of {sm.rows_per_shard} per shard, configs "
+                    f"{plan.shard_configs[shard]} (kernel cps "
+                    f"{plan.chunks_per_step}), stored slots "
+                    f"{plan.shard_stored_slots[shard] * plan.group_size}, "
+                    f"grid steps {plan.shard_num_steps[shard]} of "
+                    f"{plan.num_steps_max}, live slot rows "
+                    f"{int(view.plan.seg_slots.sum())} x 32, remote "
+                    f"columns {plan.shard_remote_cols[shard]}, exchange "
+                    f"bytes {plan.shard_exchange_bytes[shard]}, received "
+                    f"{view.recv_cols}, e_max {plan.e_max}")
+                if view.recv_cols != plan.shard_remote_cols[shard]:
+                    failures.append(f"{name} {xmode} {label}: receives "
+                                    f"{view.recv_cols} entries")
+                on_host = plan.values3d.device.type == "cpu"
+                say(f"{name} {xmode} {label}: shard {shard} holds "
+                    f"{view.nbytes} bytes on the card; the stacked plan "
+                    f"holds {plan.nbytes} bytes on the "
+                    f"{'host' if on_host else 'CARD'}")
+                if not on_host or view.nbytes >= plan.nbytes:
+                    failures.append(f"{name} {xmode} {label}: the rank "
+                                    f"holds more than its shard")
+        fem_rep = plans["fem2d_2048", "replicated", "block"][0]
+        fem_split = plans["fem2d_2048", "split", "block"][0]
+        geometry = {
+            "replicated stored slots": (tuple(
+                s * fem_rep.group_size for s in fem_rep.shard_stored_slots),
+                (33554432 // world,) * world),
+            "split remote columns": (fem_split.shard_remote_cols,
+                                     (2048, 4096, 4096, 2048)),
+            "e_max": (fem_split.e_max, 2048),
+            "fp32 exchange bytes": (fem_split.shard_exchange_bytes,
+                                    (8192, 16384, 16384, 8192)),
+        }
+        for what, (got, want) in geometry.items():
+            ok = got == want
+            say(f"fem2d_2048 geometry {what}: {got} (want {want}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"fem2d_2048 geometry {what} {got}")
+        raj = sms["raj1_full"]
+        if raj.rows_per_shard != 65936 or raj.shard_rows(world - 1) != (
+                (world - 1) * 65936, 263743):
+            failures.append(f"raj1_full shard layout {raj.rows_per_shard}")
+
+        # correctness: each shard's rows; the gathered SpMV and raj1's
+        # gathered SpMM (fem2d's, 1 GiB, by its rows alone)
+        refs = {}
+        for (name, xmode, label), (y, ym, _, _) in results.items():
+            a, n = csr[name], csr[name].shape[0]
+            lo, hi = sms[name].shard_rows(shard)
+            plan = plans[name, xmode, label][0]
+            for kind, got, xv in (("spmv", y, x_np[name]),
+                                  ("spmm", ym, xm_np[name])):
+                single = np.load(Path(tmp) / f"single_{name}_{kind}.npy",
+                                 mmap_mode="r")
+                tag = f"{name} {xmode} {label} {kind}"
+                if (name, kind) not in refs:
+                    refs[name, kind] = _float64_rows(a, xv, lo, hi)
+                _shard_checks(say, failures, f"{tag} rows [{lo}, {hi})",
+                              got, *refs[name, kind], single[lo:hi])
+                if kind == "spmv" or name == "raj1_full":
+                    full = ops.gather_sharded_rows(plan, got, mesh=mesh,
+                                                   axis="model")
+                    if (name, kind, "full") not in refs:
+                        refs[name, kind, "full"] = _float64_rows(a, xv, 0, n)
+                    _shard_checks(say, failures, f"{tag} gathered", full,
+                                  *refs[name, kind, "full"], single)
+        del results, refs
+        gc.collect()
+        say(f"runs and checks in {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+
+        # each kernel against its plain version on the shard's plan (not
+        # counted: the main path's counts were read above)
+        errs = out["errs"]
+        for (name, xmode, label), (plan, _) in plans.items():
+            view = plan.local(shard, dev)
+            p = view.plan
+            xs, xms = x[name], xm[name]
+            if xmode == "split":
+                xs = ops.split_x(plan, xs, shard)
+                xms = ops.split_x(plan, xms, shard)
+            for kernel, launch, plain, xv in (
+                    ("rgcsr_spmv", rgcsr_spmv_launch, rgcsr_spmv_plain, xs),
+                    ("rgcsr_spmm", rgcsr_spmm_launch, rgcsr_spmm_plain,
+                     xms)):
+                got = launch(p, xv).float()
+                want, scale = (plain(v, p.columns2d, p.step_group, xa,
+                                     n_groups=p.n_groups,
+                                     chunks_per_step=p.chunks_per_step)
+                               .float().reshape(got.shape)
+                               for v, xa in ((p.values2d, xv),
+                                             (p.values2d.abs(), xv.abs())))
+                diff = (got - want).abs()
+                err = diff.max().item()
+                ok = bool((diff <= FP32_TOL * (1 + scale)).all())
+                key = f"{kernel}|{name}"
+                errs[key] = max(errs.get(key, 0.0), err)
+                say(f"check {kernel} {name} {xmode} {label} shard "
+                    f"{shard}: max_abs_err {err:.3e} tol {FP32_TOL:g} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"{kernel} {name} {xmode} {label}")
+                del got, want, scale, diff
+
+        # times: each rank's K1/K2 on its replicated block plan, one rank
+        # at a time (the others wait at a barrier): a quarter of the
+        # matrix on a card of its own; then the exchange, all together
+        for turn in range(world):
+            if turn == shard:
+                for name in sms:
+                    plan = plans[name, "replicated", "block"][0]
+                    p = plan.local(shard, dev).plan
+                    lo, hi = sms[name].shard_rows(shard)
+                    rows = csr[name][lo:hi]
+                    live = int(p.seg_slots.sum()) * 32
+                    real = int(((p.values2d != 0)
+                                | (p.columns2d != 0)).sum())
+                    x_rows = len(np.unique(rows.indices))
+                    g_rows = p.n_groups * p.group_size
+                    n_sm = torch.cuda.get_device_properties(
+                        dev).multi_processor_count
+                    for kernel, d, launch, plain, xv, calls in (
+                            ("rgcsr_spmv", 1, rgcsr_spmv_launch,
+                             rgcsr_spmv_plain, x[name], 50),
+                            ("rgcsr_spmm", D_SPMM, rgcsr_spmm_launch,
+                             rgcsr_spmm_plain, xm[name], 10)):
+                        w = p.work_list(kernel, n_sm=n_sm,
+                                        part_bytes=p.group_size * d * 4)
+                        meta = (p.seg_slots.nbytes + w.items.nbytes
+                                + w.combine.nbytes)
+                        flops = 2 * (live if d == 1 else real * d)
+                        # x: the rows of x the shard's columns reference
+                        b_ms, b_by = bound(live * 8 + x_rows * d * 4
+                                           + g_rows * d * 4 + meta, flops)
+                        # the function alone: the shard's nonzeros (fp32
+                        # value + int32 column), those x rows, its own y
+                        nnz_ms = bound(rows.nnz * 8 + x_rows * d * 4
+                                       + (hi - lo) * d * 4,
+                                       2 * rows.nnz * d)[0]
+                        lib = library_times(rows, xv, calls, dev)
+                        run = (lambda p=p, xv=xv, launch=launch:
+                               launch(p, xv))
+                        e = {"ms": card_ms(run, calls, dev, hold=True),
+                             "cold_ms": card_ms(run, calls, dev, cold=True),
+                             "plain_ms": card_ms(
+                                 lambda p=p, xv=xv, plain=plain: plain(
+                                     p.values2d, p.columns2d, p.step_group,
+                                     xv, n_groups=p.n_groups,
+                                     chunks_per_step=p.chunks_per_step),
+                                 2, dev, hold=True),
+                             "bound_ms": b_ms, "bound_by": b_by,
+                             "nnz_bound_ms": nnz_ms,
+                             "library_ms": min(v[0] for v in lib.values()),
+                             "library_cold_ms": min(v[1]
+                                                    for v in lib.values())}
+                        out["entries"][f"{kernel}|{name}"] = e
+                        say(f"time {kernel}@{name} shard {shard}: kernel "
+                            f"{e['ms']:.4f} ms (cold {e['cold_ms']:.4f}), "
+                            f"plain {e['plain_ms']:.4f} ms, bound "
+                            f"{b_ms:.4f} ms ({b_by}), nnz bound "
+                            f"{nnz_ms:.4f} ms, library "
+                            f"{e['library_ms']:.4f} ms (cold "
+                            f"{e['library_cold_ms']:.4f}) — the card to "
+                            f"this rank alone")
+            dist.barrier()
+        for name in sms:
+            plan = plans[name, "split", "block"][0]
+            if not plan.has_exchange:
+                continue
+            view = plan.local(shard, dev)
+            xs = ops.split_x(plan, x[name], shard)
+            for _ in range(3):
+                work, _r = ops._exchange(view, xs, group)
+                work.wait()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(20):
+                work, _r = ops._exchange(view, xs, group)
+                work.wait()
+            torch.cuda.synchronize()
+            say(f"exchange {name} split: {view.recv_cols} real of "
+                f"{plan.exchange_padded_recv_cols} slots received, "
+                f"{(time.perf_counter() - t1) / 20 * 1e3:.3f} ms wall per "
+                f"all_to_all_single — gloo, host-staged, {world} ranks on "
+                f"one card: no multi-card figure")
+        say(f"rank done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        dist.destroy_process_group()
+    out["failures"] = failures
+    with open(Path(tmp) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def sharded_phase(dev, mats, x, xm, entries, failures, tag):
+    """Phase 15, row-sharded SpMV/SpMM over ``torch.distributed``: (a) one
+    rank on NCCL in this process, its results held to the single-device
+    K1/K2 bit for bit; (b) and (c) ``SHARD_WORLD`` spawned ranks that share
+    the card over gloo (:func:`shard_rank`).  ``mats``: name → (RgCSR,
+    scipy CSR); ``x``/``xm``: the main path's inputs on the card."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.core import ShardedRgCSR, spmm, spmv
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch
+    from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch
+    from repro_torch.launch.mesh import make_mesh
+    t15 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_shards_"))
+    try:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(tmp / "store1"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh1 = make_mesh((1,), ("model",))
+            for name, (m, a) in mats.items():
+                sm = ShardedRgCSR.from_csr(a.data, a.indices, a.indptr,
+                                           a.shape, 1, device="cpu")
+                for label, kw in (("block", {}),
+                                  ("adaptive spill64",
+                                   {"ordering": "adaptive",
+                                    "spill_threshold": 64})):
+                    single = ops.make_plan(m, **kw)
+                    want = (ops.rgcsr_spmv(single, x[name]),
+                            ops.rgcsr_spmm(single, xm[name]))
+                    raw = (rgcsr_spmv_launch(single, x[name]),
+                           rgcsr_spmm_launch(single, xm[name]))
+                    for x_mode in ("replicated", "split"):
+                        plan = ops.get_sharded_plan(sm, x_mode=x_mode, **kw)
+                        p1 = plan.local(0, dev).plan
+                        reset_launch_counts()
+                        got = (spmv(sm, x[name], mesh=mesh1, x_mode=x_mode,
+                                    **kw),
+                               spmm(sm, xm[name], mesh=mesh1,
+                                    mesh_axis="model", x_mode=x_mode, **kw))
+                        torch.cuda.synchronize()
+                        c = launch_counts()
+                        full = ops.gather_sharded_rows(plan, got[0],
+                                                       mesh=mesh1,
+                                                       axis="model")
+                        same_plan = all(torch.equal(getattr(p1, f),
+                                                    getattr(single, f))
+                                        for f in ("values2d", "columns2d",
+                                                  "step_group",
+                                                  "step_first"))
+                        same_raw = (torch.equal(
+                            rgcsr_spmv_launch(p1, x[name]), raw[0])
+                            and torch.equal(rgcsr_spmm_launch(
+                                p1, xm[name]), raw[1]))
+                        if not single.n_spilled_elements:
+                            how = "bitwise equal"
+                            same = all(torch.equal(g, w)
+                                       for g, w in zip(got, want))
+                        else:   # the spill tail's index_add_ uses atomics
+                            how = "within 1e-5 · (1 + Σ|a·x|)"
+                            a64 = abs(a.astype(np.float64))
+                            same = all(bool(((g - w).abs() <= FP32_TOL * (
+                                1 + torch.from_numpy(a64 @ abs(
+                                    v.double().cpu().numpy())).to(dev)))
+                                .all())
+                                for g, w, v in zip(got, want,
+                                                   (x[name], xm[name])))
+                        ok = (same_plan and same_raw and same
+                              and torch.equal(full, got[0])
+                              and c == {"rgcsr_spmv": 1, "rgcsr_spmm": 1,
+                                        "ell_spmv": 0}
+                              and plan.e_max == 0)
+                        log(f"sharded {name} {label} {x_mode} on one NCCL "
+                            f"rank: plan arrays equal to the single-device "
+                            f"plan's {same_plan}, K1/K2 outputs bitwise "
+                            f"equal {same_raw}, result {how} {same}, "
+                            f"launches {c}, e_max {plan.e_max} "
+                            f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            failures.append(f"sharded one rank {name} "
+                                            f"{label} {x_mode}")
+                    del single, want, raw, plan, p1, got, full
+                del sm
+        finally:
+            dist.destroy_process_group()
+        log(f"sharded one rank in {time.perf_counter() - t15:.1f} s")
+
+        # the single-device K1/K2 results the ranks hold their rows to
+        for name, (m, _) in mats.items():
+            for kind, fn, operand in (("spmv", spmv, x[name]),
+                                      ("spmm", spmm, xm[name])):
+                np.save(tmp / f"single_{name}_{kind}.npy",
+                        fn(m, operand).cpu().numpy())
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ctx = mp.start_processes(shard_rank, args=(SHARD_WORLD, str(tmp),
+                                                   SHARD_TIMEOUT_S),
+                                 nprocs=SHARD_WORLD, join=False,
+                                 start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t1 > SHARD_DEADLINE_S:
+                    raise TimeoutError(f"ranks still running after "
+                                       f"{SHARD_DEADLINE_S} s")
+        except Exception as err:            # noqa: BLE001 — fail the phase
+            failures.append(f"sharded ranks: {err}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        if not any(f.startswith("sharded ranks") for f in failures):
+            ranks = []
+            for r in range(SHARD_WORLD):
+                with open(tmp / f"rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            for r, res in enumerate(ranks):
+                failures.extend(f"sharded rank {r}: {f}"
+                                for f in res["failures"])
+            for key in ranks[0]["entries"]:
+                kernel, name = key.split("|")
+                per = [res["entries"][key] for res in ranks]
+                slow = max(range(SHARD_WORLD), key=lambda i: per[i]["ms"])
+                e = {"name": f"{kernel}@{name}/{SHARD_WORLD}shards",
+                     "route": "cuda", "source": KERNEL_META[kernel][0],
+                     "replaces": KERNEL_META[kernel][1],
+                     "launches": sum(res["launches"][name][kernel]
+                                     for res in ranks),
+                     "max_abs_err": max(res["errs"][key] for res in ranks),
+                     **per[slow], "slowest_shard": slow,
+                     **{f"shard_{k}": [p[k] for p in per]
+                        for k in ("ms", "cold_ms", "bound_ms",
+                                  "nnz_bound_ms", "library_ms")}}
+                entries.append(e)
+                log(f"time {e['name']}: slowest shard {slow} "
+                    f"{e['ms']:.4f} ms; per shard {e['shard_ms']} ms, "
+                    f"bound {e['shard_bound_ms']} ms, nnz bound "
+                    f"{e['shard_nnz_bound_ms']} ms, library "
+                    f"{e['shard_library_ms']} ms; launches {e['launches']} "
+                    f"{tag}")
+        log(f"sharded ranks in {time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -593,13 +1242,7 @@ def main() -> int:
         f"{tuple(fem_ell.values.shape)}; raj1 rgcsr {raj.stored_elements} "
         f"slots, hybrid k1={raj_hyb.k1} + {raj_hyb.coo_values.shape[0]} coo")
 
-    rng = np.random.default_rng(SEED)
-    x_np = {"fem2d_2048": rng.standard_normal(fem_csr.shape[1])
-            .astype(np.float32),
-            "raj1_full": rng.standard_normal(raj_csr.shape[1])
-            .astype(np.float32)}
-    xm_np = {k: rng.standard_normal((len(v), D_SPMM)).astype(np.float32)
-             for k, v in x_np.items()}
+    rng, x_np, xm_np = main_inputs(fem_csr, raj_csr)
     x = {k: torch.from_numpy(v).to(dev) for k, v in x_np.items()}
     xm = {k: torch.from_numpy(v).to(dev) for k, v in xm_np.items()}
     raj_ell = ELLPACK(values=raj_hyb.ell_values, columns=raj_hyb.ell_columns,
@@ -821,35 +1464,8 @@ def main() -> int:
 
     warnings.filterwarnings("ignore", message="Sparse")   # beta notices
 
-    def sparse_csr(a, index_dtype=np.int64):
-        return torch.sparse_csr_tensor(
-            torch.from_numpy(a.indptr.astype(index_dtype)),
-            torch.from_numpy(a.indices.astype(index_dtype)),
-            torch.from_numpy(a.data), size=a.shape).to(dev)
-
     def ms(fn, calls, **kw):
-        """Per call: the time a caller waits (no keyword), the card's time
-        with the host hidden (``hold=True``), or from HBM after an L2 flush
-        (``cold=True``) — see ``core/timing.py``."""
-        return time_us(fn, calls=calls, device=dev, **kw) / 1e3
-
-    def bound(nbytes, flops, peak=FP32_FLOPS_PER_S):
-        tb, tf = nbytes / HBM_BYTES_PER_S, flops / peak
-        return max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations"
-
-    def library_times(a, operand, calls):
-        """The PyTorch CSR product on ``a`` with int64 and int32 indices:
-        card time warm and cold, per index type."""
-        out = {}
-        for tag, dt in (("int64", np.int64), ("int32", np.int32)):
-            a_t = sparse_csr(a, dt)
-            try:
-                out[tag] = (ms(lambda: a_t @ operand, calls, hold=True),
-                            ms(lambda: a_t @ operand, calls, cold=True))
-            except RuntimeError as err:     # a yardstick only
-                log(f"library {tag} indices: {err}")
-            del a_t
-        return out
+        return card_ms(fn, calls, dev, **kw)
 
     def entry(kernel, shape, run, plain, library, nbytes, flops, nnz_bytes,
               nnz_flops, calls=50):
@@ -912,7 +1528,7 @@ def main() -> int:
               lambda: rgcsr_spmv_plain(vals, cols, sg, xv,
                                        n_groups=plan.n_groups,
                                        chunks_per_step=cps),
-              library_times(a, xv, 50),
+              library_times(a, xv, 50, dev),
               live * 8 + xv.nbytes + g_rows * 4
               + metadata_bytes(plan, plan.group_size * 4, "rgcsr_spmv"),
               2 * live, nnz_bytes + xv.nbytes + a.shape[0] * 4, 2 * a.nnz)
@@ -921,7 +1537,7 @@ def main() -> int:
               lambda: rgcsr_spmm_plain(vals, cols, sg, xmv,
                                        n_groups=plan.n_groups,
                                        chunks_per_step=cps),
-              library_times(a, xmv, 10),
+              library_times(a, xmv, 10, dev),
               live * 8 + xmv.nbytes + g_rows * D_SPMM * 4
               + metadata_bytes(plan, plan.group_size * D_SPMM * 4,
                                "rgcsr_spmm"),
@@ -933,7 +1549,7 @@ def main() -> int:
         entry("ell_spmv", name,
               lambda: ell_spmv_launch(ep.values2d, ep.columns2d, xv),
               lambda: ell_spmv_plain(ep.values2d, ep.columns2d, xv),
-              library_times(head, xv, 50),
+              library_times(head, xv, 50, dev),
               ep.values2d.nbytes + ep.columns2d.nbytes + xv.nbytes
               + ep.values2d.shape[1] * 4,
               2 * ep.values2d.numel(),
@@ -2310,7 +2926,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"mla: held from the earlier phases: {live_cuda()}")
     torch.cuda.reset_peak_memory_stats()
-    mla_cfg = dataclasses.replace(get_config(MLA_ARCH),
+    mla_cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS,
                                   sparsity=SparsityConfig(**SERVE_SPARSITY))
     n_mla = mla_cfg.n_layers
     mla_tree = init_params(mla_cfg,
@@ -2774,7 +3390,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"recurrent: held from the earlier phases: {live_cuda()}")
     torch.cuda.reset_peak_memory_stats()
-    rg_cfg = dataclasses.replace(get_config(REC_RG_ARCH),
+    rg_cfg = dataclasses.replace(get_config(REC_RG_ARCH), n_layers=RG_LAYERS,
                                  sparsity=SparsityConfig(**SERVE_SPARSITY))
     n_rg = rg_cfg.n_layers
     rg_tree = init_params(rg_cfg,
@@ -2786,7 +3402,8 @@ def main() -> int:
                  if hasattr(b, "ffn")]
     n_float = sum(t.numel() for t in engine.model.tensors().values()
                   if t.is_floating_point())
-    n_dense = count_params(model_spec(get_config(REC_RG_ARCH)))
+    n_dense = count_params(model_spec(dataclasses.replace(
+        get_config(REC_RG_ARCH), n_layers=RG_LAYERS)))
     kinds = "".join(k[0] for k in tfm.layer_kinds(rg_cfg))
     log(f"recurrent: {rg_cfg.name} {n_rg} layers ({kinds}: r = rec, a = "
         f"attn_local), d_model {rg_cfg.d_model}, "
@@ -3524,6 +4141,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 14 in {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. row-sharded SpMV/SpMM
+    sharded_phase(dev, mats, x, xm, entries, failures, tag)
 
 
     for kernel in KERNEL_META:

@@ -7,6 +7,7 @@ from repro_torch.core.formats import (  # noqa: F401
     BlockedCSR,
     HybridEllCoo,
     RgCSR,
+    ShardedRgCSR,
     SlicedEllpack,
     from_csr,
     from_dense,

@@ -11,6 +11,8 @@ The PyTorch counterpart of ``repro.core.formats``, array for array:
 * :class:`SlicedEllpack`  — Monakov et al. sliced ELLPACK (no rowLengths).
 * :class:`RgCSR`          — the paper's Row-grouped CSR (Fig. 5): slot-major
                             groups + ``group_pointers`` + ``row_lengths``.
+* :class:`ShardedRgCSR`   — RgCSR partitioned by rows, one RgCSR per shard
+                            of a 1-D mesh axis (DESIGN.md §11).
 
 Every format is built on the host in numpy from CSR arrays
 (:func:`from_csr`), with no per-row Python loop, so a matrix with millions
@@ -46,6 +48,9 @@ __all__ = [
     "BlockedCSR",
     "SlicedEllpack",
     "RgCSR",
+    "ShardedRgCSR",
+    "shard_csr_blocks",
+    "split_columns",
     "from_dense",
     "from_csr",
     "from_numpy",
@@ -671,6 +676,158 @@ class SlicedEllpack(_Format):
         return out
 
 
+# ---------------------------------------------------------------------------
+# Row-sharded RgCSR — one RgCSR per shard (multi-device SpMV)
+# ---------------------------------------------------------------------------
+
+
+def split_columns(values, columns, row_ptr, lo: int, hi: int):
+    """A CSR block's entries split by column: those in ``[lo, hi)`` as a
+    CSR ``(values, columns - lo, row_ptr)`` over the same rows, the others
+    as ``(values, rows, columns)`` with their global columns."""
+    values, columns = np.asarray(values), np.asarray(columns)
+    row_ptr = np.asarray(row_ptr, dtype=np.int64)
+    n = len(row_ptr) - 1
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(row_ptr))
+    keep = (columns >= lo) & (columns < hi)
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(rows[keep],
+                                                     minlength=n))])
+    return ((values[keep], columns[keep] - lo, ptr),
+            (values[~keep], rows[~keep], columns[~keep]))
+
+
+def shard_csr_blocks(values, columns, row_ptr, shape, n_shards: int, *,
+                     x_mode: str = "replicated") -> list:
+    """Each shard's CSR row block under :meth:`ShardedRgCSR.shard_layout`,
+    as ``(values, columns, row_ptr, shape)`` over ``rows_per_shard`` rows
+    (the rows past the matrix empty), columns sorted within each row, with
+    no dense matrix.  In ``x_mode='split'`` a block keeps only the entries
+    of the shard's own column slice (:func:`split_columns`), shifted to
+    start at 0, width ``cols_per_shard``.
+    """
+    if x_mode not in ("replicated", "split"):
+        raise ValueError(
+            f"x_mode must be 'replicated' or 'split', got {x_mode!r}")
+    c = _canonical_csr(values, columns, row_ptr, shape)
+    n_rows, n_cols = c.shape
+    rps, cstride = ShardedRgCSR.shard_layout(n_rows, n_cols, n_shards)
+    out = []
+    for d in range(n_shards):
+        lo, hi = d * rps, min((d + 1) * rps, n_rows)
+        p0, p1 = (int(c.row_ptr[lo]), int(c.row_ptr[hi])) if hi > lo \
+            else (0, 0)
+        ptr = np.full(rps + 1, p1 - p0, dtype=np.int64)
+        if hi > lo:
+            ptr[: hi - lo + 1] = c.row_ptr[lo: hi + 1] - p0
+        vals, cols = c.values[p0:p1], c.columns[p0:p1]
+        if x_mode == "split":
+            clo = d * cstride
+            (vals, cols, ptr), _ = split_columns(
+                vals, cols, ptr, clo, min(clo + cstride, n_cols))
+            out.append((vals, cols, ptr, (rps, cstride)))
+        else:
+            out.append((vals, cols, ptr, (rps, n_cols)))
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedRgCSR:
+    """RgCSR partitioned by rows over a 1-D mesh axis (DESIGN.md §11).
+
+    Shard ``d`` owns the contiguous row block ``[d·rows_per_shard,
+    (d+1)·rows_per_shard)`` and stores it as its own :class:`RgCSR`, so
+    block/adaptive grouping, slot padding and the step table all apply per
+    shard.  Columns keep their **global** indices here; the local / remote
+    split (columns owned by this shard vs. columns whose x entries must be
+    exchanged) is computed at plan time
+    (:func:`repro_torch.kernels.ops.make_sharded_plan`), because it depends
+    on the execution mode.
+
+    Every shard is built over exactly ``rows_per_shard`` rows (the trailing
+    shard is padded with empty rows), so all shards have the same group
+    count.
+    """
+
+    shards: Tuple[RgCSR, ...] = _arr()
+    shape: Tuple[int, int] = _static()
+    n_shards: int = _static()
+    rows_per_shard: int = _static()
+    group_size: int = _static()
+    slot_pad: int = _static()
+
+    name: ClassVar[str] = "sharded_rgcsr"
+
+    @staticmethod
+    def shard_layout(n_rows: int, n_cols: int,
+                     n_shards: int) -> Tuple[int, int]:
+        """``(rows_per_shard, cols_per_shard)`` ceil-div layout.
+
+        The single source of the shard geometry: the row blocks
+        (:func:`shard_csr_blocks`), the local/remote column split
+        (:func:`split_columns`), plan
+        construction (``ops.make_sharded_plan``) and per-shard tuning
+        (``autotune.shard_row_blocks``) all derive from it.
+        """
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        return (max(1, -(-n_rows // n_shards)),
+                max(1, -(-n_cols // n_shards)))
+
+    @classmethod
+    def from_csr(cls, values, columns, row_ptr, shape, n_shards: int, *,
+                 group_size: int = DEFAULT_GROUP_SIZE,
+                 slot_pad: int = DEFAULT_SLOT_PAD,
+                 device="cuda") -> "ShardedRgCSR":
+        """Each shard from its CSR row block (:func:`shard_csr_blocks`),
+        padded to ``rows_per_shard`` rows: no dense matrix and no per-row
+        Python loop."""
+        shards = tuple(
+            RgCSR.from_csr(*block, group_size=group_size, slot_pad=slot_pad,
+                           device=device)
+            for block in shard_csr_blocks(values, columns, row_ptr, shape,
+                                          n_shards))
+        rps, _ = cls.shard_layout(int(shape[0]), int(shape[1]), n_shards)
+        return cls(shards=shards, shape=(int(shape[0]), int(shape[1])),
+                   n_shards=int(n_shards), rows_per_shard=rps,
+                   group_size=int(group_size), slot_pad=int(slot_pad))
+
+    @classmethod
+    def from_dense(cls, dense: np.ndarray, n_shards: int, *,
+                   group_size: int = DEFAULT_GROUP_SIZE,
+                   slot_pad: int = DEFAULT_SLOT_PAD,
+                   device="cuda") -> "ShardedRgCSR":
+        dense = _as_2d(dense)
+        values, cols, _, row_ptr = _csr_arrays(dense)
+        return cls.from_csr(values, cols, row_ptr, dense.shape, n_shards,
+                            group_size=group_size, slot_pad=slot_pad,
+                            device=device)
+
+    @property
+    def nnz(self) -> int:
+        return sum(s.nnz for s in self.shards)
+
+    @property
+    def stored_elements(self) -> int:
+        return sum(s.stored_elements for s in self.shards)
+
+    def storage_bytes(self) -> int:
+        return sum(s.storage_bytes() for s in self.shards)
+
+    def shard_rows(self, d: int) -> Tuple[int, int]:
+        """(lo, hi) global row range truly owned by shard ``d`` (unpadded;
+        ``hi <= lo`` for a shard past the last row)."""
+        lo = d * self.rows_per_shard
+        return lo, min(lo + self.rows_per_shard, self.shape[0])
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=_host(self.shards[0].values).dtype)
+        for d, s in enumerate(self.shards):
+            lo, hi = self.shard_rows(d)
+            if hi > lo:
+                out[lo:hi] = s.to_dense()[: hi - lo]
+        return out
+
+
 FORMATS = {
     "csr": CSR,
     "coo": COO,
@@ -703,7 +860,20 @@ def from_csr(values, columns, row_ptr, shape, fmt: str = "rgcsr", **kwargs):
 
 def from_numpy(fmt: str, fields: Dict[str, Any], *, device="cuda"):
     """A format from the fields of ``repro.core.formats``' dataclass of the
-    same name, with every array field given as a numpy array."""
+    same name, with every array field given as a numpy array.  For
+    ``"sharded_rgcsr"``, ``shards`` holds each shard's RgCSR fields, as a
+    mapping or as any object with those attributes."""
+    if fmt == ShardedRgCSR.name:
+        shards = tuple(
+            from_numpy("rgcsr", sh if isinstance(sh, dict) else {
+                f.name: (np.array(getattr(sh, f.name)) if f.metadata["array"]
+                         else getattr(sh, f.name))
+                for f in dataclasses.fields(RgCSR)}, device=device)
+            for sh in fields["shards"])
+        return ShardedRgCSR(
+            shards=shards, shape=tuple(int(v) for v in fields["shape"]),
+            **{k: int(fields[k]) for k in ("n_shards", "rows_per_shard",
+                                            "group_size", "slot_pad")})
     cls = _format_class(fmt)
     dev = resolve_device(device)
     kwargs = {}

@@ -5,7 +5,9 @@ vectorized gathers followed by ``index_add_`` segment sums, identical to
 ``A @ x`` up to floating-point reassociation.  They run on whatever device
 the matrix lives on.  RgCSR matrices dispatch to the hand-written CUDA
 kernels (:mod:`repro_torch.kernels`) through the process-wide plan cache
-when their tensors are on a CUDA card.
+when their tensors are on a CUDA card.  :class:`ShardedRgCSR` matrices run
+row-sharded across the ranks of a ``DeviceMesh`` axis (``mesh=``), each
+rank computing its own rows.
 
 On CUDA ``index_add_`` sums with atomics, so an oracle's result may differ
 from run to run in the last bits; compare against it with a tolerance.
@@ -24,11 +26,12 @@ from repro_torch.core.formats import (
     BlockedCSR,
     HybridEllCoo,
     RgCSR,
+    ShardedRgCSR,
     SlicedEllpack,
 )
 
 Matrix = Union[CSR, COO, ELLPACK, HybridEllCoo, BlockedCSR, RgCSR,
-               SlicedEllpack]
+               SlicedEllpack, ShardedRgCSR]
 
 __all__ = ["spmv", "spmm"]
 
@@ -188,8 +191,29 @@ def _use_kernel(a, impl: str) -> bool:
     return impl == "kernel" or a.values.is_cuda
 
 
+def _sharded_dispatch(a: ShardedRgCSR, mesh, mesh_axis, chunks_per_step,
+                      ordering, spill_threshold, x_mode, shard_configs=None):
+    """Resolve the sharded plan and mesh axis for a ShardedRgCSR call."""
+    from repro_torch.kernels import ops as kops
+    if mesh is None:
+        raise ValueError(
+            "ShardedRgCSR spmv/spmm needs mesh= (and usually mesh_axis=): "
+            "the row shards run across the ranks of one DeviceMesh axis "
+            "(DESIGN.md §11)")
+    if mesh_axis is None:
+        from repro_torch.sharding import resolve_spmv_shard_axis
+        mesh_axis = resolve_spmv_shard_axis(mesh)
+    plan = kops.get_sharded_plan(a, chunks_per_step=chunks_per_step,
+                                 ordering=ordering,
+                                 spill_threshold=spill_threshold,
+                                 x_mode=x_mode, shard_configs=shard_configs)
+    return plan, mesh_axis
+
+
 def spmv(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
-         ordering: str = "block", spill_threshold: int = 0):
+         ordering: str = "block", spill_threshold: int = 0,
+         mesh=None, mesh_axis: str | None = None,
+         x_mode: str = "replicated", shard_configs=None):
     """``y = A @ x`` for any of the paper's formats.
 
     RgCSR matrices can dispatch to the kernel through the process-wide
@@ -200,7 +224,25 @@ def spmv(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
     ``ordering='adaptive'`` selects the length-aware regrouped plan (and,
     with ``spill_threshold > 0``, the pathological-row COO spill); results
     are identical up to fp reassociation.  Oracle paths ignore both knobs.
+
+    :class:`ShardedRgCSR` matrices run row-sharded (DESIGN.md §11/§12):
+    ``mesh`` (a ``DeviceMesh``) is required, ``mesh_axis`` defaults to the
+    partitioner's ``sparse_rows`` rule, ``x_mode`` picks replicated x (the
+    whole vector on every rank) or split x (the rank's own slice,
+    ``kernels.ops.split_x``, with the plan's sparse exchange), and
+    ``shard_configs`` (one ``(chunks_per_step, ordering,
+    spill_threshold)`` per shard) overrides the schedule shard by shard.
+    Each rank gets its own rows (``kernels.ops.gather_sharded_rows``
+    assembles the whole ``y``).  The stacked plan is built on the host and
+    each rank moves only its own shard's view to ``x``'s device, so the
+    sharded matrix may, and at scale should, stay on the host.
     """
+    if isinstance(a, ShardedRgCSR):
+        from repro_torch.kernels import ops as kops
+        plan, axis = _sharded_dispatch(a, mesh, mesh_axis, chunks_per_step,
+                                       ordering, spill_threshold, x_mode,
+                                       shard_configs)
+        return kops.sharded_rgcsr_spmv(plan, x, mesh=mesh, axis=axis)
     if _use_kernel(a, impl):
         from repro_torch.kernels import ops as kops
         plan = kops.get_plan(a, chunks_per_step=chunks_per_step,
@@ -211,9 +253,18 @@ def spmv(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
 
 
 def spmm(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
-         ordering: str = "block", spill_threshold: int = 0):
+         ordering: str = "block", spill_threshold: int = 0,
+         mesh=None, mesh_axis: str | None = None,
+         x_mode: str = "replicated", shard_configs=None):
     """``Y = A @ X`` (X dense ``(n, d)``) for any of the paper's formats,
-    with the same PlanCache-backed kernel dispatch as :func:`spmv`."""
+    with the same PlanCache-backed kernel dispatch and sharded arguments
+    as :func:`spmv`."""
+    if isinstance(a, ShardedRgCSR):
+        from repro_torch.kernels import ops as kops
+        plan, axis = _sharded_dispatch(a, mesh, mesh_axis, chunks_per_step,
+                                       ordering, spill_threshold, x_mode,
+                                       shard_configs)
+        return kops.sharded_rgcsr_spmm(plan, x, mesh=mesh, axis=axis)
     if _use_kernel(a, impl):
         from repro_torch.kernels import ops as kops
         plan = kops.get_plan(a, chunks_per_step=chunks_per_step,

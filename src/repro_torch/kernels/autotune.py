@@ -33,14 +33,21 @@ are dropped, so all three give the dense path's signature, candidates and
 plans.  No dense matrix is formed from sparse input (a 4,194,304-row
 ``fem2d_2048`` has none).  Matrices and plans live on ``device``.
 
-The row-sharded parts of the reference (``shard_row_blocks``,
-``autotune_spmv_per_shard``, ``harmonize_shard_winners``) come with
-row-sharded SpMV (ROADMAP queue 1, item 2).
+Row-sharded tuning (DESIGN.md §12.2): :func:`shard_row_blocks` cuts a
+matrix into the shards' CSR blocks, :func:`autotune_spmv_per_shard` tunes
+each, and :func:`harmonize_shard_winners` picks configs that stack.  Where
+the reference tunes every shard in one process, the port can also tune
+across ranks (``group=``): the first rank holding each shard searches its
+block on its own device, the results are gathered, and every rank
+harmonizes the same list.  Ranks that share a card take turns (a barrier
+between searches), so their profiled windows never overlap.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
+import socket
 import time
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
@@ -49,15 +56,19 @@ import torch
 
 from repro_torch.core import timing as _timing
 from repro_torch.core.formats import RgCSR, _as_2d, _csr_arrays, \
-    resolve_device
+    resolve_device, shard_csr_blocks
 from repro_torch.kernels import ops
-from repro_torch.kernels.rgcsr_spmv import CHUNKS_PER_STEP_CHOICES, LANES
+from repro_torch.kernels.rgcsr_spmv import (CHUNKS_PER_STEP_CHOICES, LANES,
+                                            SUBLANES)
+
+log = logging.getLogger(__name__)
 
 __all__ = ["TuneConfig", "TuneResult", "matrix_signature", "candidate_configs",
            "spill_threshold_candidates", "autotune_spmv", "autotune_spmm",
            "tuned_plan", "clear_memo", "set_timing_source", "timing_source",
-           "time_us", "DEFAULT_GROUP_SIZES", "DEFAULT_D_TILES",
-           "DEFAULT_ORDERINGS"]
+           "time_us", "shard_row_blocks", "autotune_spmv_per_shard",
+           "harmonize_shard_winners", "take_turns", "DEFAULT_GROUP_SIZES",
+           "DEFAULT_D_TILES", "DEFAULT_ORDERINGS"]
 
 DEFAULT_GROUP_SIZES = (128, 256)
 DEFAULT_D_TILES = (128, 256)
@@ -428,6 +439,147 @@ def autotune_spmm(a, d: int, *,
     return _search(m, run, "spmm", candidates=candidates, repeats=repeats,
                    storage_cap=storage_cap, device=dev,
                    memo_key_extra=(_log_bucket(d),))
+
+
+def shard_row_blocks(a, n_shards: int, x_mode: str = "replicated") -> list:
+    """The per-shard blocks a :class:`ShardedRgCSR` over ``n_shards`` would
+    group, as CSR tuples ``(values, columns, row_ptr, shape)``: each padded
+    to ``rows_per_shard`` rows, matching the shard layout exactly, and cut
+    from ``a``'s CSR arrays (never densified).
+
+    ``x_mode='split'`` restricts each block to the shard's local column
+    slice (columns shifted to start at 0, width ``cols_per_shard``): split
+    grouped storage holds only local-column entries, so that is the matrix
+    the schedule knobs shape.
+    """
+    m = _as_csr(a)
+    return shard_csr_blocks(m.values, m.columns, m.row_ptr, m.shape,
+                            n_shards, x_mode=x_mode)
+
+
+def take_turns(device, fn):
+    """``fn()`` on every rank of the default process group, which all call
+    it together: at once when each rank has its own device, one rank at a
+    time (a barrier between turns) when ranks share a CUDA card, so that
+    their profiled windows never overlap."""
+    import torch.distributed as dist
+    device = torch.device(device)
+    world, me = dist.get_world_size(), dist.get_rank()
+    where = (socket.gethostname(), "cpu")
+    if device.type == "cuda":
+        props = torch.cuda.get_device_properties(device)
+        where = (where[0], str(getattr(props, "uuid", device.index)))
+    places = [None] * world
+    dist.all_gather_object(places, where)
+    if device.type != "cuda" or len(set(places)) == world:
+        return fn()
+    log.info("rank %d of %d: ranks share a card (%s); each search runs one "
+             "rank at a time", me, world, where[1])
+    out = None
+    for turn in range(world):
+        if turn == me:
+            out = fn()
+            torch.cuda.synchronize(device)
+        dist.barrier()
+    return out
+
+
+def autotune_spmv_per_shard(a, n_shards: int, *, group_size: int = 128,
+                            repeats: int = 3, storage_cap: float = 4.0,
+                            x_mode: str = "replicated", device="cuda",
+                            group=None) -> Tuple[TuneResult, ...]:
+    """Tune each row shard independently (DESIGN.md §12.2).
+
+    One global winner wastes the skewed case: the shard holding the heavy
+    rows wants spill/adaptive while light shards want plain block cps>1.
+    Each shard's block (:func:`shard_row_blocks`; its local-column slice in
+    split mode) runs its own :func:`autotune_spmv` search over
+    ``(chunks_per_step, ordering, spill_threshold)`` at the fixed
+    ``group_size`` (the stacked plan needs one G across shards), with spill
+    candidates from the shard's own row lengths.  The returned configs feed
+    ``make_sharded_plan(shard_configs=...)`` after
+    :func:`harmonize_shard_winners`.
+
+    With ``group`` (a process group of ``n_shards`` ranks, rank ``i``
+    owning shard ``i``), the search runs across ranks: every rank of the
+    default process group calls it together, each in one such group (the
+    groups of a mesh axis); the first rank that holds a shard searches
+    its block on ``device``, and the results are gathered over all ranks,
+    so every rank returns the same tuple, whichever group it is in.
+    """
+    dev = resolve_device(device)
+    blocks = shard_row_blocks(a, n_shards, x_mode=x_mode)
+
+    def tune(blk):
+        m = _as_csr(blk)
+        cands = candidate_configs(
+            group_sizes=(group_size,), orderings=DEFAULT_ORDERINGS,
+            spill_thresholds=spill_threshold_candidates(m.row_lens))
+        return autotune_spmv(m, candidates=cands, repeats=repeats,
+                             storage_cap=storage_cap, device=dev)
+
+    if group is None:
+        return tuple(tune(blk) for blk in blocks)
+    import torch.distributed as dist
+    if dist.get_world_size(group) != n_shards:
+        raise ValueError(f"{n_shards} shards but the group has "
+                         f"{dist.get_world_size(group)} ranks")
+    shard = dist.get_rank(group)
+    holders = [None] * dist.get_world_size()
+    dist.all_gather_object(holders, shard)
+    searches = holders.index(shard) == dist.get_rank()
+    mine = take_turns(dev, lambda: tune(blocks[shard]) if searches
+                      else None)
+    every = [None] * len(holders)
+    dist.all_gather_object(every, mine)
+    return tuple(every[holders.index(d)] for d in range(n_shards))
+
+
+def harmonize_shard_winners(results: Sequence[TuneResult]) -> list:
+    """Per-shard configs that *stack* well (DESIGN.md §12.2).
+
+    The kernel cps is the gcd of the per-shard cps values, every shard's
+    step table expands by ``cps_d / gcd``, and the stacked plan runs the
+    *max* step count over shards — so only the bottleneck shard's step
+    count at kernel cps ``k`` matters, which per-shard measured µs cannot
+    see.  The stacked cost is therefore scored structurally first from the
+    searches' ``plan_stats``: for each candidate kernel cps ``k``, each
+    shard contributes its best config at ``chunks_per_step == k`` (else
+    above ``k``, runnable at ``k`` by step-table expansion) ranked by steps
+    at ``k``, then stored elements, then measured µs; ``k`` itself is
+    scored by ``(max steps, total stored, bottleneck µs)``, ties to larger
+    ``k``.  Ordering and spill still specialize freely per shard.
+    """
+    if not results:
+        raise ValueError("harmonize_shard_winners needs >= 1 shard result")
+    best = None
+    for k in sorted(CHUNKS_PER_STEP_CHOICES):
+        rows_per_step = SUBLANES * k
+        picks = []
+        for r in results:
+            stats = r.plan_stats or ((0, 0, 0),) * len(r.timings)
+            cands = [(slots // rows_per_step, elems, us, cfg)
+                     for (cfg, us), (slots, elems, _) in zip(r.timings,
+                                                             stats)
+                     if cfg.chunks_per_step == k]
+            if not cands:
+                cands = [(slots // rows_per_step, elems, us, cfg)
+                         for (cfg, us), (slots, elems, _) in zip(r.timings,
+                                                                 stats)
+                         if cfg.chunks_per_step > k]
+            if not cands:
+                picks = None
+                break
+            picks.append(min(cands))
+        if picks is None:
+            continue
+        key = (max(p[0] for p in picks), sum(p[1] for p in picks),
+               max(p[2] for p in picks), -k)
+        if best is None or key < best[0]:
+            best = (key, [p[3] for p in picks])
+    if best is None:
+        raise ValueError("no measured candidates to harmonize")
+    return best[1]
 
 
 def tuned_plan(a, *, repeats: int = 3, device="cuda"

@@ -29,15 +29,16 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import threading
 import weakref
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.formats import (ELLPACK, RgCSR, _host, _tensor,
-                                      resolve_device)
+from repro_torch.core.formats import (ELLPACK, RgCSR, ShardedRgCSR, _host,
+                                      _tensor, resolve_device, split_columns)
 from repro_torch.core.ordering import descending_from_lengths, split_spill_rows
 from repro_torch.kernels.ell_spmv import ell_spmv_launch
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch
@@ -47,6 +48,10 @@ from repro_torch.kernels.rgcsr_spmv import (CHUNKS_PER_STEP_CHOICES, LANES,
 __all__ = ["RgCSRPlan", "make_plan", "rgcsr_spmv", "rgcsr_spmm",
            "EllPlan", "make_ell_plan", "ell_spmv", "plan_from_numpy",
            "PlanCache", "PLAN_CACHE", "get_plan", "WorkList", "SEGMENT",
+           "ShardedRgCSRPlan", "ShardView", "make_sharded_plan",
+           "get_sharded_plan", "sharded_plan_cache_stats",
+           "SHARDED_PLAN_CACHE", "sharded_rgcsr_spmv", "sharded_rgcsr_spmm",
+           "gather_sharded_rows", "split_x", "mesh_shard",
            "plan_from_params", "warm_plans_from_params"]
 
 # Lanes of one warp: the unit in which seg_slots counts live slot rows.
@@ -558,14 +563,20 @@ class PlanCache:
     def get(self, m: RgCSR, *, chunks_per_step: int = 1,
             ordering: str = "block", spill_threshold: int = 0) -> RgCSRPlan:
         key = (id(m), chunks_per_step, ordering, int(spill_threshold))
+        return self.fetch(m, key, lambda: make_plan(
+            m, chunks_per_step=chunks_per_step, ordering=ordering,
+            spill_threshold=spill_threshold))
+
+    def fetch(self, m, key: tuple, build):
+        """The plan under ``key`` (whose first item is ``id(m)``), built by
+        ``build()`` on a miss and evicted when ``m`` is collected."""
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:
                 self.hits += 1
                 self._plans.move_to_end(key)
                 return plan
-        plan = make_plan(m, chunks_per_step=chunks_per_step,
-                         ordering=ordering, spill_threshold=spill_threshold)
+        plan = build()
         with self._lock:
             if key not in self._plans:
                 self.misses += 1
@@ -688,6 +699,644 @@ def rgcsr_spmm(plan: RgCSRPlan, x, *, d_tile: int = LANES):
     if plan.ordering != "adaptive":
         return y[: plan.n_rows]
     return _adaptive_finish_spmm(y, x, plan)
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded SpMV/SpMM over torch.distributed (DESIGN.md §11–§12)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardView:
+    """One shard's part of a :class:`ShardedRgCSRPlan`, on one device.
+
+    ``plan`` is K1/K2's plan over the shard's slice of the stacked arrays
+    (padding steps and padding slot rows included; its ``group_step_ptr``
+    and ``seg_slots`` are derived on the device, so padding rows count as
+    dead), in the shard's own ordering.  ``send_idx`` ``(D, e_max)`` holds
+    the rows of this shard's x slice that it sends to each shard; the
+    remote tail (``rem_*``, the shard's real entries only) adds
+    ``rem_values · recv[rem_xidx]`` into rows ``rem_rows``.  ``recv_cols``
+    is the count of real x entries the shard receives (the plan's
+    ``edge_counts[:, shard].sum()``).
+    """
+
+    shard: int
+    plan: RgCSRPlan
+    n_rows: int                    # rows the shard truly owns (unpadded)
+    send_idx: Any = None           # (D, e_max) int64
+    rem_values: Any = None         # (E_d,)
+    rem_rows: Any = None           # (E_d,) int64 local row ids
+    rem_xidx: Any = None           # (E_d,) int64 receive-buffer slots
+    recv_cols: int = 0
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the tensors the view holds on its device."""
+        return _tensor_bytes(self.plan) + _tensor_bytes(self)
+
+
+def _tensor_bytes(obj) -> int:
+    """Bytes of the tensor fields of dataclass ``obj``."""
+    return sum(v.nbytes for f in dataclasses.fields(obj)
+               if isinstance(v := getattr(obj, f.name), torch.Tensor))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardedRgCSRPlan:
+    """Stacked, shard-major execution plan for a :class:`ShardedRgCSR`.
+
+    Each shard's :class:`RgCSRPlan` (built by ``make_plan`` at the shard's
+    own ``(chunks_per_step, ordering, spill_threshold)`` from
+    ``shard_configs``) is padded to the across-shard maxima and stacked on
+    a leading shard axis, array for array the reference's layout.  Padding
+    slot rows are exact zeros; padding *steps* repeat the shard's own last
+    real group with ``step_first = 0``.  The kernel ``chunks_per_step`` is
+    the gcd of the shard winners (powers of two, so their minimum): each
+    shard's layout stays padded at its own granularity and its step table
+    is expanded to the common one (DESIGN.md §12).
+
+    ``x_mode`` fixes how the dense vector is reconciled:
+
+    * ``'replicated'`` — every rank holds the whole x; columns keep global
+      indices; no exchange.
+    * ``'split'`` — each rank holds its own slice of ``cols_per_shard``
+      entries.  Grouped storage keeps only each shard's *local*-column
+      entries (columns remapped into ``[0, cols_per_shard)``), each
+      shard's *remote* entries live in a COO remote tail (``rem_*``)
+      indexed into the receive buffer of one ``all_to_all_single``, whose
+      per-(src, dst) schedule is ``send_idx`` / ``edge_counts``, padded to
+      the per-edge maximum ``e_max``.
+
+    The stacked arrays are CPU tensors, whatever the matrix's device;
+    ``remote_cols`` and ``edge_counts`` are host numpy, as in the
+    reference.  A rank runs its shard through :meth:`local`, which moves
+    only that shard's slice to its card, so each card holds its own rows'
+    share of the matrix and no more.
+    """
+
+    values3d: Any        # (D, S_pad, G)
+    columns3d: Any       # (D, S_pad, G) int32 (global; local-only in split)
+    step_group2d: Any    # (D, T_max) int32
+    step_first2d: Any    # (D, T_max) int32
+    n_rows: int
+    n_cols: int
+    n_shards: int
+    rows_per_shard: int
+    cols_per_shard: int          # x entries owned per shard (split mode)
+    n_groups: int                # max over shards
+    group_size: int
+    chunks_per_step: int = 1     # kernel cps (gcd of per-shard winners)
+    ordering: str = "block"      # 'adaptive' when ANY shard is adaptive
+    spill_threshold: int = 0     # the broadcast argument; per-shard truth
+    #                              is shard_configs
+    x_mode: str = "replicated"
+    nnz: int = -1
+    # per-shard (chunks_per_step, ordering, spill_threshold) actually built
+    shard_configs: Tuple[Tuple[int, str, int], ...] = ()
+    remote_cols: Any = None      # (D, R_max) int32, host (split)
+    # --- sparse-exchange schedule (split mode with a non-empty exchange) ---
+    send_idx: Any = None         # (D_src, D_dst, e_max) int32 local col idx
+    edge_counts: Any = None      # (D_src, D_dst) int64, host
+    e_max: int = 0               # per-edge pad (0 = no exchange)
+    rem_values: Any = None       # (D, E_t) remote-entry COO tail values
+    rem_rows: Any = None         # (D, E_t) int32 local row ids
+    rem_xidx: Any = None         # (D, E_t) int32 index into recv buffer
+    gather_idx: Any = None       # (D, rows_per_shard) int32 (adaptive)
+    grouped_mask: Any = None     # (D, rows_per_shard) bool (adaptive)
+    spill_values: Any = None     # (D, E_max) (adaptive + spill)
+    spill_rows: Any = None       # (D, E_max) int32 local row ids
+    spill_columns: Any = None    # (D, E_max) int32 (local in split mode)
+    # true per-shard figures, before stacking
+    shard_stored_slots: Tuple[int, ...] = ()
+    shard_num_steps: Tuple[int, ...] = ()
+    shard_remote_cols: Tuple[int, ...] = ()
+    shard_remote_entries: Tuple[int, ...] = ()   # rem-tail nnz per shard
+    shard_spill_counts: Tuple[int, ...] = ()     # spill-tail nnz per shard
+
+    def __post_init__(self):
+        object.__setattr__(self, "_views", {})
+
+    @property
+    def num_steps_max(self) -> int:
+        return int(self.step_group2d.shape[1])
+
+    @property
+    def stored_slots_max(self) -> int:
+        """Per-shard stored slot rows after stacking (= max over shards)."""
+        return int(self.values3d.shape[1])
+
+    @property
+    def n_spilled_max(self) -> int:
+        return 0 if self.spill_values is None else int(
+            self.spill_values.shape[1])
+
+    @property
+    def stored_elements(self) -> int:
+        """True (unstacked) grouped slots × lanes + COO tails of all shards,
+        split mode's remote tails included (one entry per remote nonzero)."""
+        return (sum(self.shard_stored_slots) * self.group_size
+                + sum(self.shard_spilled_elements)
+                + sum(self.shard_remote_entries))
+
+    @property
+    def shard_spilled_elements(self) -> Tuple[int, ...]:
+        """True spill-tail entries per shard, as recorded at build."""
+        if self.spill_values is None:
+            return (0,) * self.n_shards
+        return self.shard_spill_counts or (0,) * self.n_shards
+
+    @property
+    def padded_slot_fraction(self) -> float:
+        if self.nnz < 0 or self.stored_elements == 0:
+            return 0.0
+        return (self.stored_elements - self.nnz) / self.stored_elements
+
+    # ------------------------------------------------- exchange accounting
+    @property
+    def has_exchange(self) -> bool:
+        """Whether the run path issues the exchange at all."""
+        return self.x_mode == "split" and self.e_max > 0
+
+    @property
+    def shard_exchange_recv_cols(self) -> Tuple[int, ...]:
+        """x entries shard d receives per the schedule — equal to
+        ``shard_remote_cols[d]`` by construction."""
+        if self.edge_counts is None:
+            return (0,) * self.n_shards
+        ec = np.asarray(self.edge_counts)
+        return tuple(int(ec[:, d].sum()) for d in range(self.n_shards))
+
+    @property
+    def shard_exchange_send_cols(self) -> Tuple[int, ...]:
+        """x entries shard d sends per the schedule."""
+        if self.edge_counts is None:
+            return (0,) * self.n_shards
+        ec = np.asarray(self.edge_counts)
+        return tuple(int(ec[d, :].sum()) for d in range(self.n_shards))
+
+    @property
+    def shard_exchange_bytes(self) -> Tuple[int, ...]:
+        """Received x entries × the stored values' itemsize, per shard."""
+        itemsize = self.values3d.element_size()
+        return tuple(c * itemsize for c in self.shard_exchange_recv_cols)
+
+    @property
+    def exchange_padded_recv_cols(self) -> int:
+        """Receive-buffer width ``D·e_max``: the exchange moves this many
+        slots, of which ``shard_exchange_recv_cols`` are real."""
+        return self.n_shards * self.e_max
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the stacked (host) tensors."""
+        return _tensor_bytes(self)
+
+    def fingerprint(self) -> str:
+        """A digest of every field, arrays by their bytes: equal on two
+        ranks exactly when they built the same plan."""
+        h = hashlib.blake2b(digest_size=16)
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                v = _host(v)
+            if isinstance(v, np.ndarray):
+                h.update(f"{f.name}{v.dtype}{v.shape}".encode())
+                h.update(np.ascontiguousarray(v).tobytes())
+            else:
+                h.update(f"{f.name}={v!r};".encode())
+        return h.hexdigest()
+
+    # ------------------------------------------------------ one shard
+    def local(self, shard: int, device=None) -> ShardView:
+        """Shard ``shard``'s view on ``device`` (default: the host, where
+        the stacked arrays are), built from that shard's slices alone at
+        the first call and kept with the plan."""
+        dev = (self.values3d.device if device is None
+               else resolve_device(device))
+        key = (int(shard), str(dev))
+        view = self._views.get(key)
+        if view is not None:
+            return view
+        if not 0 <= shard < self.n_shards:
+            raise ValueError(f"shard {shard} of a {self.n_shards}-shard plan")
+        cps, ordering, spill = self.shard_configs[shard]
+        adaptive = ordering == "adaptive"
+        n_sp = self.shard_spilled_elements[shard]
+
+        def take(t, n=None):
+            return None if t is None else t[shard, :n].to(dev)
+
+        plan = RgCSRPlan(
+            values2d=take(self.values3d), columns2d=take(self.columns3d),
+            step_group=take(self.step_group2d),
+            step_first=take(self.step_first2d),
+            n_rows=self.rows_per_shard,
+            n_cols=(self.cols_per_shard if self.x_mode == "split"
+                    else self.n_cols),
+            n_groups=self.n_groups, group_size=self.group_size,
+            chunks_per_step=self.chunks_per_step, ordering=ordering,
+            spill_threshold=spill,
+            gather_idx=take(self.gather_idx) if adaptive else None,
+            grouped_mask=take(self.grouped_mask) if adaptive else None,
+            spill_values=take(self.spill_values, n_sp) if adaptive else None,
+            spill_rows=take(self.spill_rows, n_sp) if adaptive else None,
+            spill_columns=(take(self.spill_columns, n_sp) if adaptive
+                           else None))
+        lo = shard * self.rows_per_shard
+        n_rows = max(0, min(lo + self.rows_per_shard, self.n_rows) - lo)
+        kw = {}
+        if self.has_exchange:
+            n_e = self.shard_remote_entries[shard]
+            kw = dict(send_idx=take(self.send_idx).long(),
+                      rem_values=take(self.rem_values, n_e),
+                      rem_rows=take(self.rem_rows, n_e).long(),
+                      rem_xidx=take(self.rem_xidx, n_e).long(),
+                      recv_cols=self.shard_exchange_recv_cols[shard])
+        view = self._views[key] = ShardView(shard=int(shard), plan=plan,
+                                            n_rows=n_rows, **kw)
+        return view
+
+
+def _normalize_shard_configs(shard_configs, n_shards: int,
+                             chunks_per_step: int, ordering: str,
+                             spill_threshold: int,
+                             group_size: Optional[int] = None
+                             ) -> Tuple[Tuple[int, str, int], ...]:
+    """Per-shard (cps, ordering, spill) tuples; the global arguments
+    broadcast when ``shard_configs`` is None.  Accepts TuneConfig-likes,
+    dicts, or bare 3-tuples.  A config that carries a group size
+    (TuneConfig/dict) must match the matrix's."""
+    if shard_configs is None:
+        return ((int(chunks_per_step), str(ordering),
+                 int(spill_threshold)),) * n_shards
+    norm = []
+    for c in shard_configs:
+        cfg_g = None
+        if hasattr(c, "chunks_per_step"):          # autotune.TuneConfig
+            cps, o, t = c.chunks_per_step, c.ordering, c.spill_threshold
+            cfg_g = getattr(c, "group_size", None)
+        elif isinstance(c, dict):
+            # missing keys inherit the caller's broadcast arguments
+            cps = c.get("chunks_per_step", chunks_per_step)
+            o = c.get("ordering", ordering)
+            t = c.get("spill_threshold", spill_threshold)
+            cfg_g = c.get("group_size")
+        else:
+            cps, o, t = c
+        if group_size is not None and cfg_g is not None \
+                and int(cfg_g) != int(group_size):
+            raise ValueError(
+                f"shard config tuned at group_size={cfg_g} cannot build a "
+                f"plan for a group_size={group_size} matrix — re-tune at "
+                f"the matrix's group size")
+        norm.append((int(cps), str(o), int(t)))
+    if len(norm) != n_shards:
+        raise ValueError(f"shard_configs has {len(norm)} entries for "
+                         f"{n_shards} shards")
+    return tuple(norm)
+
+
+def _exchange_schedule(remotes, cstride: int, d_sh: int):
+    """Per-(src, dst) send schedule from the per-dst remote column sets
+    (each sorted and unique).
+
+    Edge (s → d) holds dst d's remote columns owned by src s, in sorted
+    order; every edge is padded to the across-edge maximum ``e_max``.
+    Returns ``(send_idx (D, D, e_max) local column offsets at the src,
+    edge_counts (D, D) true sizes, e_max, slot_of)``, where
+    ``slot_of(d, cols)`` maps dst d's remote columns to their slots
+    ``src·e_max + pos`` in its flattened receive buffer.
+    """
+    counts = np.zeros((d_sh, d_sh), np.int64)
+    owners, starts = [], []
+    for dst, remote in enumerate(remotes):
+        owner = remote // cstride
+        counts[:, dst] = np.bincount(owner, minlength=d_sh)
+        owners.append(owner)
+        starts.append(np.concatenate([[0], np.cumsum(counts[:, dst])]))
+    e_max = int(counts.max()) if counts.size else 0
+    send_idx = np.zeros((d_sh, d_sh, e_max), np.int32)
+    pos = []
+    for dst, (remote, owner) in enumerate(zip(remotes, owners)):
+        p = np.arange(len(remote)) - starts[dst][owner]
+        send_idx[owner, dst, p] = remote - owner * cstride
+        pos.append(p)
+
+    def slot_of(dst: int, cols: np.ndarray) -> np.ndarray:
+        i = np.searchsorted(remotes[dst], cols)
+        return (owners[dst][i] * e_max + pos[dst][i]).astype(np.int32)
+
+    return send_idx, counts, e_max, slot_of
+
+
+def make_sharded_plan(sm: ShardedRgCSR, *, chunks_per_step: int = 1,
+                      ordering: str = "block", spill_threshold: int = 0,
+                      x_mode: str = "replicated",
+                      shard_configs=None) -> ShardedRgCSRPlan:
+    """Build per-shard plans with :func:`make_plan`, then pad and stack
+    them on the host, array for array the reference's
+    ``make_sharded_plan``.
+
+    ``shard_configs`` (one ``(chunks_per_step, ordering, spill_threshold)``
+    per shard, e.g. the per-shard autotune winners) lets each shard keep
+    its own schedule; step tables expand to the gcd kernel
+    ``chunks_per_step``.  In ``x_mode='split'`` the grouped storage keeps
+    only each shard's local-column entries, split from the shard's CSR
+    (never densified); remote entries go to the ``rem_*`` tail indexed
+    into the receive buffer of the ``send_idx`` schedule.
+    """
+    if x_mode not in ("replicated", "split"):
+        raise ValueError(
+            f"x_mode must be 'replicated' or 'split', got {x_mode!r}")
+    d_sh = sm.n_shards
+    n_rows, n_cols = sm.shape
+    g = sm.group_size
+    rps = sm.rows_per_shard
+    cfgs = _normalize_shard_configs(shard_configs, d_sh, chunks_per_step,
+                                    ordering, spill_threshold,
+                                    group_size=g)
+    for cps_d, o_d, _ in cfgs:
+        if cps_d not in CHUNKS_PER_STEP_CHOICES:
+            raise ValueError(
+                f"chunks_per_step must be one of {CHUNKS_PER_STEP_CHOICES}, "
+                f"got {cps_d}")
+        if o_d not in ("block", "adaptive"):
+            raise ValueError(f"ordering must be 'block' or 'adaptive', "
+                             f"got {o_d!r}")
+    # one kernel cps; per-shard winners keep their own padding granularity
+    # and expand their step tables down to the gcd (powers of two: the min)
+    kernel_cps = min(c[0] for c in cfgs)
+    rows_per_step = kernel_cps * SUBLANES
+    any_adaptive = any(c[1] == "adaptive" for c in cfgs)
+    split = x_mode == "split"
+    _, cstride = ShardedRgCSR.shard_layout(n_rows, n_cols, d_sh)
+
+    remotes, rem_tails = [], []
+    if split:
+        sources = []
+        for d, shard in enumerate(sm.shards):
+            lo = d * cstride
+            (v, c, ptr), tail = split_columns(*shard.to_csr_arrays(), lo,
+                                              min(lo + cstride, n_cols))
+            local = RgCSR.from_csr(v, c, ptr, (rps, cstride), group_size=g,
+                                   slot_pad=sm.slot_pad,
+                                   device=shard.values.device)
+            # the host CSR holds bf16 values as float32: exact both ways
+            sources.append(dataclasses.replace(
+                local, values=local.values.to(shard.values.dtype)))
+            remotes.append(np.unique(tail[2]))
+            rem_tails.append(tail)
+        send_idx, edge_counts, e_max, slot_of = _exchange_schedule(
+            remotes, cstride, d_sh)
+        e_tail = max(len(v) for v, _, _ in rem_tails)
+        r_max = max(len(r) for r in remotes)
+    else:
+        sources = list(sm.shards)
+        send_idx = edge_counts = None
+        e_max = e_tail = r_max = 0
+
+    plans = [make_plan(src, chunks_per_step=c[0], ordering=c[1],
+                       spill_threshold=c[2])
+             for src, c in zip(sources, cfgs)]
+    # expand each shard's step table to the kernel cps: one coarse step of
+    # cps_d chunks becomes cps_d/kernel_cps consecutive fine steps of the
+    # same group, step_first only on the first
+    tables = []
+    for p, (cps_d, _, _) in zip(plans, cfgs):
+        f = cps_d // kernel_cps
+        sg = np.repeat(_host(p.step_group), f)
+        sf = np.zeros(len(sg), np.int32)
+        if len(sg):
+            sf[::f] = _host(p.step_first)
+        tables.append((sg, sf))
+    n_groups = max(p.n_groups for p in plans)
+    t_max = max(len(sg) for sg, _ in tables)
+    s_pad = t_max * rows_per_step
+
+    vals = torch.zeros((d_sh, s_pad, g), dtype=plans[0].values2d.dtype)
+    cols = torch.zeros((d_sh, s_pad, g), dtype=plans[0].columns2d.dtype)
+    sg2 = np.zeros((d_sh, t_max), np.int32)
+    sf2 = np.zeros((d_sh, t_max), np.int32)
+    remote_cols = np.zeros((d_sh, r_max), np.int32)
+    v_dtype = _host(plans[0].values2d[:0]).dtype
+    rm_v = np.zeros((d_sh, e_tail), v_dtype)
+    rm_r = np.zeros((d_sh, e_tail), np.int32)
+    rm_x = np.zeros((d_sh, e_tail), np.int32)
+    sp_max = max(p.n_spilled_elements for p in plans) if any_adaptive else 0
+    gidx = np.zeros((d_sh, rps), np.int32)
+    gmask = np.zeros((d_sh, rps), bool)
+    sp_v = np.zeros((d_sh, sp_max), v_dtype)
+    sp_r = np.zeros((d_sh, sp_max), np.int32)
+    sp_c = np.zeros((d_sh, sp_max), np.int32)
+
+    for d, p in enumerate(plans):
+        s_d = p.stored_slots
+        sg, sf = tables[d]
+        t_d = len(sg)
+        vals[d, :s_d] = p.values2d.cpu()
+        cols[d, :s_d] = p.columns2d.cpu()
+        sg2[d, :t_d] = sg
+        # padding steps extend the shard's own last group (step_first = 0,
+        # zero values)
+        sg2[d, t_d:] = int(sg[-1]) if t_d else 0
+        sf2[d, :t_d] = sf
+        if split:
+            remote_cols[d, : len(remotes[d])] = remotes[d]
+            rv, rr, rc = rem_tails[d]
+            if len(rv):
+                rm_v[d, : len(rv)] = rv
+                rm_r[d, : len(rv)] = rr
+                rm_x[d, : len(rv)] = slot_of(d, rc)
+        if any_adaptive:
+            if p.ordering == "adaptive":
+                gidx[d] = _host(p.gather_idx)
+                gmask[d] = _host(p.grouped_mask)
+                e_d = p.n_spilled_elements
+                if e_d:
+                    sp_v[d, :e_d] = _host(p.spill_values)
+                    sp_r[d, :e_d] = _host(p.spill_rows)
+                    sp_c[d, :e_d] = _host(p.spill_columns)
+            else:
+                # a block shard in a mixed stack: identity gather
+                gidx[d] = np.arange(rps, dtype=np.int32)
+                gmask[d] = True
+
+    def host_t(a, dtype=None):
+        t = _tensor(a, torch.device("cpu"))
+        return t if dtype is None else t.to(dtype)
+
+    exchange = split and e_max > 0
+    return ShardedRgCSRPlan(
+        values3d=vals, columns3d=cols,
+        step_group2d=host_t(sg2), step_first2d=host_t(sf2),
+        n_rows=n_rows, n_cols=n_cols, n_shards=d_sh,
+        rows_per_shard=rps, cols_per_shard=cstride,
+        n_groups=n_groups, group_size=g, chunks_per_step=kernel_cps,
+        ordering="adaptive" if any_adaptive else "block",
+        spill_threshold=int(spill_threshold),
+        x_mode=x_mode, nnz=sm.nnz, shard_configs=cfgs,
+        remote_cols=remote_cols if split else None,
+        send_idx=host_t(send_idx) if exchange else None,
+        edge_counts=edge_counts,
+        e_max=e_max,
+        rem_values=host_t(rm_v, vals.dtype) if exchange else None,
+        rem_rows=host_t(rm_r) if exchange else None,
+        rem_xidx=host_t(rm_x) if exchange else None,
+        gather_idx=host_t(gidx) if any_adaptive else None,
+        grouped_mask=host_t(gmask) if any_adaptive else None,
+        spill_values=host_t(sp_v, vals.dtype) if any_adaptive else None,
+        spill_rows=host_t(sp_r) if any_adaptive else None,
+        spill_columns=host_t(sp_c) if any_adaptive else None,
+        shard_stored_slots=tuple(p.stored_slots for p in plans),
+        shard_num_steps=tuple(len(sg) for sg, _ in tables),
+        shard_remote_cols=(tuple(len(r) for r in remotes) if remotes
+                           else (0,) * d_sh),
+        shard_remote_entries=(tuple(len(v) for v, _, _ in rem_tails)
+                              if rem_tails else (0,) * d_sh),
+        shard_spill_counts=tuple(p.n_spilled_elements for p in plans),
+    )
+
+
+# The sharded plan memo: keys (id(matrix), shard count, x_mode, per-shard
+# configs), GC-evicted like PLAN_CACHE.  The shard count is keyed so that a
+# re-warm on a resized mesh never reuses a stale stacked plan; x_mode,
+# because split mode stores local-only columns and the exchange schedule.
+SHARDED_PLAN_CACHE = PlanCache(maxsize=64)
+
+
+def get_sharded_plan(sm: ShardedRgCSR, *, chunks_per_step: int = 1,
+                     ordering: str = "block", spill_threshold: int = 0,
+                     x_mode: str = "replicated",
+                     shard_configs=None) -> ShardedRgCSRPlan:
+    """Fetch (or build and memoize) the stacked sharded plan for ``sm``."""
+    cfgs = _normalize_shard_configs(shard_configs, sm.n_shards,
+                                    chunks_per_step, ordering,
+                                    spill_threshold,
+                                    group_size=sm.group_size)
+    key = (id(sm), sm.n_shards, x_mode, cfgs)
+    return SHARDED_PLAN_CACHE.fetch(sm, key, lambda: make_sharded_plan(
+        sm, chunks_per_step=chunks_per_step, ordering=ordering,
+        spill_threshold=spill_threshold, x_mode=x_mode, shard_configs=cfgs))
+
+
+def sharded_plan_cache_stats() -> Dict[str, int]:
+    return SHARDED_PLAN_CACHE.stats()
+
+
+def mesh_shard(mesh, axis: str, n_shards: Optional[int] = None):
+    """``(shard, group)``: this rank's coordinate along ``axis`` of the
+    ``DeviceMesh`` and the axis's process group.  The all-to-all sends
+    block ``i`` to group rank ``i``, so the mesh's ranks must rise along
+    the axis (group rank == coordinate)."""
+    import torch.distributed as dist
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r}: {names}")
+    size = int(mesh.size(names.index(axis)))
+    if n_shards is not None and size != n_shards:
+        raise ValueError(f"plan built for {n_shards} shards but mesh axis "
+                         f"{axis!r} has {size} ranks")
+    shard = int(mesh.get_local_rank(axis))
+    group = mesh.get_group(axis)
+    if dist.get_rank(group) != shard:
+        raise ValueError(f"rank {dist.get_rank()} is number "
+                         f"{dist.get_rank(group)} of the {axis!r} group but "
+                         f"at coordinate {shard} of the mesh: the mesh's "
+                         f"ranks must rise along {axis!r}")
+    return shard, group
+
+
+def split_x(plan: ShardedRgCSRPlan, x, shard: int):
+    """Shard ``shard``'s slice of a full ``x`` (``(n_cols,)`` or
+    ``(n_cols, d)``) for split mode: ``cols_per_shard`` rows, zero past
+    ``n_cols``, as the reference pads."""
+    c = plan.cols_per_shard
+    lo, hi = shard * c, min((shard + 1) * c, plan.n_cols)
+    out = x.new_zeros((c,) + tuple(x.shape[1:]))
+    if hi > lo:
+        out[: hi - lo] = x[lo:hi]
+    return out
+
+
+def _exchange(view: ShardView, x, group):
+    """Start the sparse exchange of a split-mode shard: one
+    ``all_to_all_single`` sends ``x[send_idx[dst]]`` to each shard ``dst``
+    and receives, from each shard ``src``, the entries of ``x`` this shard
+    reads from it.  Returns ``(work, recv)``; after ``work.wait()``,
+    ``recv`` ``(D, e_max[, d])`` holds in row ``src`` its first
+    ``edge_counts[src, shard]`` entries for real."""
+    import torch.distributed as dist
+    send = x[view.send_idx].contiguous()                 # (D, e_max[, d])
+    recv = torch.empty_like(send)
+    work = dist.all_to_all_single(recv, send, group=group, async_op=True)
+    return work, recv
+
+
+def _sharded_run(plan: ShardedRgCSRPlan, x, mesh, axis: str, kind: str,
+                 d_tile: int):
+    shard, group = mesh_shard(mesh, axis, plan.n_shards)
+    view = plan.local(shard, x.device)
+    width = view.plan.n_cols
+    if x.dim() != (1 if kind == "spmv" else 2) or x.shape[0] != width:
+        raise ValueError(
+            f"sharded_rgcsr_{kind}: expected x with {width} rows "
+            f"({'the shard slice' if plan.x_mode == 'split' else 'all'} of "
+            f"x, x_mode={plan.x_mode!r}), got shape {tuple(x.shape)}")
+    work = None
+    if plan.has_exchange:
+        # only the remote x entries move, while K1/K2 read the own slice
+        work, recv = _exchange(view, x, group)
+    if kind == "spmv":
+        y = rgcsr_spmv(view.plan, x)
+    else:
+        y = rgcsr_spmm(view.plan, x, d_tile=d_tile)
+    if work is not None:
+        work.wait()
+        recv = recv.reshape((-1,) + tuple(x.shape[1:]))
+        rv = view.rem_values
+        prods = recv[view.rem_xidx] * (rv if kind == "spmv" else rv[:, None])
+        # K1/K2 return the values' dtype, as the reference's kernels do;
+        # the tail adds at the promoted dtype, as its ``y + segment_sum``
+        dt = torch.promote_types(y.dtype, prods.dtype)
+        y = y.to(dt).index_add_(0, view.rem_rows, prods.to(dt))
+    return y[: view.n_rows]
+
+
+def sharded_rgcsr_spmv(plan: ShardedRgCSRPlan, x, *, mesh, axis: str):
+    """This rank's rows of ``y = A @ x``: K1 over its shard, plus the
+    remote tail over the exchanged x entries in split mode.
+
+    ``mesh`` is the caller's ``DeviceMesh``; the rank's shard is its
+    coordinate along ``axis`` and the exchange runs on the axis's process
+    group, whatever its backend (NCCL for one rank per card; gloo, which
+    stages CUDA tensors through the host, where ranks share a card).
+    ``x``: the whole ``(n_cols,)`` vector in replicated mode, the rank's
+    ``(cols_per_shard,)`` slice (:func:`split_x`) in split mode.  Returns
+    the rows the shard truly owns, ``shard_rows(shard)`` of the matrix;
+    :func:`gather_sharded_rows` assembles the full ``(n_rows,)``."""
+    return _sharded_run(plan, x, mesh, axis, "spmv", LANES)
+
+
+def sharded_rgcsr_spmm(plan: ShardedRgCSRPlan, x, *, mesh, axis: str,
+                       d_tile: int = LANES):
+    """This rank's rows of ``Y = A @ X`` (X dense ``(n_cols, d)``, or the
+    rank's ``(cols_per_shard, d)`` slice in split mode) through K2; see
+    :func:`sharded_rgcsr_spmv`."""
+    return _sharded_run(plan, x, mesh, axis, "spmm", d_tile)
+
+
+def gather_sharded_rows(plan: ShardedRgCSRPlan, y, *, mesh, axis: str):
+    """The full ``(n_rows[, d])`` result on every rank of the axis, from
+    each rank's own rows (one ``all_gather`` of blocks padded to
+    ``rows_per_shard``) — what the reference's ``y[: n_rows]`` gives."""
+    import torch.distributed as dist
+    _, group = mesh_shard(mesh, axis, plan.n_shards)
+    block = y.new_zeros((plan.rows_per_shard,) + tuple(y.shape[1:]))
+    block[: y.shape[0]] = y
+    parts = [torch.empty_like(block) for _ in range(plan.n_shards)]
+    dist.all_gather(parts, block, group=group)
+    return torch.cat(parts)[: plan.n_rows]
 
 
 # ---------------------------------------------------------------------------

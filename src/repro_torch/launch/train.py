@@ -39,7 +39,7 @@ def main(argv=None):
     if args.mesh:
         raise NotImplementedError(
             "--mesh (training on a device mesh) is not ported yet (ROADMAP "
-            "queue 1, item 2: row-sharded SpMV and the multi-device work)")
+            "queue 1, item 3: sharded training)")
 
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.configs.base import SparsityConfig

@@ -279,14 +279,12 @@ def _maybe_load(stored, scale, dtype):
 
 def shard_attn_qkv(cfg, q, k, v):
     """The reference's activation-sharding hints for attention: the
-    identity without ``act_shard``.  The port runs on one card; sharded
-    activations come with the multi-device work (ROADMAP queue 1, item
-    2: row-sharded SpMV)."""
+    identity without ``act_shard``.  Sharded activations come with sharded
+    training (ROADMAP queue 1, item 3)."""
     if cfg.act_shard and cfg.attn_shard_mode != "none":
         raise NotImplementedError(
-            "activation sharding (cfg.act_shard) is not ported: the port "
-            "runs on one card (ROADMAP queue 1, item 2: row-sharded SpMV "
-            "and the multi-device work)")
+            "activation sharding (cfg.act_shard) is not ported yet "
+            "(ROADMAP queue 1, item 3: sharded training)")
     return q, k, v
 
 

@@ -243,7 +243,7 @@ def _remat(cfg, fn):
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat 'dots' (keep the matmul outputs, recompute the rest) is "
-            "not ported yet (ROADMAP queue 1, item 5: training's "
+            "not ported yet (ROADMAP queue 1, item 6: training's "
             "leftovers)")
     raise ValueError(f"unknown remat {cfg.remat!r}")
 

@@ -52,8 +52,8 @@ layer).  Engines built with ``params=other.params`` share ``other``'s
 model — its weights, their compute-dtype copies and its K2 plans — and add
 only their own serving state (the router's replicas).
 ``warm_spmv_plans`` tunes auxiliary SpMV matrices on the engine's device
-(the autotuner); with a mesh it waits for row-sharded SpMV (ROADMAP queue
-1, item 2).
+(the autotuner); with a ``DeviceMesh`` it also row-shards each one and
+tunes each shard on its own rank.
 """
 from __future__ import annotations
 
@@ -257,6 +257,14 @@ class Engine:
         # engine found them built).
         self.plans_warmed = 0
         self.spmv_plans_warmed = 0   # auxiliary matrices (warm_spmv_plans)
+        self.sharded_spmv_plans_warmed = 0
+        # one small host dict per warmed (matrix, mesh), never pruned
+        self.sharded_spmv_shard_stats: List[Dict] = []
+        # (mesh signature, x_mode, shape, dtype, matrix content) ->
+        # (sharded matrix, plan): keeps the sharded plan cache's entries
+        # alive; a re-warm of the same matrix on the same mesh replaces its
+        # entry
+        self._warm_sharded: Dict[tuple, tuple] = {}
         if model_cfg.sparsity.enabled and \
                 model_cfg.sparsity.impl_is_kernel() and not shared:
             self.plans_warmed = ops.warm_plans_from_params(
@@ -319,32 +327,107 @@ class Engine:
         :class:`~repro_torch.kernels.autotune.TuneConfig` per matrix, in
         order.
 
-        ``mesh`` (and ``mesh_axis``, ``x_mode``, ``per_shard_tune``) row-
-        shards each matrix in the reference; that waits for row-sharded
-        SpMV and raises here.
+        With ``mesh`` (a ``DeviceMesh`` over every rank of the default
+        process group, all of which call this together), each matrix is
+        also row-sharded over the resolved mesh axis (``mesh_axis`` or the
+        partitioner's ``sparse_rows`` rule).  Rank 0 alone runs the
+        whole-matrix search (so only its ``PLAN_CACHE`` holds that plan)
+        and every rank takes its winner; with ``per_shard_tune`` each
+        shard's first rank tunes the shard at that winner's
+        ``group_size`` (``autotune.autotune_spmv_per_shard``; ranks that
+        share a card search one at a time) and every rank harmonizes the
+        same gathered results, so every rank builds the same plan, staged
+        in the sharded plan cache (keyed on the shard count, so a resized
+        mesh builds a new one).  The sharded matrix and the stacked plan
+        stay on the host; each rank moves only its own shard's view to its
+        card.  Per-matrix shard stats (slots, steps, remote columns,
+        exchange volume, per-shard winners, and the bytes this rank holds
+        on its card beside the stacked plan's on the host) land in
+        ``sharded_spmv_shard_stats``; the sharded matrices and plans are
+        kept on the engine, keyed on the mesh, ``x_mode`` and the exact
+        matrix content, so a re-warm replaces its entry.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "warm_spmv_plans(mesh=...) row-shards each matrix over the "
-                "mesh: not ported yet (ROADMAP queue 1, item 2: row-sharded "
-                "SpMV)")
         from repro_torch.kernels import autotune
-        winners = [autotune.tuned_plan(a, repeats=repeats,
-                                       device=self.device)[1].config
-                   for a in matrices]
+        if mesh is None:
+            winners = [autotune.tuned_plan(a, repeats=repeats,
+                                           device=self.device)[1].config
+                       for a in matrices]
+            self.spmv_plans_warmed += len(winners)
+            return winners
+        import torch.distributed as dist
+        from repro_torch.core.formats import ShardedRgCSR
+        from repro_torch.sharding import (mesh_signature,
+                                          resolve_spmv_shard_axis)
+        if mesh_axis is None:
+            mesh_axis = resolve_spmv_shard_axis(mesh)
+        shard, group = ops.mesh_shard(mesh, mesh_axis)
+        if mesh.mesh.numel() != dist.get_world_size():
+            raise ValueError(
+                f"warm_spmv_plans(mesh=) needs a mesh over all "
+                f"{dist.get_world_size()} ranks, got {tuple(mesh.shape)}")
+        n_shards = dist.get_world_size(group)
+        winners = []
+        for a in matrices:
+            m = autotune._as_csr(a)
+            agreed = [autotune.tuned_plan(
+                m, repeats=repeats, device=self.device)[1].config
+                if dist.get_rank() == 0 else None]
+            dist.broadcast_object_list(agreed, src=0)
+            cfg = agreed[0]
+            winners.append(cfg)
+            shard_cfgs = None
+            if per_shard_tune:
+                shard_cfgs = autotune.harmonize_shard_winners(
+                    autotune.autotune_spmv_per_shard(
+                        m, n_shards, group_size=cfg.group_size,
+                        repeats=repeats, x_mode=x_mode, device=self.device,
+                        group=group))
+            # the matrix and the stacked plan stay on the host; only this
+            # rank's shard goes to its card
+            sm = ShardedRgCSR.from_csr(m.values, m.columns, m.row_ptr,
+                                       m.shape, n_shards,
+                                       group_size=cfg.group_size,
+                                       device="cpu")
+            splan = ops.get_sharded_plan(
+                sm, chunks_per_step=cfg.chunks_per_step,
+                ordering=cfg.ordering, spill_threshold=cfg.spill_threshold,
+                x_mode=x_mode, shard_configs=shard_cfgs)
+            view = splan.local(shard, self.device)
+            self._warm_sharded[(mesh_signature(mesh), x_mode, m.shape,
+                                str(m.values.dtype),
+                                autotune._fingerprint(m))] = (sm, splan)
+            self.sharded_spmv_plans_warmed += 1
+            self.sharded_spmv_shard_stats.append({
+                "n_shards": splan.n_shards,
+                "mesh": mesh_signature(mesh),
+                "x_mode": splan.x_mode,
+                "stored_slots": list(splan.shard_stored_slots),
+                "num_steps": list(splan.shard_num_steps),
+                "remote_cols": list(splan.shard_remote_cols),
+                "exchange_recv_cols": list(splan.shard_exchange_recv_cols),
+                "exchange_send_cols": list(splan.shard_exchange_send_cols),
+                "exchange_bytes": list(splan.shard_exchange_bytes),
+                "kernel_chunks_per_step": splan.chunks_per_step,
+                "shard_winners": [list(c) for c in splan.shard_configs],
+                "device_bytes": view.nbytes,
+                "host_bytes": splan.nbytes,
+            })
         self.spmv_plans_warmed += len(winners)
         return winners
 
     def plan_cache_stats(self):
         """Plan counters: the matrix PlanCache (core spmv dispatch), the
-        K2 plans this engine's sparse layers keep, and how many plans this
-        engine warmed at init and through :meth:`warm_spmv_plans`."""
+        sharded plan cache, the K2 plans this engine's sparse layers keep,
+        and how many plans this engine warmed at init and through
+        :meth:`warm_spmv_plans`."""
         kept = sum(len(getattr(m, "_plans", ()))
                    for m in self.model.modules() if hasattr(m, "plan_for"))
         return {"plan_cache": ops.PLAN_CACHE.stats(),
                 "param_plans": {"entries": kept},
+                "sharded_plan_cache": ops.sharded_plan_cache_stats(),
                 "plans_warmed": self.plans_warmed,
-                "spmv_plans_warmed": self.spmv_plans_warmed}
+                "spmv_plans_warmed": self.spmv_plans_warmed,
+                "sharded_spmv_plans_warmed": self.sharded_spmv_plans_warmed}
 
     def _check_tokens_only(self, what: str) -> None:
         """``what`` passes prompts as tokens alone: refuse a config whose

@@ -22,8 +22,8 @@ sorted order, list positions in order — and each leaf's key is the
 * ``restore`` returns host numpy arrays in the structure of ``tree_like``,
   as the reference's does; ``models.params_from_numpy`` carries a
   reference-layout parameter tree into a model.  Placing a restore on a
-  row-sharded layout (the reference's ``restore_sharded``) waits for
-  row-sharded SpMV over ``torch.distributed`` (ROADMAP queue 1, item 2).
+  sharded layout (the reference's ``restore_sharded``) waits for sharded
+  training (ROADMAP queue 1, item 3).
 
 The serving snapshots (``save_snapshot`` … ``SnapshotManager``) use no
 framework and are a copy of the reference's.
@@ -174,8 +174,8 @@ def restore_sharded(ckpt_dir: str, tree_like, shardings,
                     step: Optional[int] = None):
     """Restore onto a row-sharded layout: not ported yet."""
     raise NotImplementedError(
-        "restore_sharded needs row-sharded SpMV over torch.distributed, "
-        "not ported yet (ROADMAP queue 1, item 2: row-sharded SpMV)")
+        "restore_sharded restores DTensor shardings of sharded training, "
+        "not ported yet (ROADMAP queue 1, item 3: sharded training)")
 
 
 class CheckpointManager:

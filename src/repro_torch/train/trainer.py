@@ -89,8 +89,7 @@ class Trainer:
         if mesh is not None or partitioner is not None:
             raise NotImplementedError(
                 "training on a mesh (mesh=, partitioner=) is not ported yet "
-                "(ROADMAP queue 1, item 2: row-sharded SpMV and the "
-                "multi-device work)")
+                "(ROADMAP queue 1, item 3: sharded training)")
         self.cfg = train_cfg
         self.model_cfg = model_cfg
         self.device = resolve_device(device)

@@ -26,6 +26,16 @@ def skewed(seed, n=300, m=280):
     return a
 
 
+def autotune_cost(plan) -> float:
+    """The reference's ``deterministic_autotune`` cost model
+    (tests/conftest.py), for either package's plan: a per-step cost, a
+    stored-elements term and an adaptive epilogue penalty."""
+    us = 100.0 * plan.num_steps + 1e-3 * plan.stored_elements
+    if plan.ordering == "adaptive":
+        us += 20.0 + 5e-3 * plan.n_spilled_elements
+    return us
+
+
 def model_inputs(cfg, seed, b=2, s=8, enc_len=12):
     """A prompt batch for ``cfg`` as numpy arrays from ``seed``: ``tokens``
     (b, s), and ``frames`` (b, enc_len, d_frontend) for the

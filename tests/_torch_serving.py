@@ -145,11 +145,16 @@ def port_engine(sparse=False, fault_cfg=None, arch="granite-3-2b",
                   fault_cfg=fault_cfg)
 
 
-def engines(sparse=False, clock=False, fault_cfg=None, slow_at=(),
+def engines(sparse=False, clock=True, fault_cfg=None, slow_at=(),
             arch="granite-3-2b", **serve_kw):
     """A reference engine and a port engine on the same weights and
-    configuration; with ``clock``, each on its own FakeClock advanced one
-    second per decode step."""
+    configuration; with ``clock`` (the default), each on its own FakeClock
+    advanced one second per decode step.  The stats snapshots that the
+    tests compare read the engine's clock (the straggler watchdog counts
+    decode steps slower than twice its running mean), so on the wall clock
+    one stalled dispatch under load flags a straggler on one side only;
+    ``clock=False`` keeps the wall clock for a test that compares no
+    stats."""
     pair_ = (ref_engine(sparse, arch=arch, **serve_kw),
              port_engine(sparse, fault_cfg=fault_cfg, arch=arch,
                          **serve_kw))

@@ -13,6 +13,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from _torch_parity import autotune_cost as _cost
 from _torch_parity import skewed
 
 import repro.core.suite as ref_suite
@@ -23,15 +24,6 @@ from repro_torch.kernels import PLAN_CACHE, autotune, ops
 torch.set_num_threads(1)
 
 CORPUS = ref_suite.small_corpus()
-
-
-def _cost(plan) -> float:
-    """The reference fixture's cost model (tests/conftest.py): a per-step
-    cost, a stored-elements term and an adaptive epilogue penalty."""
-    us = 100.0 * plan.num_steps + 1e-3 * plan.stored_elements
-    if plan.ordering == "adaptive":
-        us += 20.0 + 5e-3 * plan.n_spilled_elements
-    return us
 
 
 @pytest.fixture

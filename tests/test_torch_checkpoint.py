@@ -67,9 +67,9 @@ def test_checkpoint_manager_retention_and_async(tmp_path):
 
 def test_sharded_restore_and_bfloat16_are_refused(tmp_path):
     save(str(tmp_path), 1, {"a": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
+    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
         checkpoint.restore_sharded(str(tmp_path), {"a": 0}, shardings={})
-    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
+    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
         CheckpointManager(str(tmp_path)).restore_latest(
             {"a": 0}, shardings={"a": None})
     with pytest.raises(TypeError, match="bfloat16"):

@@ -20,9 +20,11 @@ import repro.core.analyze as ref_analyze
 import repro.core.formats as ref_formats
 import repro.core.ordering as ref_ordering
 import repro.core.suite as ref_suite
+import repro.sharding.partitioner as ref_partitioner
 import repro_torch.core.analyze as analyze
 import repro_torch.core.ordering as ordering
 import repro_torch.core.suite as suite
+import repro_torch.sharding.partitioner as partitioner
 from repro_torch.core import FORMATS, from_csr, from_dense, from_numpy
 from repro_torch.core.formats import _csr_arrays
 from repro_torch.core.timing import time_us
@@ -156,6 +158,9 @@ def test_copied_modules_match_reference():
     assert analyze.row_stats(a) == ref_analyze.row_stats(a)
     assert analyze.H100_SXM.mem_bandwidth_gbs == 3350.0
     assert analyze.H100_SXM.x_cache_bytes == 50 * 2 ** 20
+    for name in ("TRAIN_RULES", "SERVE_RULES"):
+        assert dataclasses.asdict(getattr(partitioner, name)) == \
+            dataclasses.asdict(getattr(ref_partitioner, name))
 
 
 def _imported_roots(path: Path):
@@ -172,6 +177,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files.extend(sorted((REPO / "scripts").glob("torch_*.py")))
+    # what the spawned ranks and the card's tests import
+    files.extend(REPO / "tests" / f for f in (
+        "_torch_dist.py", "_torch_parity.py", "test_torch_gpu.py"))
     assert len(files) > 10
     scanned = {str(f.relative_to(REPO)) for f in files}
     for module in ("obs/metrics.py", "obs/trace.py", "train/fault.py",
@@ -181,7 +189,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "kernels/autotune.py", "train/data.py",
                    "train/optimizer.py", "train/trainer.py",
                    "launch/steps.py", "launch/train.py", "models/moe.py",
-                   "models/recurrent.py"):
+                   "models/recurrent.py", "sharding/__init__.py",
+                   "sharding/partitioner.py", "launch/mesh.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)

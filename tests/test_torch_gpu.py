@@ -21,17 +21,19 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist import run_ranks, sweep
 from _torch_parity import rand_sparse, skewed
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import SparsityConfig
-from repro_torch.core import from_dense, spmm, spmv
+from repro_torch.core import ShardedRgCSR, from_dense, spmm, spmv
 from repro_torch.core.timing import time_us
 from repro_torch.kernels import (launch_counts, ops, plan_from_params,
                                  reset_launch_counts)
 from repro_torch.kernels.ell_spmv import ell_spmv_launch, ell_spmv_plain
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch, rgcsr_spmm_plain
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch, rgcsr_spmv_plain
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ffn
 from repro_torch.models.spec import init_from_spec
 from repro_torch.serve import Engine, Request, Router, RouterConfig, \
@@ -789,3 +791,108 @@ def _tree_to(tree, dev):
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ------------------------------------------------- row-sharded SpMV/SpMM
+
+
+def _all_remote_shard():
+    """128 × 128 over 4 shards: shard 0's rows reference no column it owns
+    (an empty local plan in split mode), shard 1 holds a heavy row."""
+    a = rand_sparse(22, 128, 128, 0.06)
+    a[:32, :32] = 0.0
+    a[:32, 100] = 1.5
+    a[40, :120] = 1.0
+    return a
+
+
+SHARD_CONFIGS = [(1, "adaptive", 8), (4, "block", 0), (2, "block", 0),
+                 (2, "adaptive", 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [1, None])
+def test_k1_k2_on_padded_step_and_empty_local_plans(cuda, steps):
+    """Each shard's local view of a mixed stack (padding steps, gcd
+    expansion, shard 0's empty local plan) through K1 and K2 against their
+    plain versions; the empty plan gives zeros."""
+    a = _all_remote_shard()
+    plan = ops.make_sharded_plan(ShardedRgCSR.from_dense(a, 4, device=cuda),
+                                 x_mode="split", shard_configs=SHARD_CONFIGS)
+    assert plan.values3d.device.type == "cpu"
+    for d in range(4):
+        p = plan.local(d, cuda).plan
+        assert p.num_steps == plan.num_steps_max
+        xv = torch.from_numpy(_x(30 + d, plan.cols_per_shard)).to(cuda)
+        xm = torch.from_numpy(_x(40 + d, plan.cols_per_shard, 9)).to(cuda)
+        for launch, plain, operand in ((rgcsr_spmv_launch, rgcsr_spmv_plain,
+                                        xv),
+                                       (rgcsr_spmm_launch, rgcsr_spmm_plain,
+                                        xm)):
+            got = launch(p, operand, piece_rows=_piece_rows(p, steps))
+            want = plain(p.values2d, p.columns2d, p.step_group, operand,
+                         n_groups=p.n_groups,
+                         chunks_per_step=p.chunks_per_step)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want.reshape(got.shape),
+                                       rtol=1e-5, atol=1e-5)
+            if d == 0:
+                assert int(p.seg_slots.sum()) == 0
+                assert not got.any()
+
+
+@pytest.mark.gpu
+def test_sharded_spmv_on_one_nccl_rank_is_the_single_device_path(cuda,
+                                                                 tmp_path):
+    """World size 1 on NCCL: one shard's plan is the single-device plan,
+    so K1/K2 give the same bits, one launch per call."""
+    import torch.distributed as dist
+    a = skewed(7, n=400, m=300)
+    x = torch.from_numpy(_x(1, 300)).to(cuda)
+    xm = torch.from_numpy(_x(2, 300, 9)).to(cuda)
+    sm = ShardedRgCSR.from_dense(a, 1, device=cuda)
+    single = ops.make_plan(from_dense(a, "rgcsr", device=cuda))
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("model",))
+        for x_mode in ("replicated", "split"):
+            reset_launch_counts()
+            y = spmv(sm, x, mesh=mesh, x_mode=x_mode)
+            ym = spmm(sm, xm, mesh=mesh, x_mode=x_mode)
+            torch.cuda.synchronize()
+            assert launch_counts() == {"rgcsr_spmv": 1, "rgcsr_spmm": 1,
+                                       "ell_spmv": 0}
+            assert torch.equal(y, ops.rgcsr_spmv(single, x))
+            assert torch.equal(ym, ops.rgcsr_spmm(single, xm))
+            full = ops.gather_sharded_rows(
+                ops.get_sharded_plan(sm, x_mode=x_mode), y, mesh=mesh,
+                axis="model")
+            assert torch.equal(full, y)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_sharded_spmv_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
+    """Two spawned ranks on cuda:0 over gloo (its CUDA all-to-all stages
+    through the host): every ordering in both x modes within 1e-4 of the
+    dense product, K1 and K2 launched on both ranks."""
+    import scipy.sparse as sp
+    cases = []
+    for name, a in (("skew", skewed(8)), ("remote", _all_remote_shard())):
+        c = sp.csr_matrix(a)
+        cases.append((name, (c.data, c.indices, c.indptr, c.shape),
+                      _x(3, a.shape[1]), _x(4, a.shape[1], 9), "float32"))
+    outs = run_ranks(tmp_path, 2, sweep, cases, "cuda")
+    for o in outs:
+        assert o["launches"]["rgcsr_spmv"] > 0
+        assert o["launches"]["rgcsr_spmm"] > 0
+    dense = {name: sp.csr_matrix((v, c, p), shape=shape).toarray().astype(
+        np.float64) for name, (v, c, p, shape), _, _, _ in cases}
+    xs = {name: (x, xm) for name, _, x, xm, _ in cases}
+    for (name, x_mode, label, kind), got in outs[0]["results"].items():
+        x, xm = xs[name]
+        want = dense[name] @ (x if kind == "spmv" else xm)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{name} {x_mode} {label} {kind}")

@@ -306,7 +306,7 @@ def test_prefill_eos_ends_request_without_decode():
     prompt = np.random.default_rng(6).integers(0, 512, (9,)).astype(np.int32)
     eos = oracle(port_engine(max_seq=96), Request(tokens=prompt,
                                                   max_new_tokens=1))[0]
-    ref, eng = engines(max_seq=96, n_slots=2, eos_id=eos)
+    ref, eng = engines(clock=False, max_seq=96, n_slots=2, eos_id=eos)
     calls = []
     for e in (ref, eng):
         for name in ("_decode", "_fused_decode"):
@@ -541,12 +541,21 @@ def test_the_serving_state_is_built_at_the_first_session():
     assert eng._runner is loop
 
 
-def test_warm_spmv_plans_is_not_ported_yet():
-    """Its single-device half is ported (tests/test_torch_autotune.py);
-    row-sharding over a mesh is not."""
-    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
-        port_engine(max_seq=S_MAX).warm_spmv_plans([np.eye(4)],
-                                                   mesh=object())
+def test_warm_spmv_plans_is_not_ported_yet(tmp_path):
+    """The name is older than the port of ``warm_spmv_plans(mesh=)``,
+    which raised here until row-sharded SpMV came: now, on a mesh of one
+    rank, it warms a one-shard plan (the multi-rank cases are in
+    tests/test_torch_sharded_spmv.py)."""
+    from _torch_dist import one_rank
+    from repro_torch.launch.mesh import make_mesh
+    eng = port_engine(max_seq=S_MAX)
+    with one_rank(tmp_path):
+        mesh = make_mesh((1,), ("model",), device_type="cpu")
+        winners = eng.warm_spmv_plans([np.eye(4)], mesh=mesh)
+    assert len(winners) == 1 and eng.sharded_spmv_plans_warmed == 1
+    st = eng.sharded_spmv_shard_stats[0]
+    assert st["n_shards"] == 1 and st["remote_cols"] == [0]
+    assert eng.plan_cache_stats()["sharded_spmv_plans_warmed"] == 1
 
 
 def test_the_fused_loop_refuses_a_rebound_cache_tensor():

@@ -559,9 +559,9 @@ def test_trainer_loss_decreases_and_survives_fault(tmp_path):
 
 def test_trainer_refuses_a_mesh_and_remat_dots_is_named():
     cfg = get_smoke("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
+    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
         Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 2: row-sharded"):
+    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
         launch_train.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
     model = LanguageModel(dataclasses.replace(cfg, remat="dots"),
                           device="cpu").requires_grad_(True)
