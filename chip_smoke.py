@@ -115,13 +115,14 @@ Phases (any failure exits non-zero and prints no result line):
    AdamW, 4 steps of 4 × 128 tokens, every loss finite; per step the host
    ms (ending in a synchronize), tokens/s and peak memory; one more step
    under ``torch.profiler``: the card's busy time, its idle share and the
-   top kernels.  (c) The fault drill at full width, depth cut to 4 layers:
-   checkpoints every 2 steps, a fault at step 5; every loss within 5e-2 of
+   top kernels.  (c) The fault drill at full width, depth cut to 4 layers,
+   5 steps: checkpoints every 2 steps, a fault at step 3, just after the
+   first checkpoint's asynchronous write; every loss within 5e-2 of
    an uninterrupted run from the same seed (``index_add_`` on CUDA is not
    bitwise repeatable), the last checkpoint restored into a new
    ``Trainer`` with parameters and moments bitwise equal;
 11. mla: minicpm3-4b at its published width, depth cut from 62 to
-   ``MLA_LAYERS`` = 16 layers (for the time limit; d_model
+   ``MLA_LAYERS`` = 8 layers (for the time limit; d_model
    2,560, 40 heads; MLA with q_lora 768, kv_lora 256, nope 64, rope 32,
    v 64; d_ff 6,400, vocab 73,448) with the RgCSR FFN (density 0.25,
    G = 128, ``impl="kernel"``: ``w_out`` is 20 groups of 1,600 slot rows),
@@ -146,8 +147,9 @@ Phases (any failure exits non-zero and prints no result line):
    below 3e-2 · max|logit| (the bf16 bar: a bf16 logit carries 8
    significant bits, and batch composition changes the rounding); grep
    ``^mla``;
-12. moe: granite-moe-1b-a400m at its published width and depth (24
-   layers, d_model 1,024, 16/8 heads of 64, 32 experts top-8 of 512,
+12. moe: granite-moe-1b-a400m at its published width, its serving depth
+   cut from 24 to ``MOE_LAYERS`` = 12 (for the time limit; its three
+   AdamW steps run all 24) (d_model 1,024, 16/8 heads of 64, 32 experts top-8 of 512,
    einsum dispatch; the reference sparsifies no MoE FFN, so no K1–K3
    runs).  (a) float32: ``generate`` with phase 11's shapes through the
    einsum and the scatter dispatch, prefill logits within 1e-4 · (1 +
@@ -166,7 +168,7 @@ Phases (any failure exits non-zero and prints no result line):
    within 1e-4 of the port's CPU run; grep ``^moe``;
 13. recurrent: (a) recurrentgemma-9b at its published width, depth cut
    from 38 layers (two ``rec`` then 12 × (``attn_local``, ``rec``,
-   ``rec``)) to ``RG_LAYERS`` = 14 (the two, then 4 periods, for the
+   ``rec``)) to ``RG_LAYERS`` = 8 (the two, then 2 periods, for the
    time limit);
    d_model 4,096, MQA with 16 heads of 256, window 2,048, GeGLU d_ff
    12,288, vocab 256,000) with the RgCSR FFN (``w_out`` is 32 groups of
@@ -184,10 +186,11 @@ Phases (any failure exits non-zero and prints no result line):
    bit; K2 on layer 0's kept plan against its plain version at d ∈ {1,
    4, 8, 512} (fp32, bf16, and fp32 with the split forced at 8-row
    pieces) and timed at d = 4, 8, 512.  (b) mamba2-780m at its published
-   size (48 SSD layers, d_model 1,536, 48 heads of 64, d_state 128, chunk
+   width, depth cut from 48 SSD layers to ``MAMBA_LAYERS`` = 24 (for the
+   time limit; d_model 1,536, 48 heads of 64, d_state 128, chunk
    256; no FFN, so no K1–K3): at 2 layers of full width the card's fp32
    prefill and decode logits within 1e-4 · (1 + max|logit|) of the port's
-   CPU run; at full depth the 300 + 8 check above; bfloat16 ``generate``
+   CPU run; at that depth the 300 + 8 check above; bfloat16 ``generate``
    times and ``serve`` with the graph (no layer holds an index), every
    stream held to ``generate`` under the bf16 margin rule, and the dead
    replay, all at the reference's draw of the weights (each body layer's
@@ -216,14 +219,15 @@ Phases (any failure exits non-zero and prints no result line):
    the prefill's and a decode step's times for a caller and on the card
    (``torch.profiler``) with K2's share; three AdamW steps of 4 × 128
    frames and tokens through ``launch/train.py --sparse-ffn``.  (b)
-   pixtral-12b (40 layers, d_model 5,120, 32/8 heads of 128, SwiGLU d_ff
+   pixtral-12b (40 layers, cut to ``VLM_LAYERS`` = 10; d_model 5,120,
+   32/8 heads of 128, SwiGLU d_ff
    14,336, vocab 131,072, ``frontend_proj`` 1,024 → 5,120; ``w_out`` 40
    groups of 3,584 slot rows), 2 requests of 1,024 patches and 64 tokens,
    ``max_seq`` 1,120: its memory plan reckoned from the spec and logged
    before anything is allocated; the float32 check against the
    dense-equivalent ``w_out`` at full depth when the reckoned peak stays
-   under 72 GiB, else at 8 layers; in bfloat16 K2 at exactly 40 × 32 =
-   1,280, times and K2's share as in (a); peak memory.  K2 on layer 0's
+   under 72 GiB, else at 8 layers; in bfloat16 K2 at exactly 10 × 32 =
+   320, times and K2's share as in (a); peak memory.  K2 on layer 0's
    kept plan against its plain version (fp32, bf16, and fp32 with the
    split forced at 8-row pieces) at seamless's d ∈ {1, 4, 64, 2,048} and
    pixtral's d ∈ {1, 2, 2,176}, then timed at the widths the main paths
@@ -264,7 +268,24 @@ Phases (any failure exits non-zero and prints no result line):
    plan, equal on every rank.
    fem2d's per-shard configs come from ``autotune_spmv_per_shard``
    across the ranks; grep ``^shard``;
-16. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+16. train16: sharded training, no kernel on its path (the RgCSR FFN
+   trains through the segment sum, as the reference's does).
+   granite-3-2b at full width (d_model 2,048, vocab 49,155), depth cut
+   to ``TRAIN16_LAYERS`` = 4, fp32, three AdamW steps of 4 × 128 tokens
+   with ``micro=2``: first on one device here, then on a ``(2, 2)``
+   ``("data", "model")`` mesh of 4 ranks spawned on cuda:0 over gloo
+   (``Trainer(mesh=, partitioner=)``; lines ``train16 rN:`` are rank
+   N's).  (a) every loss within 1e-4 relative of one device; (b) each
+   rank's bytes at rest (parameters and both moments) equal to what its
+   placements predict, beside one device's, and the leaves that fall back
+   to replicated; (c) the final checkpoint restored onto ``(1, 4)`` on
+   the same ranks and onto a ``(2,)`` mesh of 2 new ranks, every slice
+   bitwise; (d) per step the host seconds, the collectives' wall share
+   and tokens/s (gloo host-staged on one card: no multi-card figure);
+   (e) ``launch/train.py --mesh 2x2 --sparse-ffn --layers 4`` on 4
+   processes of its own (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+   ``--backend gloo``) to its ``done:`` line; grep ``^train16``;
+17. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -322,7 +343,8 @@ LOGIT_TOL, MARGIN_TOL = 1e-4, 1e-3
 # at full width, depth cut to DRILL_LAYERS
 TRAIN_SPARSITY = dict(SERVE_SPARSITY, impl="ref")
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_T = 4, 128, 4, 64
-DRILL_LAYERS, DRILL_STEPS, DRILL_FAULT, DRILL_CKPT = 4, 7, 5, 2
+# (steps cut from 7 with the fault from step 5, for phase 16's time)
+DRILL_LAYERS, DRILL_STEPS, DRILL_FAULT, DRILL_CKPT = 4, 5, 3, 2
 REPLAY_TOL = 5e-2
 # phase 11: minicpm3-4b (MLA) with the RgCSR FFN; phase 12: granite-moe
 # and deepseek-v3's smoke config.  Sessions: FAM_MIX = (requests, new
@@ -330,8 +352,8 @@ REPLAY_TOL = 5e-2
 MLA_ARCH, MOE_ARCH, DEEPSEEK_ARCH = ("minicpm3-4b", "granite-moe-1b-a400m",
                                      "deepseek-v3-671b")
 # minicpm3-4b's depth, cut from 62 so that the script keeps its time limit
-# with phase 15
-MLA_LAYERS = 16
+# with phases 15 and 16; granite-moe-1b-a400m's serving depth from 24
+MLA_LAYERS, MOE_LAYERS = 8, 12
 FAM_MIX, FAM_LENS, FAM_SLOTS, FAM_MAX_SEQ = (16, 64), (64, 128, 192, 256), \
     8, 512
 FAM_K2_WIDTHS = (SERVE_BATCH, FAM_SLOTS, SERVE_BATCH * SERVE_PROMPT)
@@ -344,8 +366,9 @@ MOE_CPU_LAYERS, MOE_TRAIN_STEPS = 2, 3
 # also with the split forced at REC_PIECE_ROWS
 REC_RG_ARCH, REC_MAMBA_ARCH = "recurrentgemma-9b", "mamba2-780m"
 # recurrentgemma-9b's depth, cut from 38 (rec, rec + 12 × (attn_local, rec,
-# rec)) to the prefix and 4 periods, for the time limit
-RG_LAYERS = 14
+# rec)) to the prefix and 2 periods, and mamba2-780m's from 48, for the
+# time limit
+RG_LAYERS, MAMBA_LAYERS = 8, 24
 REC_LONG, REC_STEPS, REC_CPU_LAYERS, REC_TRAIN_STEPS = 300, 8, 2, 3
 REC_K2_WIDTHS = (1,) + FAM_K2_WIDTHS
 REC_PIECE_ROWS = 8
@@ -361,9 +384,17 @@ ENC_BATCH, ENC_FRAMES, ENC_PROMPT, ENC_MAX_SEQ = 4, 512, 16, 64
 ENC_STEPS, ENC_CPU_LAYERS, ENC_TRAIN_STEPS = 8, 2, 3
 VLM_BATCH, VLM_PROMPT = 2, 64
 VLM_PEAK_GIB, VLM_ACT_BYTES, VLM_CUT_LAYERS = 72, 4 * 2**30, 8
+# pixtral-12b's depth, cut from 40 so that the script keeps its time limit
+# with phase 16
+VLM_LAYERS = 10
 # phase 15: SHARD_WORLD ranks share the card over gloo; a rank's collective
 # gives up after SHARD_TIMEOUT_S, the phase after SHARD_DEADLINE_S
 SHARD_WORLD, SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 4, 240, 360
+# phase 16: sharded training of granite-3-2b at full width, its depth cut
+# to TRAIN16_LAYERS, on a TRAIN16_MESH (data, model) mesh of gloo ranks
+# sharing the card; losses within TRAIN16_TOL relative of one device
+TRAIN16_MESH, TRAIN16_LAYERS, TRAIN16_STEPS, TRAIN16_MICRO = (2, 2), 4, 3, 2
+TRAIN16_TOL, TRAIN16_DEADLINE_S = 1e-4, 420
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -1149,6 +1180,448 @@ def sharded_phase(dev, mats, x, xm, entries, failures, tag):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+
+
+# ------------------------------------------- phase 16: sharded training
+
+
+def _phase16_cfg(cfg_kw):
+    """granite-3-2b at full width with the RgCSR FFN through the segment
+    sum, in float32, its depth cut to ``TRAIN16_LAYERS`` (``cfg_kw``
+    overrides, e.g. a CPU rehearsal's narrow model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SparsityConfig
+    return dataclasses.replace(get_config(SERVE_ARCH), **dict(dict(
+        n_layers=TRAIN16_LAYERS, dtype="float32", kv_cache_dtype="float32",
+        sparsity=SparsityConfig(**TRAIN_SPARSITY)), **cfg_kw))
+
+
+def _phase16_train_config(ckpt_dir=None):
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig
+    return TrainConfig(steps=TRAIN16_STEPS, microbatches=TRAIN16_MICRO,
+                       log_every=100, ckpt_dir=ckpt_dir, ckpt_every=100,
+                       seed=SEED, opt=OptimizerConfig(
+                           warmup_steps=2, decay_steps=TRAIN16_STEPS))
+
+
+class _TimedDist:
+    """``torch.distributed`` with the wall time of every collective the
+    sharding layer calls summed in ``seconds`` (a synchronize before and
+    after each, so the card's queued work is not counted in it)."""
+
+    def __init__(self, dist, sync):
+        self._dist, self._sync, self.seconds, self.calls = dist, sync, 0.0, 0
+
+    def __getattr__(self, name):
+        fn = getattr(self._dist, name)
+        if name not in ("all_gather_into_tensor", "reduce_scatter_tensor",
+                        "all_reduce"):
+            return fn
+
+        def timed(*a, **kw):
+            self._sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self._sync()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        return timed
+
+
+def train_rank(rank, world, tmp, timeout_s, device, cfg_kw):
+    """Phase 16 (a)–(d): rank ``rank`` of ``world`` ranks sharing the card
+    over gloo, spawned by :func:`sharded_train_phase`; writes its results
+    and failures to ``tmp/train<rank>.json``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import Partitioner, layout
+    from repro_torch.sharding.partitioner import _candidates, _filter_axis
+    from repro_torch.train.trainer import Trainer, _flat
+
+    def say(msg):     # one write per line: the ranks share stdout
+        os.write(1, f"train16 r{rank}: {msg}\n".encode())
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store16"), world),
+        rank=rank, world_size=world, timeout=timeout)
+    timed = _TimedDist(dist, sync)
+    layout.dist = timed
+    failures, out = [], {}
+    cfg = _phase16_cfg(cfg_kw)
+    ckpt = str(Path(tmp) / "ckpt16")
+    t0 = time.perf_counter()
+    try:     # a rank that raises fails the spawn, which ends the others
+        mesh = make_mesh(TRAIN16_MESH, ("data", "model"),
+                         device_type=dev.type)
+        part = Partitioner(mesh, "train")
+        tr = Trainer(cfg, _phase16_train_config(ckpt), mesh=mesh,
+                     partitioner=part, device=dev)
+        state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
+        step_fn, comm = tr.train_step, []
+
+        def counted(*a):
+            before = timed.seconds
+            res = step_fn(*a)
+            comm.append(timed.seconds - before)
+            return res
+        tr.train_step = counted
+        t1 = time.perf_counter()
+        state, _ = tr.run(state)
+        run_s = time.perf_counter() - t1
+        out["history"] = tr.history
+        out["comm_s"] = comm
+        tokens = TRAIN_SEQ * TRAIN_BATCH
+        for h, c in zip(tr.history, comm):
+            say(f"step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+                f"{h['grad_norm']:.6f}, {h['step_time_s']:.3f} s host "
+                f"(ending in a synchronize), collectives {c:.3f} s "
+                f"({c / h['step_time_s']:.1%}), "
+                f"{tokens / h['step_time_s']:.1f} tokens/s")
+        say(f"{len(tr.history)} steps and the final checkpoint in "
+            f"{run_s:.1f} s ({timed.calls} collectives, "
+            f"{timed.seconds:.1f} s in them)")
+        # (b) bytes at rest: each rank's slices against the placements'
+        # prediction and the single-device total
+        params, opt_state = state
+        flat_opt = {}
+        for name in ("m", "v"):
+            flat_opt.update({f"{name}/{k}": t
+                             for k, t in opt_state[name].items()})
+        held = predicted = whole = 0
+        for key, t in list(params.items()) + list(flat_opt.items()):
+            n_full = t.numel() * t.element_size()
+            pieces = 1
+            for i, pl in enumerate(t.placements):
+                pieces *= mesh.size(i) if pl.is_shard() else 1
+            local = t.to_local()
+            held += local.numel() * local.element_size()
+            predicted += n_full // pieces
+            whole += n_full
+        fallback = []
+        rules = part.rules.params
+        for key, p in _flat(tr.model.spec()).items():
+            s = part._leaf_spec(p)
+            named = [n for n, e in zip(p.axes, s) if e is None and any(
+                _filter_axis(mesh, c) is not None
+                for c in _candidates(rules.get(n))[:-1])]
+            if named:
+                fallback.append(f"{key} {tuple(p.shape)} {named}")
+        out["bytes"] = {"held": held, "predicted": predicted,
+                        "whole": whole, "fallback": fallback}
+        say(f"bytes at rest (fp32 parameters and AdamW's two moments): "
+            f"{held} held on this rank, {predicted} by the placements, "
+            f"{whole} on one device ({held / whole:.2%}); "
+            f"{len(fallback)} leaves replicated where a rule named an "
+            f"axis (no axis divides them, or the leaf's axis was taken)")
+        if held != predicted:
+            failures.append(f"rank {rank} holds {held} B, placements "
+                            f"predict {predicted}")
+        # (c) the checkpoint (step TRAIN16_STEPS - 1) onto (1, world):
+        # every slice bitwise the (2, 2) state's, gathered leaf by leaf
+        mesh2 = make_mesh((1, world), ("data", "model"),
+                          device_type=dev.type)
+        tr2 = Trainer(cfg, _phase16_train_config(ckpt), mesh=mesh2,
+                      partitioner=Partitioner(mesh2, "train"), device=dev)
+        tr2.init_state(TRAIN_SEQ, TRAIN_BATCH)
+        t1 = time.perf_counter()
+        (params2, opt2), nxt = tr2.restore_latest()
+        restore_s = time.perf_counter() - t1
+        bad = []
+        pairs = [(f"params/{k}", params[k], params2[k]) for k in params]
+        for name in ("m", "v"):
+            pairs += [(f"{name}/{k}", opt_state[name][k], opt2[name][k])
+                      for k in opt_state[name]]
+        for key, saved, got in pairs:
+            want = layout.local_chunk(layout.gather(saved), mesh2,
+                                      got.placements)
+            if not torch.equal(want, got.to_local()):
+                bad.append(key)
+        ok = not bad and nxt == TRAIN16_STEPS
+        say(f"checkpoint of {TRAIN16_MESH} restored onto (1, {world}) in "
+            f"{restore_s:.1f} s: {len(pairs)} parameters and moments "
+            f"bitwise equal {not bad}, next step {nxt} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"restore onto (1, {world}): {bad[:4]}")
+        del tr2, params2, opt2, pairs, want
+        out["phase_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    out["failures"] = failures
+    with open(Path(tmp) / f"train{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def restore_rank(rank, world, tmp, timeout_s, device, cfg_kw):
+    """Phase 16 (c): the (2, 2) checkpoint restored by ``world`` ranks on
+    a ``(world,)`` mesh, each slice bitwise the checkpoint file's."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import port_layout
+    from repro_torch.sharding import Partitioner, layout
+    from repro_torch.train import checkpoint
+    from repro_torch.train.trainer import Trainer, _shape_only
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store16r"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    failures, out = [], {}
+    cfg = _phase16_cfg(cfg_kw)
+    ckpt = str(Path(tmp) / "ckpt16")
+    try:
+        mesh = make_mesh((world,), ("model",), device_type=dev.type)
+        tr = Trainer(cfg, _phase16_train_config(ckpt), mesh=mesh,
+                     partitioner=Partitioner(mesh, "train"), device=dev)
+        tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
+        t1 = time.perf_counter()
+        (params, opt), nxt = tr.restore_latest()
+        out["restore_s"] = time.perf_counter() - t1
+        meta = {k: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                for k, t in params.items()}
+        host, _ = checkpoint.restore(ckpt, tr._checkpoint_tree(
+            (meta, tr.opt_init(meta)), _shape_only))
+        bad, n = [], 0
+        saved = {"params": port_layout(cfg, host["params"])}
+        for name in ("m", "v"):
+            saved[name] = port_layout(cfg, host["opt_state"][name])
+        live = {"params": params, "m": opt["m"], "v": opt["v"]}
+        for group, tree in live.items():
+            for k, t in tree.items():
+                want = layout.local_chunk(torch.from_numpy(np.asarray(
+                    saved[group][k])), mesh, t.placements)
+                n += 1
+                if not torch.equal(want, t.to_local().cpu()):
+                    bad.append(f"{group}/{k}")
+        out.update(n=n, bad=bad, next_step=nxt)
+        if bad or nxt != TRAIN16_STEPS:
+            failures.append(f"restore onto ({world},): {bad[:4]}, next "
+                            f"step {nxt}")
+    finally:
+        dist.destroy_process_group()
+    out["failures"] = failures
+    with open(Path(tmp) / f"restore{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _spawn_ranks(fn, world, tmp, deadline_s, args):
+    """``fn(rank, world, tmp, ...)`` on ``world`` spawned ranks; an error
+    message, or None.  Every process is ended before it returns."""
+    import torch.multiprocessing as mp
+    t1 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=(world, str(tmp)) + args,
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t1 > deadline_s:
+                raise TimeoutError(f"ranks still running after "
+                                   f"{deadline_s} s")
+    except Exception as err:            # noqa: BLE001 — fail the phase
+        return str(err)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return None
+
+
+def _launcher_ranks(world, tmp, deadline_s, device, argv):
+    """``python -m repro_torch.launch.train`` on ``world`` processes of
+    their own, the default group from the launcher environment (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT) over gloo: (rank 0's standard
+    output, an error message or None)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, outs, errs = [], [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port),
+                   PYTHONPATH=str(ROOT / "src") + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        outs.append(open(Path(tmp) / f"launcher{rank}.out", "w+"))
+        errs.append(open(Path(tmp) / f"launcher{rank}.err", "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             "--backend", "gloo", "--device", device] + argv,
+            env=env, stdout=outs[-1], stderr=errs[-1], cwd=str(tmp)))
+    t1, err = time.perf_counter(), None
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() - t1 > deadline_s:
+                err = f"launcher ranks still running after {deadline_s} s"
+                break
+            if any(p.poll() not in (None, 0) for p in procs):
+                err = "a launcher rank failed: " + ", ".join(
+                    f"rank {r} exit {p.poll()}" for r, p in enumerate(procs))
+                break
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts, tails = [], []
+    for f, e in zip(outs, errs):
+        f.seek(0)
+        e.seek(0)
+        texts.append(f.read())
+        tails.append(e.read()[-1500:])
+        f.close()
+        e.close()
+    if err is None and any(p.returncode for p in procs):
+        err = f"launcher exit codes {[p.returncode for p in procs]}"
+    if err:
+        for r, t in enumerate(tails):
+            log(f"train16 launcher rank {r} stderr tail: {t}")
+    return texts[0], err
+
+
+def sharded_train_phase(dev, failures, tag, cfg_kw=None):
+    """Phase 16, sharded training on a ``TRAIN16_MESH`` mesh of gloo
+    ranks sharing the card (see the module's note)."""
+    import torch
+    from repro_torch.train.trainer import Trainer
+    cfg_kw = dict(cfg_kw or {})
+    t16 = time.perf_counter()
+    device = dev.type
+    world = int(np.prod(TRAIN16_MESH))
+    cfg = _phase16_cfg(cfg_kw)
+    log(f"train16: {cfg.name} d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"{cfg.n_layers} layers (cut from {SERVE_ARCH}'s published depth), "
+        f"RgCSR FFN through the segment sum, fp32, AdamW, "
+        f"{TRAIN16_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens with "
+        f"micro={TRAIN16_MICRO}, on a {TRAIN16_MESH} (data, model) mesh of "
+        f"{world} gloo ranks sharing {tag}")
+    # (a) the port's single-device trainer on the same card, same seed
+    t1 = time.perf_counter()
+    single = Trainer(cfg, _phase16_train_config(), device=dev)
+    state = single.init_state(TRAIN_SEQ, TRAIN_BATCH)
+    single.run(state)
+    want = single.history
+    n_params = sum(t.numel() for t in single.model.tensors().values()
+                   if t.is_floating_point())
+    log(f"train16 one device: {n_params} float parameters, losses "
+        f"{[round(h['loss'], 6) for h in want]}, host s per step "
+        f"{[round(h['step_time_s'], 3) for h in want]} in "
+        f"{time.perf_counter() - t1:.1f} s")
+    del single, state
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train16_"))
+    try:
+        t1 = time.perf_counter()
+        err = _spawn_ranks(train_rank, world, tmp, TRAIN16_DEADLINE_S,
+                           (SHARD_TIMEOUT_S, device, cfg_kw))
+        if err:
+            failures.append(f"train16 ranks: {err}")
+            return
+        ranks = []
+        for r in range(world):
+            with open(tmp / f"train{r}.json") as f:
+                ranks.append(json.load(f))
+        for r, res in enumerate(ranks):
+            failures.extend(f"train16 rank {r}: {f}"
+                            for f in res["failures"])
+        worst = 0.0
+        for res in ranks:
+            for g, w in zip(res["history"], want, strict=True):
+                worst = max(worst, abs(g["loss"] - w["loss"])
+                            / abs(w["loss"]))
+        ok = worst <= TRAIN16_TOL
+        gn = max(abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                 for g, w in zip(ranks[0]["history"], want))
+        log(f"train16 (a) {world} ranks against one device: largest loss "
+            f"gap {worst:.3e} relative (tol {TRAIN16_TOL:g}), grad_norm "
+            f"{gn:.3e}; the ranks in {time.perf_counter() - t1:.1f} s "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train16: loss gap {worst:.3e}")
+        steps = ranks[0]["history"]
+        host = [h["step_time_s"] for h in steps]
+        comm = [max(res["comm_s"][i] for res in ranks)
+                for i in range(len(steps))]
+        log(f"train16 (d) per step (rank 0's host s, the slowest rank's "
+            f"collectives): host {[round(x, 3) for x in host]} s, "
+            f"collectives {[round(x, 3) for x in comm]} s "
+            f"({[f'{c / h:.0%}' for c, h in zip(comm, host)]}), "
+            f"{[round(TRAIN_SEQ * TRAIN_BATCH / h, 1) for h in host]} "
+            f"tokens/s — gloo, host-staged, {world} ranks on one card: no "
+            f"multi-card figure")
+        b = [res["bytes"] for res in ranks]
+        log(f"train16 (b) bytes at rest per rank: "
+            f"{[x['held'] for x in b]} held, {[x['predicted'] for x in b]} "
+            f"by the placements, {b[0]['whole']} on one device; replicated "
+            f"by the fallback: {b[0]['fallback'] or 'none'}")
+        # (c) the same checkpoint onto a 2-rank (2,) mesh
+        t1 = time.perf_counter()
+        err = _spawn_ranks(restore_rank, 2, tmp, TRAIN16_DEADLINE_S,
+                           (SHARD_TIMEOUT_S, device, cfg_kw))
+        if err:
+            failures.append(f"train16 restore ranks: {err}")
+        else:
+            res2 = []
+            for r in range(2):
+                with open(tmp / f"restore{r}.json") as f:
+                    res2.append(json.load(f))
+            for r, res in enumerate(res2):
+                failures.extend(f"train16 restore rank {r}: {f}"
+                                for f in res["failures"])
+            ok = not any(res["failures"] for res in res2)
+            log(f"train16 (c) checkpoint of {TRAIN16_MESH} onto 2 ranks "
+                f"(2,): {res2[0]['n']} parameters and moments a rank, "
+                f"bitwise the file's {ok}, restore "
+                f"{max(r['restore_s'] for r in res2):.1f} s, with the "
+                f"spawn {time.perf_counter() - t1:.1f} s "
+                f"{'ok' if ok else 'FAIL'}")
+        # (e) the launcher's --mesh through its own ranks
+        t1 = time.perf_counter()
+        argv = ["--arch", SERVE_ARCH, "--sparse-ffn", "--mesh",
+                "x".join(map(str, TRAIN16_MESH)), "--layers",
+                str(cfg.n_layers), "--steps", str(TRAIN16_STEPS), "--seq",
+                str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--micro",
+                str(TRAIN16_MICRO)]
+        text, err = _launcher_ranks(world, tmp, TRAIN16_DEADLINE_S, device,
+                                    argv + _launcher_cfg_argv(cfg_kw))
+        last = text.strip().splitlines()[-1] if text.strip() else ""
+        ok = err is None and last.startswith(
+            f"done: {TRAIN16_STEPS} steps, final loss ")
+        log(f"train16 (e) launch/train.py {' '.join(argv)} on {world} "
+            f"ranks of its own: last line {last!r} in "
+            f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train16 launcher: {err or last}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
+
+
+def _launcher_cfg_argv(cfg_kw):
+    """The launcher's flags for a CPU rehearsal's narrow model (none on
+    the card)."""
+    return ["--smoke"] if cfg_kw else []
 
 
 # --------------------------------------------------------------------- main
@@ -2640,15 +3113,16 @@ def main() -> int:
     drill_cfg = dataclasses.replace(train_cfg, n_layers=DRILL_LAYERS)
     with tempfile.TemporaryDirectory() as tmp:
         def drill(sub, fault=None):
+            # the uninterrupted run (sub None) writes no checkpoint
             tc = trainer_mod.TrainConfig(
                 steps=DRILL_STEPS, ckpt_every=DRILL_CKPT, log_every=100,
-                ckpt_dir=f"{tmp}/{sub}",
+                ckpt_dir=f"{tmp}/{sub}" if sub else None,
                 opt=OptimizerConfig(warmup_steps=5, decay_steps=DRILL_STEPS))
             return trainer_mod.Trainer(drill_cfg, tc, fault_injector=fault,
                                        device=dev)
 
         t1 = time.perf_counter()
-        clean = drill("clean")
+        clean = drill(None)
         clean.run(clean.init_state(TRAIN_SEQ, TRAIN_BATCH))
         fault = FaultInjector(fail_at_steps=[DRILL_FAULT])
         faulty = drill("faulty", fault)
@@ -3100,7 +3574,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"moe: held from the earlier phases: {live_cuda()}")
     torch.cuda.reset_peak_memory_stats()
-    moe_cfg = get_config(MOE_ARCH)
+    moe_cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
     mo = moe_cfg.moe
     moe_tree = init_params(moe_cfg,
                            torch.Generator(device=dev).manual_seed(SEED))
@@ -3551,7 +4025,8 @@ def main() -> int:
     # (b) mamba2-780m
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    mb_cfg = get_config(REC_MAMBA_ARCH)
+    mb_cfg = dataclasses.replace(get_config(REC_MAMBA_ARCH),
+                                 n_layers=MAMBA_LAYERS)
     sm = mb_cfg.ssm
     mb_tree = init_params(mb_cfg,
                           torch.Generator(device=dev).manual_seed(SEED))
@@ -4048,7 +4523,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    p_cfg = dataclasses.replace(get_config(VLM_ARCH),
+    p_cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS,
                                 sparsity=SparsityConfig(**SERVE_SPARSITY))
     n_p = p_cfg.n_layers
     leaves = list(spec_leaves(model_spec(p_cfg)))
@@ -4144,6 +4619,11 @@ def main() -> int:
 
     # ---- 15. row-sharded SpMV/SpMM
     sharded_phase(dev, mats, x, xm, entries, failures, tag)
+
+    # ---- 16. sharded training
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_train_phase(dev, failures, tag)
 
 
     for kernel in KERNEL_META:

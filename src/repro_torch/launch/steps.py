@@ -11,14 +11,32 @@ parameter the loss does not reach (the MoE router's aux-free ``bias``,
 which routing reads detached, as the reference's ``stop_gradient``) gets a
 zero gradient, as in the reference, so the optimizer leaves it as it is
 (no weight decay on 1-D parameters).
+
+On a mesh (``make_train_step(..., partitioner=)``) the model's tensors
+are DTensors laid out by the partitioner's rules, and the step **gathers
+each parameter whole at its use** (``sharding.layout.gather_at_use``):
+activations stay plain local tensors, so every op of the single-device
+model runs unchanged, and the backward hands each rank its shard of the
+gradient, summed over the mesh.  Microbatch ``i`` is the global batch's
+``i``-th part, as on one device; each rank takes its rows of it by
+``batch_shardings``.  Each rank divides its CE sums by the labelled
+positions of the whole microbatch (``LanguageModel.token_totals``, read
+from the global batch every rank holds), so the ranks' losses sum to the
+microbatch's token-weighted mean, never a mean of per-shard means.  The
+ranks along mesh dims that do not split the batch (``model``) repeat the
+same work on the same rows: their gradients are scaled by one over their
+count before the sum.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Dict
 
 import numpy as np
 import torch
 
+from repro_torch.sharding import layout
 from repro_torch.train.optimizer import OptimizerConfig, global_norm, \
     make_optimizer
 
@@ -58,7 +76,10 @@ def _update_leafwise(opt_update, grads, state, params):
                for name, v in state.items()}
         new_p, new_sub = opt_update({k: grads.pop(k, None)}, sub, {k: p})
         if new_p[k] is not p:
-            p.copy_(new_p[k])
+            if layout.is_dtensor(p):
+                p.to_local().copy_(new_p[k].to_local())
+            else:
+                p.copy_(new_p[k])
         for name, v in new_sub.items():
             if isinstance(v, dict):
                 new_state.setdefault(name, {}).update(v)
@@ -67,7 +88,8 @@ def _update_leafwise(opt_update, grads, state, params):
     return new_state
 
 
-def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
+def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
+                    *, partitioner=None):
     """``(train_step, opt_init)``.  ``train_step(params, opt_state, batch)
     -> (params, opt_state, metrics)``: ``params`` is ``model.tensors()``
     (updated in place and returned), ``batch`` a dict of ``(B, S)`` arrays
@@ -76,8 +98,13 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
     ``mtp`` where the model has them), each the mean over microbatches,
     and ``grad_norm``, as float32 tensors on the model's device.
     ``opt_state`` is consumed: its moments move into the returned state
-    one tensor at a time."""
+    one tensor at a time.  With ``partitioner`` the step runs on its mesh
+    (the module's note): ``params`` and the moments are DTensors, and
+    ``batch`` is the global batch, the same on every rank."""
     opt_init, opt_update = make_optimizer(opt_cfg)
+    if partitioner is not None:
+        return _sharded_train_step(model, opt_cfg, opt_update, microbatches,
+                                   partitioner), opt_init
 
     def train_step(params, opt_state, batch):
         batch = _on_device(batch, model.device)
@@ -119,6 +146,106 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1):
         return params, opt_state, metrics
 
     return train_step, opt_init
+
+
+def refuse_on_mesh(cfg):
+    """Raise for a config whose loss couples examples across ranks: MoE
+    capacities come from the per-rank token count and its load-balance
+    loss from per-rank routing statistics, so a sharded step would not be
+    the single-device step."""
+    if cfg.moe.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE on a mesh is not ported yet (its capacity "
+            f"and load-balance loss couple examples across ranks; ROADMAP "
+            f"queue 1, item 9: MoE on a mesh)")
+
+
+@contextlib.contextmanager
+def _bound(model, tensors: Dict[str, torch.Tensor]):
+    """``model`` computing with ``tensors`` (keyed as ``model.tensors()``)
+    in place of its own parameters and buffers, until the block ends."""
+    saved = []
+    for name, t in tensors.items():
+        path, _, attr = name.replace("/", ".").rpartition(".")
+        mod = model.get_submodule(path)
+        table = mod._parameters if attr in mod._parameters else mod._buffers
+        saved.append((table, attr, table[attr]))
+        table[attr] = t
+    try:
+        yield model
+    finally:
+        for table, attr, old in saved:
+            table[attr] = old
+
+
+def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
+                        partitioner):
+    refuse_on_mesh(model.cfg)
+    mesh = partitioner.mesh
+
+    def train_step(params, opt_state, batch):
+        trained = {k: p for k, p in params.items()
+                   if p.is_floating_point() and p.requires_grad}
+        if len(trained) != sum(p.is_floating_point()
+                               for p in params.values()):
+            raise ValueError("every floating parameter must take gradients "
+                             "(model.requires_grad_(True))")
+        batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+                 else v.cpu() for k, v in batch.items()}
+        parts = [{k: v.chunk(microbatches)[i] for k, v in batch.items()}
+                 for i in range(microbatches)]
+        shardings = partitioner.batch_shardings(parts[0])
+        rows = shardings["tokens"]
+        batch_dims = sorted({i for dims in layout.sharded_mesh_dims(
+            rows.placements()).values() for i in dims})
+        repeats = math.prod(mesh.size(i) for i in range(mesh.ndim)
+                            if i not in batch_dims)
+        dev = rows.device()
+        # each parameter whole, its gradient routed back to its shard
+        whole = {k: layout.gather_at_use(p) if k in trained
+                 else layout.gather(p) for k, p in params.items()}
+        leaves = {k: w.detach().requires_grad_(k in trained)
+                  for k, w in whole.items()}
+        seen = {}
+        with _bound(model, leaves):
+            for mb in parts:
+                totals = model.token_totals(mb)
+                local = {k: layout.local_chunk(v, mesh, shardings[k]
+                                               .placements()).to(dev)
+                         for k, v in mb.items()}
+                loss, metrics = model.loss(local, token_totals=totals)
+                loss.backward()
+                for k, v in metrics.items():
+                    seen.setdefault(k, []).append(v.detach())
+        grads = []
+        for k in trained:
+            g = leaves[k].grad
+            g = torch.zeros_like(leaves[k]) if g is None else g
+            if microbatches > 1:
+                g = (g.float() / microbatches).to(g.dtype)
+            grads.append(g / repeats if repeats > 1 else g)
+        for p in trained.values():
+            p.grad = None
+        torch.autograd.backward([whole[k] for k in trained], grads)
+        del whole, leaves, grads
+        acc = {k: p.grad for k, p in trained.items()}
+        for p in trained.values():
+            p.grad = None
+        with torch.no_grad():
+            gnorm = global_norm(acc)
+            scale = torch.clamp(opt_cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+            for g in acc.values():
+                g.to_local().mul_(scale)
+            opt_state = _update_leafwise(opt_update, acc, opt_state, params)
+        # each rank's parts of the microbatches' token-weighted means
+        names = list(seen)
+        stacked = torch.stack([torch.stack(seen[k]) for k in names])
+        layout.all_reduce_over(stacked, mesh, batch_dims)
+        metrics = {k: stacked[i].mean() for i, k in enumerate(names)}
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(model, s_max: int, shape_kind: str = "prefill"):

@@ -64,6 +64,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.layers import Dense, RMSNorm, dense_spec, rope
+from repro_torch.models.shardlib import shard_attn_qkv
 from repro_torch.models.spec import P
 
 __all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache",
@@ -275,17 +276,6 @@ def _maybe_load(stored, scale, dtype):
 # ---------------------------------------------------------------------------
 # GQA
 # ---------------------------------------------------------------------------
-
-
-def shard_attn_qkv(cfg, q, k, v):
-    """The reference's activation-sharding hints for attention: the
-    identity without ``act_shard``.  Sharded activations come with sharded
-    training (ROADMAP queue 1, item 3)."""
-    if cfg.act_shard and cfg.attn_shard_mode != "none":
-        raise NotImplementedError(
-            "activation sharding (cfg.act_shard) is not ported yet "
-            "(ROADMAP queue 1, item 3: sharded training)")
-    return q, k, v
 
 
 def gqa_spec(cfg):

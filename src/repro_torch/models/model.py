@@ -218,34 +218,47 @@ class LanguageModel(nn.Module):
         return self._logits(h), h, aux
 
     # ------------------------------------------------------------------ loss
-    def loss(self, batch, *, shape_kind: str = "train"):
+    def loss(self, batch, *, shape_kind: str = "train", token_totals=None):
         """(loss, metrics): masked CE (``batch["labels"][t]`` is the token
         after position ``t``; labels below 0 are masked out), plus for MoE
         models ``_LB_COEF`` · load-balance + ``_Z_COEF`` · router-z (summed
         over the MoE layers) and with MTP ``_MTP_WEIGHT`` · the MTP loss.
         For ``vlm`` the patches' positions carry no label.  Metrics:
-        ``ce``, ``load_balance`` and ``mtp`` where they apply, ``loss``."""
+        ``ce``, ``load_balance`` and ``mtp`` where they apply, ``loss``.
+
+        ``token_totals`` (:meth:`token_totals` of a larger batch that this
+        one is a part of) divides each CE's sum by that batch's labelled
+        positions instead of this one's: the parts' losses then sum to the
+        whole batch's (sharded training's token-weighted mean)."""
         cfg = self.cfg
+        totals = token_totals or {}
         logits, h, aux = self.forward(batch, shape_kind=shape_kind,
                                       mode="train")
-        labels = batch["labels"].to(logits.device)
-        if cfg.frontend == "vision":
-            pad = labels.new_full((labels.shape[0], cfg.frontend_tokens), -1)
-            labels = torch.cat([pad, labels], dim=1)
-        loss = _masked_ce(logits, labels)
+        labels = _ce_labels(cfg, batch["labels"].to(logits.device))
+        loss = _masked_ce(logits, labels, totals.get("ce"))
         metrics = {"ce": loss}
         if cfg.moe.n_experts:
             loss = loss + _LB_COEF * aux["load_balance"] \
                 + _Z_COEF * aux["router_z"]
             metrics["load_balance"] = aux["load_balance"]
         if cfg.mtp_depth:
-            mtp_loss = self._mtp_loss(h, batch)
+            mtp_loss = self._mtp_loss(h, batch, totals.get("mtp"))
             loss = loss + _MTP_WEIGHT * mtp_loss
             metrics["mtp"] = mtp_loss
         metrics["loss"] = loss
         return loss, metrics
 
-    def _mtp_loss(self, h, batch):
+    def token_totals(self, batch):
+        """The labelled positions of ``batch`` that each CE term divides
+        by: ``{"ce"}``, and ``"mtp"`` with MTP (floats, at least 1)."""
+        labels = torch.as_tensor(batch["labels"])
+        out = {"ce": max(float((_ce_labels(self.cfg, labels) >= 0).sum()),
+                         1.0)}
+        if self.cfg.mtp_depth:
+            out["mtp"] = max(float((labels[:, 1:] >= 0).sum()), 1.0)
+        return out
+
+    def _mtp_loss(self, h, batch, total=None):
         """DeepSeek-V3 multi-token prediction (depth 1): predict token
         t+2 from [norm(h_t); norm(emb(tok_{t+1}))] through one extra
         ``attn`` block, the main model's final norm and head.  Zero for
@@ -263,7 +276,7 @@ class LanguageModel(nn.Module):
                                     mode="train")
         logits = self._logits(self.final_norm(out))
         # the target at merged position t is labels[t+1] (the t+2 token)
-        return _masked_ce(logits, labels[:, 1:])
+        return _masked_ce(logits, labels[:, 1:], total)
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """Every parameter and buffer, keyed by its path in the parameter
@@ -335,15 +348,27 @@ class LanguageModel(nn.Module):
         return self._logits(self.final_norm(x)), caches
 
 
-def _masked_ce(logits, labels):
+def _ce_labels(cfg, labels):
+    """The labels of every position the decoder sees: for ``vlm`` the
+    patches' positions first, unlabelled (-1)."""
+    if cfg.frontend == "vision":
+        pad = labels.new_full((labels.shape[0], cfg.frontend_tokens), -1)
+        labels = torch.cat([pad, labels], dim=1)
+    return labels
+
+
+def _masked_ce(logits, labels, total=None):
     """Cross-entropy over positions with label >= 0, in float32: predicts
-    ``labels[t]`` from position ``t``."""
+    ``labels[t]`` from position ``t``.  The sum is divided by ``total``
+    when given, else by the labelled positions here."""
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
     logits32 = logits.float()
     logz = torch.logsumexp(logits32, dim=-1)
     gold = logits32.gather(-1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
+    if total is not None:
+        return nll.sum() / total
     return nll.sum() / mask.sum().clamp_min(1.0)
 
 
@@ -452,12 +477,26 @@ def _put(tree, path, leaf):
     tree[path[-1]] = leaf
 
 
-def reference_layout(cfg, flat: Dict[str, Any]) -> Dict[str, Any]:
+def _np_stack(leaves):
+    """One stacked leaf from the body layers' leaves; a leaf that is 0-d
+    in every layer stays one 0-d leaf."""
+    return leaves[0] if np.ndim(leaves[0]) == 0 else np.stack(leaves)
+
+
+def _np_pick(node, r):
+    """Body repeat ``r``'s leaf of a stacked leaf (a 0-d leaf is every
+    layer's; ``r`` None: a prefix layer's own leaf)."""
+    return node if r is None or np.ndim(node) == 0 else node[r]
+
+
+def reference_layout(cfg, flat: Dict[str, Any], stack=_np_stack
+                     ) -> Dict[str, Any]:
     """The reference's tree from numpy leaves keyed like
     :meth:`LanguageModel.tensors` (a deeper key — ``".../kernel/vr"`` —
     is a subtree of that tensor's place).  Body layers are stacked on a
-    leading axis; a leaf that is 0-d in every body layer (an optimizer's
-    zero for an integer buffer) stays one 0-d leaf, as the reference's
+    leading axis by ``stack`` (a list of the layers' leaves → one leaf);
+    by default a leaf that is 0-d in every body layer (an optimizer's zero
+    for an integer buffer) stays one 0-d leaf, as the reference's
     optimizer makes it for the stacked buffer."""
     places = {port: _layer_places(scfg, ref)
               for port, ref, scfg in _stacks(cfg)}
@@ -474,16 +513,14 @@ def reference_layout(cfg, flat: Dict[str, Any]) -> Dict[str, Any]:
         else:
             stacked.setdefault(path + parts[2:], {})[r] = leaf
     for path, per in stacked.items():
-        leaves = [per[r] for r in range(len(per))]
-        _put(tree, path, leaves[0] if np.ndim(leaves[0]) == 0
-             else np.stack(leaves))
+        _put(tree, path, stack([per[r] for r in range(len(per))]))
     return tree
 
 
-def port_layout(cfg, tree) -> Dict[str, Any]:
-    """The inverse of :func:`reference_layout`: numpy leaves keyed like
-    :meth:`LanguageModel.tensors`, the body unstacked (a 0-d body leaf is
-    every layer's)."""
+def port_layout(cfg, tree, pick=_np_pick) -> Dict[str, Any]:
+    """The inverse of :func:`reference_layout`: leaves keyed like
+    :meth:`LanguageModel.tensors`, the body unstacked by ``pick(leaf,
+    repeat)``."""
     where = {}
     for port, ref, scfg in _stacks(cfg):
         for layer, (path, r) in enumerate(_layer_places(scfg, ref)):
@@ -500,8 +537,7 @@ def port_layout(cfg, tree) -> Dict[str, Any]:
             flat["/".join(path)] = node
             return
         for port, layer, r in where[path[:3]]:
-            leaf = node if r is None or np.ndim(node) == 0 else node[r]
-            flat["/".join((port, str(layer)) + path[3:])] = leaf
+            flat["/".join((port, str(layer)) + path[3:])] = pick(node, r)
 
     walk(tree, ())
     return flat

@@ -23,8 +23,9 @@ Everything here runs inside the serving engine's captured decode step on
 the card, so nothing asks the host for a value: one-hot tensors are
 comparisons against an ``arange``, and capacities come from shapes.  On a
 CUDA card ``index_add_`` (the scatter dispatch) sums with atomics and is
-not bitwise repeatable.  The reference's sharding hints
-(``shardlib.constrain``) are the identity on one card and are left out.
+not bitwise repeatable.  The reference's expert-parallel hint
+(``shardlib.constrain`` of the ``(E, C, d)`` buffer over ``model``) sits
+where it does; on plain tensors it is the identity.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from torch import nn
 
 from repro_torch.models.ffn import FFN, ffn_apply_stacked, gated_ffn_apply
 from repro_torch.models.layers import ParamModule, dense_spec
+from repro_torch.models.shardlib import constrain
 from repro_torch.models.spec import P
 
 __all__ = ["moe_spec", "moe_apply", "MoE"]
@@ -146,6 +148,7 @@ def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
         dispatch = dispatch + pos_oh
         combine = combine + pos_oh * w[:, kk][:, None, None]
     expert_in = torch.einsum("tec,td->ecd", dispatch, x_flat)     # (E,C,d)
+    expert_in = constrain(cfg, expert_in, "model", None, None)    # EP
     expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
     return torch.einsum("tec,ecd->td", combine, expert_out)
 
@@ -175,8 +178,9 @@ def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
     buf = x_flat.new_zeros((m.n_experts * cap, d))
     buf.index_add_(0, slot, torch.where(keep[:, None], gathered,
                                         gathered.new_zeros(())))
-    expert_out = ffn_apply_stacked(layer.experts, cfg,
-                                   buf.reshape(m.n_experts, cap, d))
+    expert_in = constrain(cfg, buf.reshape(m.n_experts, cap, d), "model",
+                          None, None)                              # EP
+    expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
     out_flat = expert_out.reshape(m.n_experts * cap, d)
 
     w_copy = w.reshape(-1)[order]                                 # (T*k,)

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (Dense, ParamModule, RMSNorm,
                                        dense_spec, rmsnorm_spec)
+from repro_torch.models.shardlib import constrain
 from repro_torch.models.spec import P
 
 __all__ = [
@@ -222,6 +223,9 @@ def mamba2_apply(layer: "Mamba2", cfg, x, *, return_state: bool = False):
     b = xbc[..., d_inner: d_inner + n_bc].reshape(bsz, l, ssm.n_groups,
                                                    ssm.d_state)
     c = xbc[..., d_inner + n_bc:].reshape(bsz, l, ssm.n_groups, ssm.d_state)
+    # the SSD heads over TP, as the reference hints them
+    if n_heads % 8 == 0:
+        xs = constrain(cfg, xs, "batch", None, "model", None)
     dt, a = _mamba_gates(layer, cfg, dt_raw)
 
     xs32 = xs.float()

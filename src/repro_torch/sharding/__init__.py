@@ -1,6 +1,9 @@
-"""Distribution: the logical-axis partitioner's rule tables and the routing
-of row-sharded SpMV onto a ``DeviceMesh`` axis."""
+"""Distribution: the logical-axis partitioner (rule tables, parameter,
+optimizer, batch, cache and logits shardings, the row-sharded SpMV route)
+and the DTensor layouts and collectives of sharded training."""
+from repro_torch.sharding import layout  # noqa: F401
 from repro_torch.sharding.partitioner import (  # noqa: F401
+    NamedSharding,
     Partitioner,
     ShardingRules,
     SERVE_RULES,

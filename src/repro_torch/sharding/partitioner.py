@@ -1,32 +1,48 @@
-"""Logical-axis partitioner: the rule tables and the row-sharded SpMV route.
+"""Logical-axis partitioner: rules → specs and ``NamedSharding`` trees.
 
-The PyTorch counterpart of ``repro.sharding.partitioner``, its routing half.
-Every parameter dim carries a logical axis name (set in the layer specs); a
+The PyTorch counterpart of ``repro.sharding.partitioner``.  Every
+parameter dim carries a logical axis name (set in the layer specs); a
 rules table maps names to mesh axes per *shape kind*:
 
 * ``train``   — FSDP + TP: ``embed → data``, heads/mlp/vocab/experts →
   ``model``; batch over ``(pod, data)``.
 * ``prefill/decode/long_decode`` — serving: TP only for dense params, MoE
   experts over the whole mesh (``(data, model)``), KV caches over
-  batch/heads.
+  batch/heads, or over sequence for ``long_decode``.
 
-The tables use no framework and are copied from the reference (a test holds
-them equal).  Both map ``sparse_rows → model``: that rule routes
+Every rule is divisibility-checked against the actual dim; on failure the
+next candidate applies (finally: replicated), and one mesh axis shards at
+most one dim of a leaf.  The tables use no framework and are copied from
+the reference (a test holds them equal).
+
+A spec is a tuple with one entry per tensor dim, each a mesh-axis name, a
+tuple of names (major to minor) or ``None``: the entries of the
+reference's ``PartitionSpec``.  The port's spec tree holds one subtree per
+layer where the reference stacks the body on a leading ``layers → None``
+dim, so a port leaf's spec is the reference leaf's without that dim.
+:class:`NamedSharding` pairs a spec with a ``torch.distributed``
+``DeviceMesh``: :meth:`NamedSharding.placements` gives the DTensor
+placements and :meth:`NamedSharding.distribute` lays a whole tensor out
+without communication (every rank holds the whole tensor and keeps its
+slice).  Both tables map ``sparse_rows → model``: that rule routes
 row-sharded SpMV (DESIGN.md §11), which :meth:`Partitioner.spmv_shard_axis`
-resolves on a ``torch.distributed.device_mesh.DeviceMesh``.  The parameter,
-optimizer, batch, cache and logits shardings are DTensor work of sharded
-training, not ported yet: those methods raise.
+resolves.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-__all__ = ["Partitioner", "ShardingRules", "TRAIN_RULES", "SERVE_RULES",
-           "resolve_spmv_shard_axis", "mesh_signature"]
+import numpy as np
+import torch
 
-_NOT_PORTED = ("{} belongs to sharded training, not ported yet (ROADMAP "
-               "queue 1, item 3: sharded training)")
+from repro_torch.models.spec import P, map_spec
+from repro_torch.sharding import layout
+
+__all__ = ["Partitioner", "ShardingRules", "TRAIN_RULES", "SERVE_RULES",
+           "NamedSharding", "resolve_spmv_shard_axis", "mesh_signature"]
+
+Spec = Tuple[Any, ...]
 
 
 def _candidates(x) -> Tuple:
@@ -116,6 +132,14 @@ def _filter_axis(mesh, axis):
     return axis if axis in names else None
 
 
+def _entry(axis):
+    """A spec entry as ``PartitionSpec`` keeps it: a one-axis tuple is
+    that axis."""
+    if isinstance(axis, tuple) and len(axis) == 1:
+        return axis[0]
+    return axis
+
+
 def mesh_signature(mesh) -> tuple:
     """Value identity of a ``DeviceMesh``: axis names, per-axis sizes, the
     global ranks in mesh order and the device type.
@@ -128,6 +152,55 @@ def mesh_signature(mesh) -> tuple:
             tuple(int(s) for s in mesh.shape),
             tuple(int(r) for r in mesh.mesh.flatten().tolist()),
             str(mesh.device_type))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class NamedSharding:
+    """``spec`` on ``mesh``: the reference's ``NamedSharding``.  A spec
+    shorter than the tensor's rank leaves the trailing dims replicated
+    (``()`` is the reference's ``PartitionSpec()``)."""
+    mesh: Any
+    spec: Spec
+
+    def placements(self) -> tuple:
+        """One DTensor placement per mesh dim: ``Shard(d)`` on each mesh
+        dim that the spec names for tensor dim ``d``, ``Replicate()``
+        elsewhere.  A tuple of axes on one dim shards it over each of
+        them, major to minor, which DTensor does in mesh-dim order: a
+        tuple out of that order is refused."""
+        from torch.distributed.tensor import Replicate, Shard
+        names = _axis_names(self.mesh)
+        out = [Replicate()] * len(names)
+        for d, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            idx = [names.index(a) for a in
+                   (entry if isinstance(entry, tuple) else (entry,))]
+            if idx != sorted(idx):
+                raise ValueError(
+                    f"spec entry {entry!r} is not in the mesh's axis order "
+                    f"{names}: DTensor shards a dim over mesh dims in "
+                    f"their order")
+            for i in idx:
+                out[i] = Shard(d)
+        return tuple(out)
+
+    def device(self) -> torch.device:
+        """The device a rank's shards live on: the mesh's type, the
+        current card for ``"cuda"``."""
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
+
+    def distribute(self, full):
+        """``full`` (a tensor or a numpy array, the same whole value on
+        every rank) as a DTensor laid out by this sharding on
+        :meth:`device`: each rank keeps only its slice, and nothing is
+        communicated."""
+        t = full if torch.is_tensor(full) else torch.from_numpy(
+            np.array(full))
+        return layout.distribute(t, self.mesh, self.placements(),
+                                 device=self.device())
 
 
 def resolve_spmv_shard_axis(mesh, shape_kind: str = "decode") -> str:
@@ -178,25 +251,157 @@ class Partitioner:
         axis = self.spmv_shard_axis()
         return 1 if axis is None else _axis_size(self.mesh, axis)
 
-    # --------------------------------------------- sharded training (raises)
+    # ------------------------------------------------------------ primitives
+    def _dim_spec(self, dim: int, name: Optional[str], used: set):
+        for cand in _candidates(self.rules.params.get(name)):
+            cand = _filter_axis(self.mesh, cand)
+            if cand is None:
+                return None
+            axes = cand if isinstance(cand, tuple) else (cand,)
+            if any(a in used for a in axes):
+                continue
+            if dim % _axis_size(self.mesh, cand) == 0:
+                used.update(axes)
+                return _entry(cand)
+        return None
+
+    def _leaf_spec(self, p: P) -> Spec:
+        used: set = set()
+        return tuple(self._dim_spec(d, n, used)
+                     for d, n in zip(p.shape, p.axes))
+
+    def _named(self, spec: Spec) -> "NamedSharding":
+        return NamedSharding(self.mesh, spec)
+
+    # ---------------------------------------------------------------- params
     def param_specs(self, spec_tree):
-        raise NotImplementedError(_NOT_PORTED.format("param_specs"))
+        return map_spec(self._leaf_spec, spec_tree)
 
     def param_shardings(self, spec_tree):
-        raise NotImplementedError(_NOT_PORTED.format("param_shardings"))
+        return map_spec(lambda p: self._named(self._leaf_spec(p)), spec_tree)
 
+    # ------------------------------------------------------------- optimizer
     def opt_shardings(self, spec_tree, opt_name: str,
                       factored_min_dim: int = 2):
-        raise NotImplementedError(_NOT_PORTED.format("opt_shardings"))
+        """Sharding tree matching ``optimizer.init(params)``'s structure.
+        The port's layers are not stacked, so Adafactor factors each
+        layer's own tensor: a 1-D per-layer leaf keeps an unfactored
+        ``v``.  An integer buffer (frozen RgCSR structure) carries a 0-d
+        placeholder moment under either optimizer, replicated; the
+        reference's Adafactor table gives a 2-D one ``vr``/``vc``, which
+        its own ``init`` does not make."""
+        rep = self._named(())
+
+        def integer(p: P) -> bool:
+            return p.dtype is not None and not p.dtype.is_floating_point
+
+        if opt_name == "adamw":
+            def moment(p: P):
+                if integer(p):
+                    return rep
+                return self._named(self._leaf_spec(p))
+
+            moments = map_spec(moment, spec_tree)
+            return {"step": rep, "m": moments, "v": moments}
+
+        def stats(p: P):
+            if len(p.shape) >= factored_min_dim and not integer(p):
+                used_r: set = set()
+                vr = tuple(self._dim_spec(d, n, used_r) for d, n in
+                           zip(p.shape[:-1], p.axes[:-1]))
+                used_c: set = set()
+                vc_dims = list(zip(p.shape[:-2], p.axes[:-2])) \
+                    + [(p.shape[-1], p.axes[-1])]
+                vc = tuple(self._dim_spec(d, n, used_c) for d, n in vc_dims)
+                return {"vr": self._named(vr), "vc": self._named(vc)}
+            return {"v": rep}
+
+        return {"step": rep, "stats": map_spec(stats, spec_tree)}
+
+    # ----------------------------------------------------------------- batch
+    def _batch_dim(self, b: int):
+        axes = _filter_axis(self.mesh, tuple(self.rules.batch))
+        if axes and b % _axis_size(self.mesh, axes) == 0:
+            return _entry(axes)
+        return None
 
     def batch_shardings(self, batch_tree):
-        raise NotImplementedError(_NOT_PORTED.format("batch_shardings"))
+        """A ``NamedSharding`` per leaf of a dict of arrays (``(B, ...)``):
+        the batch dim over the rule's batch axes where they divide it."""
+        def leaf(x):
+            nd = len(x.shape)
+            b = x.shape[0] if nd else 1
+            return self._named((self._batch_dim(b),) + (None,) * max(0,
+                                                                     nd - 1))
+        return {k: leaf(v) for k, v in batch_tree.items()}
 
+    # ----------------------------------------------------------------- cache
     def cache_shardings(self, cache_tree):
-        raise NotImplementedError(_NOT_PORTED.format("cache_shardings"))
+        """KV/state cache shardings by leaf name: the tree of
+        ``LanguageModel.init_cache`` (one dict per layer, a decoder
+        layer's ``self`` nested; nothing is stacked)."""
+        def walk(node, name):
+            if isinstance(node, dict):
+                return {k: walk(v, k) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return [walk(v, i) for i, v in enumerate(node)]
+            if node is None:
+                return None
+            return self._named(self._cache_leaf_spec(name, node, False))
+        return walk(cache_tree, None)
 
+    def _cache_leaf_spec(self, name, leaf, stacked: bool) -> Spec:
+        ndim = len(leaf.shape)
+        nd = ndim - (1 if stacked else 0)
+        prefix = [None] if stacked else []
+        if name in ("index", "block_table") or nd == 0:
+            return (None,) * ndim
+        used: set = set()
+
+        def dim(d, cands):
+            for c in cands:
+                c = _filter_axis(self.mesh, c)
+                if c is None:
+                    continue
+                axes = c if isinstance(c, tuple) else (c,)
+                if any(a in used for a in axes):
+                    continue
+                if d % _axis_size(self.mesh, c) == 0:
+                    used.update(axes)
+                    return _entry(c)
+            return None
+
+        shape = tuple(leaf.shape[1:] if stacked else leaf.shape)
+        batch_c = [tuple(self.rules.batch), "data"]
+        long_seq = self.shape_kind == "long_decode"
+        if name in ("k", "v", "k_scale", "v_scale", "ck", "cv"):
+            # (B, S, H, Dh)
+            spec = [dim(shape[0], batch_c),
+                    dim(shape[1], ["data"] if long_seq else []),
+                    dim(shape[2], ["model"]),
+                    dim(shape[3], ["model"])]
+        elif name in ("ckv", "krope"):
+            # (B, S, R)
+            spec = [dim(shape[0], batch_c),
+                    dim(shape[1], ["data"] if long_seq else []),
+                    dim(shape[2], ["model"])]
+        elif name == "ssm":
+            # (B, H, P, N)
+            spec = [dim(shape[0], batch_c), dim(shape[1], ["model"]),
+                    None, None]
+        elif name == "conv":
+            # (B, W-1, C)
+            spec = [dim(shape[0], batch_c), None, dim(shape[2], ["model"])]
+        elif name == "h":
+            # (B, D)
+            spec = [dim(shape[0], batch_c), dim(shape[1], ["model"])]
+        else:
+            spec = [dim(shape[0], batch_c)] + [None] * (nd - 1)
+        return tuple(prefix + spec)
+
+    # ---------------------------------------------------------------- output
     def logits_sharding(self, batch: int):
-        raise NotImplementedError(_NOT_PORTED.format("logits_sharding"))
+        return self._named((self._batch_dim(batch), None, None))
 
     def replicated(self):
-        raise NotImplementedError(_NOT_PORTED.format("replicated"))
+        return self._named(())

@@ -21,9 +21,11 @@ sorted order, list positions in order — and each leaf's key is the
   writes on a worker thread.
 * ``restore`` returns host numpy arrays in the structure of ``tree_like``,
   as the reference's does; ``models.params_from_numpy`` carries a
-  reference-layout parameter tree into a model.  Placing a restore on a
-  sharded layout (the reference's ``restore_sharded``) waits for sharded
-  training (ROADMAP queue 1, item 3).
+  reference-layout parameter tree into a model.
+* ``restore_sharded`` lays each restored leaf out on its
+  ``sharding.NamedSharding``, on whatever mesh that names — the elastic
+  restart onto a mesh of another shape or size.  Every rank reads the
+  host copy and keeps its own slice: no scatter over the process group.
 
 The serving snapshots (``save_snapshot`` … ``SnapshotManager``) use no
 framework and are a copy of the reference's.
@@ -172,10 +174,20 @@ def restore(ckpt_dir: str, tree_like, step: Optional[int] = None
 
 def restore_sharded(ckpt_dir: str, tree_like, shardings,
                     step: Optional[int] = None):
-    """Restore onto a row-sharded layout: not ported yet."""
-    raise NotImplementedError(
-        "restore_sharded restores DTensor shardings of sharded training, "
-        "not ported yet (ROADMAP queue 1, item 3: sharded training)")
+    """Restore + lay out on a (possibly different) mesh: elastic restart.
+
+    ``shardings`` mirrors ``tree_like`` with a ``NamedSharding`` at every
+    leaf; each leaf comes back as a DTensor on its sharding's mesh and
+    device.  Every rank of those meshes calls it."""
+    tree, manifest = restore(ckpt_dir, tree_like, step)
+    keys, leaves = _flatten_with_keys(tree)
+    s_keys, s_leaves = _flatten_with_keys(shardings)
+    if s_keys != keys:
+        raise ValueError(
+            "shardings tree mismatch: "
+            f"{sorted(set(keys) ^ set(s_keys))} (a NamedSharding per leaf)")
+    placed = [s.distribute(np.asarray(a)) for a, s in zip(leaves, s_leaves)]
+    return _unflatten(tree_like, placed), manifest
 
 
 class CheckpointManager:

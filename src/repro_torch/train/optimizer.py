@@ -14,6 +14,17 @@ State mirrors the parameter dict: ``{"step", "m", "v"}`` (AdamW) or
 ``{"step", "stats"}`` (Adafactor), every leaf float32 — an integer buffer
 (the RgCSR structure of a ``SparseLinear``) gets a 0-d zero and is never
 updated — so ``train/checkpoint.py`` stores it in the reference's layout.
+
+Sharded training passes DTensors (``sharding/layout.py``): parameters,
+gradients and moments laid out on one mesh.  Element-wise arithmetic runs
+on each rank's slice, and every reduction counts each element once: the
+global norm sums each leaf's squares over its replica count across all
+ranks, and Adafactor's row, column and update means sum over the mesh
+dims that shard the reduced dim.  ``init`` lays each moment out as its
+parameter is (Adafactor's ``vr``/``vc`` drop the reduced dim); a state
+leaf held on other placements (a replicated ``v`` of a sharded 1-D
+parameter) is brought to the parameter's for the update and back.  The
+step counter stays a plain tensor on every rank.
 """
 from __future__ import annotations
 
@@ -22,6 +33,8 @@ import math
 from typing import Dict
 
 import torch
+
+from repro_torch.sharding import layout
 
 __all__ = ["OptimizerConfig", "make_optimizer", "warmup_cosine",
            "warmup_linear", "constant", "global_norm", "clip_by_global_norm"]
@@ -92,19 +105,108 @@ def _is_float(t) -> bool:
     return t is not None and t.is_floating_point()
 
 
+def _local(t):
+    """A DTensor's slice on this rank; a plain tensor as it is."""
+    return t.to_local() if layout.is_dtensor(t) else t
+
+
+def _like(local, ref):
+    """``local`` as a DTensor laid out as ``ref`` is (plain if ``ref``
+    is)."""
+    if not layout.is_dtensor(ref):
+        return local
+    return layout.from_local(local, ref.device_mesh, ref.placements, ref.shape)
+
+
+def _local_in(state, placements):
+    """State leaf ``state``'s slice under ``placements`` (its own when they
+    match, else relaid out)."""
+    if not layout.is_dtensor(state):
+        return state
+    if tuple(state.placements) != tuple(placements):
+        state = layout.relayout(state, placements)
+    return state.to_local()
+
+
+def _store(local, placements, state):
+    """The new value of state leaf ``state`` from its slice ``local``
+    under ``placements``, laid out as ``state`` is."""
+    if not layout.is_dtensor(state):
+        return local
+    dt = layout.from_local(local, state.device_mesh, placements, state.shape)
+    return layout.relayout(dt, state.placements)
+
+
+def _drop_dim(placements, d: int):
+    """The placements of a tensor reduced over dim ``d``: a mesh dim that
+    sharded ``d`` now replicates, later dims shift down by one."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for pl in placements:
+        if isinstance(pl, Shard) and pl.dim == d:
+            out.append(Replicate())
+        elif isinstance(pl, Shard) and pl.dim > d:
+            out.append(Shard(pl.dim - 1))
+        else:
+            out.append(pl)
+    return tuple(out)
+
+
+def _mean(x, dim: int, ref, placements, keepdim: bool = False):
+    """``x.mean(dim)`` of a slice ``x`` laid out on ``ref``'s mesh by
+    ``placements``: summed over the mesh dims that shard ``dim`` when
+    any do.  ``ref`` plain: ``x.mean(dim)``."""
+    if not layout.is_dtensor(ref):
+        return x.mean(dim, keepdim=keepdim)
+    dim = dim % x.dim()
+    over = layout.sharded_mesh_dims(placements).get(dim, [])
+    if not over:
+        return x.mean(dim, keepdim=keepdim)
+    total = layout.all_reduce_over(x.sum(dim, keepdim=keepdim),
+                                   ref.device_mesh, over)
+    n = x.shape[dim]
+    for i in over:
+        n *= ref.device_mesh.size(i)
+    return total / n
+
+
+def _mean_all(x, ref):
+    """``torch.mean(x)`` over the whole tensor whose slice under ``ref``'s
+    placements is ``x``."""
+    if not layout.is_dtensor(ref):
+        return torch.mean(x)
+    over = sorted({i for dims in layout.sharded_mesh_dims(
+        ref.placements).values() for i in dims})
+    if not over:
+        return torch.mean(x)
+    total = layout.all_reduce_over(torch.sum(x), ref.device_mesh, over)
+    return total / ref.numel()
+
+
 def global_norm(tree: Tensors) -> torch.Tensor:
-    """The l2 norm over every floating leaf, accumulated in float32."""
+    """The l2 norm over every floating leaf, accumulated in float32.  On
+    DTensor leaves each element counts once: a leaf's local sum of squares
+    over its replica count, summed over every rank of the mesh."""
     leaves = [x for x in tree.values() if _is_float(x)]
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+    sharded = [x for x in leaves if layout.is_dtensor(x)]
+    if not sharded:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    if len(sharded) != len(leaves):
+        raise ValueError("global_norm takes all DTensor leaves or none")
+    mesh = sharded[0].device_mesh
+    total = sum(torch.sum(torch.square(_local(x).float()))
+                / layout.replicas(mesh, x.placements) for x in leaves)
+    layout.all_reduce_over(total, mesh, range(mesh.ndim))
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(tree: Tensors, max_norm: float):
     """``(tree scaled to at most max_norm, its norm before)``."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
-    return {k: (g.float() * scale).to(g.dtype) if _is_float(g) else g
-            for k, g in tree.items()}, norm
+    return {k: _like((_local(g).float() * scale).to(g.dtype), g)
+            if _is_float(g) else g for k, g in tree.items()}, norm
 
 
 def _decay_mask(params: Tensors) -> Dict[str, bool]:
@@ -116,8 +218,32 @@ def _decay_mask(params: Tensors) -> Dict[str, bool]:
 
 
 def _zero(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape if p.is_floating_point() else (),
-                       dtype=torch.float32, device=p.device)
+    """A float32 zero moment laid out as ``p``; a 0-d (replicated) zero
+    for an integer buffer."""
+    if not layout.is_dtensor(p):
+        return torch.zeros(p.shape if p.is_floating_point() else (),
+                           dtype=torch.float32, device=p.device)
+    if p.is_floating_point():
+        return torch.zeros_like(p, dtype=torch.float32)
+    return _zeros(p, (), ())
+
+
+def _zeros(p, shape, placements):
+    """Float32 zeros of global ``shape`` on ``p``'s mesh by ``placements``
+    (``()``: replicated)."""
+    from torch.distributed.tensor import Replicate
+    mesh = p.device_mesh
+    placements = tuple(placements) or (Replicate(),) * mesh.ndim
+    local = torch.zeros(layout.local_chunk(
+        torch.empty(shape, device="meta"), mesh, placements).shape,
+        dtype=torch.float32, device=_local(p).device)
+    return layout.from_local(local, mesh, placements, shape)
+
+
+def _step0(params: Tensors) -> torch.Tensor:
+    """The step counter: a plain int32 zero on the parameters' device."""
+    dev = _local(next(iter(params.values()))).device
+    return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -129,13 +255,12 @@ def _adamw(cfg: OptimizerConfig):
     sched = _schedule(cfg)
 
     def init(params: Tensors):
-        dev = next(iter(params.values())).device
-        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+        return {"step": _step0(params),
                 "m": {k: _zero(p) for k, p in params.items()},
                 "v": {k: _zero(p) for k, p in params.items()}}
 
     def update(grads: Tensors, state, params: Tensors):
-        step = state["step"] + 1
+        step = _local(state["step"]) + 1
         lr = sched(step)
         b1, b2 = cfg.betas
         c1 = 1.0 - b1 ** step.float()
@@ -143,20 +268,21 @@ def _adamw(cfg: OptimizerConfig):
         mask = _decay_mask(params)
         new_p, new_m, new_v = {}, {}, {}
         for k, p in params.items():
-            m, v = state["m"][k], state["v"][k]
+            m_s, v_s = state["m"][k], state["v"][k]
             if not p.is_floating_point():
-                new_p[k], new_m[k], new_v[k] = p, m, v
+                new_p[k], new_m[k], new_v[k] = p, m_s, v_s
                 continue
-            g = grads[k].float()
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * torch.square(g)
+            pl = getattr(p, "placements", None)
+            g = _local(grads[k]).float()
+            m = b1 * _local_in(m_s, pl) + (1 - b1) * g
+            v = b2 * _local_in(v_s, pl) + (1 - b2) * torch.square(g)
             mh, vh = m / c1, v / c2
             delta = mh / (torch.sqrt(vh) + cfg.eps)
             if cfg.weight_decay:
                 delta = delta + (cfg.weight_decay if mask[k] else 0.0) \
-                    * p.float()
-            new_p[k] = (p.float() - lr * delta).to(p.dtype)
-            new_m[k], new_v[k] = m, v
+                    * _local(p).float()
+            new_p[k] = _like((_local(p).float() - lr * delta).to(p.dtype), p)
+            new_m[k], new_v[k] = _store(m, pl, m_s), _store(v, pl, v_s)
         return new_p, {"step": step, "m": new_m, "v": new_v}
 
     return init, update
@@ -175,18 +301,22 @@ def _adafactor(cfg: OptimizerConfig):
 
     def init(params: Tensors):
         def stats(p):
+            if not _factored(p):
+                return {"v": _zero(p)}
+            n = p.dim()
+            if layout.is_dtensor(p):
+                return {"vr": _zeros(p, p.shape[:-1],
+                                     _drop_dim(p.placements, n - 1)),
+                        "vc": _zeros(p, p.shape[:-2] + p.shape[-1:],
+                                     _drop_dim(p.placements, n - 2))}
             f32 = dict(dtype=torch.float32, device=p.device)
-            if _factored(p):
-                return {"vr": torch.zeros(p.shape[:-1], **f32),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                          **f32)}
-            return {"v": _zero(p)}
-        dev = next(iter(params.values())).device
-        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+            return {"vr": torch.zeros(p.shape[:-1], **f32),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+        return {"step": _step0(params),
                 "stats": {k: stats(p) for k, p in params.items()}}
 
     def update(grads: Tensors, state, params: Tensors):
-        step = state["step"] + 1
+        step = _local(state["step"]) + 1
         lr = sched(step)
         beta2 = 1.0 - step.float() ** (-cfg.decay_rate)
         mask = _decay_mask(params)
@@ -196,26 +326,35 @@ def _adafactor(cfg: OptimizerConfig):
             if not p.is_floating_point():
                 new_p[k], new_stats[k] = p, st
                 continue
-            g = grads[k].float()
+            pl = getattr(p, "placements", None)
+            g = _local(grads[k]).float()
             g2 = torch.square(g) + 1e-30
             if "vr" in st:
-                vr = beta2 * st["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * st["vc"] + (1 - beta2) * g2.mean(-2)
-                denom = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+                n = p.dim()
+                pr = pc = None
+                if pl is not None:
+                    pr, pc = _drop_dim(pl, n - 1), _drop_dim(pl, n - 2)
+                vr = beta2 * _local_in(st["vr"], pr) \
+                    + (1 - beta2) * _mean(g2, -1, p, pl)
+                vc = beta2 * _local_in(st["vc"], pc) \
+                    + (1 - beta2) * _mean(g2, -2, p, pl)
+                denom = torch.clamp(_mean(vr, -1, p, pr, keepdim=True),
+                                    min=1e-30)
                 v_est = (vr[..., None] * vc[..., None, :]) / denom[..., None]
                 delta = g * torch.rsqrt(v_est + 1e-30)
-                new_stats[k] = {"vr": vr, "vc": vc}
+                new_stats[k] = {"vr": _store(vr, pr, st["vr"]),
+                                "vc": _store(vc, pc, st["vc"])}
             else:
-                v = beta2 * st["v"] + (1 - beta2) * g2
+                v = beta2 * _local_in(st["v"], pl) + (1 - beta2) * g2
                 delta = g * torch.rsqrt(v + 1e-30)
-                new_stats[k] = {"v": v}
+                new_stats[k] = {"v": _store(v, pl, st["v"])}
             # update clipping (Adafactor's RMS-1 rule)
-            rms = torch.sqrt(torch.mean(torch.square(delta)) + 1e-30)
+            rms = torch.sqrt(_mean_all(torch.square(delta), p) + 1e-30)
             delta = delta / torch.clamp(rms, min=1.0)
             if cfg.weight_decay:
                 delta = delta + (cfg.weight_decay if mask[k] else 0.0) \
-                    * p.float()
-            new_p[k] = (p.float() - lr * delta).to(p.dtype)
+                    * _local(p).float()
+            new_p[k] = _like((_local(p).float() - lr * delta).to(p.dtype), p)
         return new_p, {"step": step, "stats": new_stats}
 
     return init, update

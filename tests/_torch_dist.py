@@ -180,3 +180,171 @@ def warm(rank, world, mats):
             "fingerprints": [p.fingerprint() for p in plans],
             "n_shards": [p.n_shards for p in plans],
             "axis": (part.spmv_shard_axis(), part.spmv_shard_count())}
+
+
+# ------------------------------------------------------- sharded training
+
+
+def sharded_cfg(arch="granite-3-2b", sparse=True):
+    """``arch``'s smoke config in fp32, with the launchers' RgCSR FFN
+    (``--sparse-ffn``, the segment sum) when ``sparse``."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import SparsityConfig
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32",
+                              kv_cache_dtype="float32")
+    if sparse:
+        cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+            enabled=True, density=0.25, group_size=128, impl="ref"))
+    return cfg
+
+
+def train_config(opt, steps=3, micro=2, eps=1e-8, **kw):
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import TrainConfig
+    return TrainConfig(steps=steps, microbatches=micro, log_every=100,
+                       seed=0, opt=OptimizerConfig(
+                           name=opt, lr=3e-3, warmup_steps=2,
+                           decay_steps=10, eps=eps), **kw)
+
+
+SEQ, BATCH = 16, 8
+# the other families whose loss couples no examples, with the RgCSR FFN
+# where they have an FFN; Adam's eps 1e-5 for the recurrent ones, whose
+# RG-LRU gates take ~1e-7 gradients (tests/test_torch_train.py)
+FAMILIES = {"minicpm3-4b": (True, 1e-8), "mamba2-780m": (False, 1e-5),
+            "recurrentgemma-9b": (True, 1e-5),
+            "seamless-m4t-medium": (True, 1e-8), "pixtral-12b": (True, 1e-8)}
+
+
+def family_trainer(arch, device, **mesh_kw):
+    """Two AdamW steps of ``arch``'s smoke config (``FAMILIES``)."""
+    from repro_torch.train.trainer import Trainer
+    sparse, eps = FAMILIES[arch]
+    return Trainer(sharded_cfg(arch, sparse),
+                   train_config("adamw", steps=2, micro=1, eps=eps),
+                   device=device, **mesh_kw)
+
+
+def _state_view(state):
+    """``(whole tensors as numpy, {key: (local shape, placements)})`` of
+    a trainer's ``(params, opt_state)`` (collective: every rank calls)."""
+    from repro_torch.sharding import layout
+
+    def walk(tree, prefix, whole, local):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/", whole, local)
+                continue
+            whole[prefix + k] = layout.gather(v).detach().cpu().numpy()
+            if layout.is_dtensor(v):
+                local[prefix + k] = (tuple(v.to_local().shape),
+                                     tuple(str(p) for p in v.placements))
+    whole, local = {}, {}
+    walk({"params": state[0], "opt_state": state[1]}, "", whole, local)
+    return whole, local
+
+
+def train_ranks(rank, world, ckpt_dir, mesh_shape, axes, arch="granite-3-2b",
+                device="cpu"):
+    """Sharded training on a mesh of ``mesh_shape`` over ``axes``:
+    AdamW (checkpoints under ``ckpt_dir``: steps 2 and the last) and
+    Adafactor, three steps with ``micro=2`` each of ``arch``'s smoke
+    config with the RgCSR FFN; each rank's history, whole final state
+    (rank 0) and local shapes.  Then the launcher's ``--mesh``, a MoE
+    config's refusal, a tuple axis's rows, the fault drill and two steps
+    of each of ``FAMILIES``."""
+    import io
+    import contextlib as cl
+    from repro_torch.launch import train as launch_train
+    from repro_torch.sharding import NamedSharding, Partitioner
+    from repro_torch.train.trainer import Trainer
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_mesh(mesh_shape, axes, device_type=dev.type)
+    part = Partitioner(mesh, "train")
+    out = {"coord": list(mesh.get_coordinate())}
+    for opt in ("adamw", "adafactor"):
+        extra = dict(ckpt_dir=ckpt_dir, ckpt_every=2) if opt == "adamw" \
+            else {}
+        tr = Trainer(sharded_cfg(arch), train_config(opt, **extra),
+                     mesh=mesh, partitioner=part, device=device)
+        state = tr.init_state(seq_len=SEQ, global_batch=BATCH)
+        state, _ = tr.run(state)
+        whole, local = _state_view(state)
+        out[opt] = {"history": tr.history, "local": local,
+                    "whole": whole if rank == 0 else None}
+    out["drill"] = fault_drill(sharded_cfg(arch), ckpt_dir + "_drill",
+                               device, mesh=mesh, partitioner=part)
+    out["families"] = {}
+    for fam in FAMILIES:
+        tr = family_trainer(fam, device, mesh=mesh, partitioner=part)
+        state, _ = tr.run(tr.init_state(seq_len=SEQ, global_batch=BATCH))
+        whole, _ = _state_view(state)
+        out["families"][fam] = {"history": tr.history, "params": {
+            k: v for k, v in whole.items() if k.startswith("params/")}
+            if rank == 0 else None}
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        launch_train.main(["--smoke", "--sparse-ffn", "--device", device,
+                           "--mesh", "x".join(map(str, mesh_shape)),
+                           "--steps", "3", "--seq", "16", "--batch", "8",
+                           "--micro", "2"])
+    out["launcher"] = buf.getvalue()
+    try:
+        Trainer(sharded_cfg("granite-moe-1b-a400m", False),
+                train_config("adamw"), mesh=mesh, partitioner=part,
+                device=device)
+        out["moe"] = None
+    except NotImplementedError as err:
+        out["moe"] = str(err)
+    rows = NamedSharding(mesh, (tuple(axes),)).distribute(
+        torch.arange(16, dtype=torch.float32))
+    out["tuple_rows"] = rows.to_local().tolist()
+    return out
+
+
+def fault_drill(cfg, ckpt_dir, device, **mesh_kw):
+    """Five AdamW steps with a checkpoint every two and a fault at step 3:
+    the restart loop restores step 2 and replays.  ``(step, loss)`` of
+    every step run."""
+    from repro_torch.train.fault import FaultInjector
+    from repro_torch.train.trainer import Trainer
+    tr = Trainer(cfg, train_config("adamw", steps=5, ckpt_dir=ckpt_dir,
+                                   ckpt_every=2),
+                 fault_injector=FaultInjector([3]), device=device, **mesh_kw)
+    state = tr.init_state(seq_len=SEQ, global_batch=BATCH)
+    tr.run(state)
+    return [(h["step"], h["loss"]) for h in tr.history]
+
+
+def restore_ranks(rank, world, ref_dir, port_dir, mesh_shape, axes):
+    """Restores on a mesh of ``mesh_shape``: the reference's one-array
+    checkpoint under ``ref_dir`` through ``restore_sharded`` and
+    ``CheckpointManager.restore_latest(shardings=)``, and the port
+    trainer's checkpoint under ``port_dir`` through a ``Trainer`` on this
+    mesh (its whole params and moments, and its local shapes)."""
+    from repro_torch.sharding import NamedSharding, Partitioner, layout
+    from repro_torch.train.checkpoint import (CheckpointManager,
+                                              restore_sharded)
+    from repro_torch.train.trainer import Trainer
+    mesh = make_mesh(mesh_shape, axes, device_type="cpu")
+    spec = tuple(a if a in axes else None for a in ("data", "model"))
+    sh = {"w": NamedSharding(mesh, spec)}
+    like = {"w": np.zeros((8, 8), np.float32)}
+    got, manifest = restore_sharded(ref_dir, like, sh)
+    got2, _ = CheckpointManager(ref_dir).restore_latest(like, shardings=sh)
+    out = {"w": layout.gather(got["w"]).numpy(),
+           "w_local": got["w"].to_local().numpy(),
+           "w2": layout.gather(got2["w"]).numpy(),
+           "placements": [str(p) for p in got["w"].placements],
+           "step": manifest["step"]}
+    part = Partitioner(mesh, "train")
+    tr = Trainer(sharded_cfg(), train_config("adamw", ckpt_dir=port_dir),
+                 mesh=mesh, partitioner=part, device="cpu")
+    tr.init_state(seq_len=SEQ, global_batch=BATCH)
+    state, nxt = tr.restore_latest()
+    whole, local = _state_view(state)
+    out.update(next_step=nxt, whole=whole if rank == 0 else None,
+               local=local)
+    return out

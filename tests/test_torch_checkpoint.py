@@ -66,10 +66,12 @@ def test_checkpoint_manager_retention_and_async(tmp_path):
 
 
 def test_sharded_restore_and_bfloat16_are_refused(tmp_path):
+    """A shardings tree that does not mirror the checkpoint's is refused
+    (sharded restores themselves: ``test_torch_sharded_train.py``)."""
     save(str(tmp_path), 1, {"a": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
+    with pytest.raises(ValueError, match="shardings tree mismatch"):
         checkpoint.restore_sharded(str(tmp_path), {"a": 0}, shardings={})
-    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
+    with pytest.raises(ValueError, match="shardings tree mismatch"):
         CheckpointManager(str(tmp_path)).restore_latest(
             {"a": 0}, shardings={"a": None})
     with pytest.raises(TypeError, match="bfloat16"):

@@ -190,7 +190,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "train/optimizer.py", "train/trainer.py",
                    "launch/steps.py", "launch/train.py", "models/moe.py",
                    "models/recurrent.py", "sharding/__init__.py",
-                   "sharding/partitioner.py", "launch/mesh.py"):
+                   "sharding/partitioner.py", "launch/mesh.py",
+                   "models/shardlib.py", "sharding/layout.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import run_ranks, sweep
+from _torch_dist import (BATCH, SEQ, run_ranks, sharded_cfg, sweep,
+                         train_config, train_ranks)
 from _torch_parity import rand_sparse, skewed
 
 from repro_torch.configs import get_config, get_smoke
@@ -896,3 +897,32 @@ def test_sharded_spmv_on_two_gloo_ranks_sharing_the_card(cuda, tmp_path):
         want = dense[name] @ (x if kind == "spmv" else xm)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
                                    err_msg=f"{name} {x_mode} {label} {kind}")
+
+
+@pytest.mark.gpu
+def test_sharded_training_on_four_gloo_ranks_sharing_the_card(cuda,
+                                                              tmp_path):
+    """Four spawned ranks on cuda:0 over gloo, a (2, 2) mesh: three steps
+    of smoke granite-3-2b with the RgCSR FFN under AdamW and Adafactor
+    within 1e-4 relative of the port's single-device trainer on the card
+    (CUDA's ``index_add_`` adds in no fixed order); every slice laid out
+    by its placements; the launcher's ``--mesh`` and its ``done:`` line."""
+    from repro_torch.train.trainer import Trainer
+    ranks = run_ranks(tmp_path, 4, train_ranks, str(tmp_path / "ckpt"),
+                      (2, 2), ("data", "model"), "granite-3-2b", "cuda")
+    for opt in ("adamw", "adafactor"):
+        tr = Trainer(sharded_cfg(), train_config(opt), device="cuda")
+        tr.run(tr.init_state(seq_len=SEQ, global_batch=BATCH))
+        for res in ranks:
+            for g, w in zip(res[opt]["history"], tr.history, strict=True):
+                for k in ("loss", "grad_norm"):
+                    assert abs(g[k] - w[k]) <= 1e-4 * abs(w[k]), (opt, k)
+            whole = ranks[0][opt]["whole"]
+            for key, (local, placements) in res[opt]["local"].items():
+                cut = list(whole[key].shape)
+                for pl in placements:
+                    if pl.startswith("S("):
+                        cut[int(pl[2:-1])] //= 2
+                assert tuple(cut) == local, key
+    assert ranks[0]["launcher"].strip().splitlines()[-1].startswith(
+        "done: 3 steps, final loss ")

@@ -9,6 +9,7 @@ reference's ``Trainer`` wrote resumes in the port's.
 """
 import dataclasses
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -557,11 +558,37 @@ def test_trainer_loss_decreases_and_survives_fault(tmp_path):
         assert torch.equal(opt2["m"][k], t), k
 
 
+def test_a_fault_just_after_a_checkpoint_restores_it(tmp_path,
+                                                    monkeypatch):
+    """The restart waits for the asynchronous write that the step before
+    the fault handed off (a slow disk here), so it restores step 2's
+    checkpoint instead of starting again from the seed."""
+    write = checkpoint._write
+
+    def slow(*args, **kw):
+        time.sleep(0.5)
+        return write(*args, **kw)
+    monkeypatch.setattr(checkpoint, "_write", slow)
+    tc = TrainConfig(steps=5, log_every=100, ckpt_every=2,
+                     ckpt_dir=str(tmp_path),
+                     opt=optimizer.OptimizerConfig(warmup_steps=2,
+                                                   decay_steps=10))
+    tr = Trainer(get_smoke("granite-3-2b"), tc,
+                 fault_injector=FaultInjector(fail_at_steps=[3]),
+                 device="cpu")
+    _, step = tr.run(tr.init_state(seq_len=16, global_batch=4))
+    assert step == 5
+    assert [h["step"] for h in tr.history] == [0, 1, 2, 3, 4]
+
+
 def test_trainer_refuses_a_mesh_and_remat_dots_is_named():
+    """A mesh without its partitioner, and ``--mesh`` without a process
+    group, are refused with what is missing (a MoE config on a mesh:
+    ``test_torch_sharded_train.py``)."""
     cfg = get_smoke("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
+    with pytest.raises(ValueError, match="partitioner="):
         Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3: sharded training"):
+    with pytest.raises(RuntimeError, match="needs a process group"):
         launch_train.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
     model = LanguageModel(dataclasses.replace(cfg, remat="dots"),
                           device="cpu").requires_grad_(True)
