@@ -284,8 +284,33 @@ Phases (any failure exits non-zero and prints no result line):
    and tokens/s (gloo host-staged on one card: no multi-card figure);
    (e) ``launch/train.py --mesh 2x2 --sparse-ffn --layers 4`` on 4
    processes of its own (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
-   ``--backend gloo``) to its ``done:`` line; grep ``^train16``;
-17. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+   ``--backend gloo``) to its ``done:`` line; (f) in the same ranks,
+   granite-moe-1b-a400m at full width (d_model 1,024, 32 experts top-8 of
+   512, vocab 49,155), depth cut to ``TRAIN16_MOE_LAYERS`` = 4, fp32, the
+   same three AdamW steps: each rank routes its rows with the whole
+   microbatch's capacity, positions and aux terms (its per-expert counts
+   all-gathered as int32); losses, ``ce``, ``load_balance`` and
+   ``grad_norm``, and on the first batch the final model's load-balance
+   and z-loss terms within 1e-5 relative of one device and its expert
+   fractions within 1e-5; each rank's bytes at rest against its
+   placements; per step the collectives' share; grep ``^train16``;
+17. remat: phase 16's granite-3-2b on one device, 4 × 256 tokens a
+   batch, from the same seed under each of ``remat`` ``none``, ``full``
+   and ``dots`` (the matrix products' outputs kept, the rest
+   recomputed), with the RgCSR FFN (its segment sum is no matrix
+   product) and then with the dense FFN: the first batch's loss and
+   backward, their losses equal within 1e-6 relative, the memory the
+   forward holds for the backward (the activations remat trades) and
+   their peak, then two AdamW steps, the whole step's peak and the
+   second, warm step's host ms; grep ``^remat``;
+18. twins: ``examples/torch_quickstart.py``, ``torch_spmv_suite.py``
+   (without ``--full``), ``torch_serve_lm.py`` and ``torch_train_lm.py
+   --steps 40`` dense then ``--sparse``, each through its ``main(argv)``
+   with ``--device cuda`` in this process, their own asserts holding
+   (the kernel against the CSR oracle, every request done, the loss
+   falling); the launch counters, set to 0 just before and read just
+   after, show K1 and K3 launched; grep ``^twins``;
+19. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -394,7 +419,21 @@ SHARD_WORLD, SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 4, 240, 360
 # to TRAIN16_LAYERS, on a TRAIN16_MESH (data, model) mesh of gloo ranks
 # sharing the card; losses within TRAIN16_TOL relative of one device
 TRAIN16_MESH, TRAIN16_LAYERS, TRAIN16_STEPS, TRAIN16_MICRO = (2, 2), 4, 3, 2
-TRAIN16_TOL, TRAIN16_DEADLINE_S = 1e-4, 420
+TRAIN16_TOL, TRAIN16_DEADLINE_S = 1e-4, 540
+# phase 16 also trains granite-moe-1b-a400m at full width, its depth cut to
+# TRAIN16_MOE_LAYERS, in the same ranks: losses and aux terms within
+# TRAIN16_MOE_TOL relative of one device
+TRAIN16_MOE_LAYERS, TRAIN16_MOE_TOL = 4, 1e-5
+# phase 17: one train step of phase 16's granite-3-2b on one device under
+# each remat, TRAIN17_BATCH x TRAIN17_SEQ tokens, after a warm step
+TRAIN17_BATCH, TRAIN17_SEQ, TRAIN17_TOL = 4, 256, 1e-6
+# phase 18: the four example twins, in process: (example, arguments)
+TWIN_TRAIN_STEPS = 40
+TWIN_RUNS = (("torch_quickstart", ()), ("torch_spmv_suite", ()),
+             ("torch_serve_lm", ()),
+             ("torch_train_lm", ("--steps", str(TWIN_TRAIN_STEPS))),
+             ("torch_train_lm", ("--steps", str(TWIN_TRAIN_STEPS),
+                                 "--sparse")))
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -1230,18 +1269,127 @@ class _TimedDist:
         return timed
 
 
-def train_rank(rank, world, tmp, timeout_s, device, cfg_kw):
-    """Phase 16 (a)–(d): rank ``rank`` of ``world`` ranks sharing the card
-    over gloo, spawned by :func:`sharded_train_phase`; writes its results
-    and failures to ``tmp/train<rank>.json``."""
+def _count_collectives(tr, timed):
+    """Wrap ``tr``'s step so that each step's seconds in collectives are
+    appended to the returned list."""
+    step_fn, comm = tr.train_step, []
+
+    def counted(*a):
+        before = timed.seconds
+        res = step_fn(*a)
+        comm.append(timed.seconds - before)
+        return res
+    tr.train_step = counted
+    return comm
+
+
+def _say_steps(say, what, history, comm):
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    for h, c in zip(history, comm):
+        lb = f", load_balance {h['load_balance']:.6f}" \
+            if "load_balance" in h else ""
+        say(f"{what}step {h['step']}: loss {h['loss']:.6f}{lb}, grad_norm "
+            f"{h['grad_norm']:.6f}, {h['step_time_s']:.3f} s host "
+            f"(ending in a synchronize), collectives {c:.3f} s "
+            f"({c / h['step_time_s']:.1%}), "
+            f"{tokens / h['step_time_s']:.1f} tokens/s")
+
+
+def _bytes_at_rest(tr, part, state, say, failures, rank, what=""):
+    """Phase 16 (b): the bytes this rank holds of the parameters and
+    AdamW's two moments, against what the placements predict and one
+    device's; the leaves that fall back to replicated."""
+    from repro_torch.sharding.partitioner import _candidates, _filter_axis
+    from repro_torch.train.trainer import _flat
+    mesh = part.mesh
+    params, opt_state = state
+    flat_opt = {}
+    for name in ("m", "v"):
+        flat_opt.update({f"{name}/{k}": t
+                         for k, t in opt_state[name].items()})
+    held = predicted = whole = 0
+    for key, t in list(params.items()) + list(flat_opt.items()):
+        n_full = t.numel() * t.element_size()
+        pieces = 1
+        for i, pl in enumerate(t.placements):
+            pieces *= mesh.size(i) if pl.is_shard() else 1
+        local = t.to_local()
+        held += local.numel() * local.element_size()
+        predicted += n_full // pieces
+        whole += n_full
+    fallback = []
+    rules = part.rules.params
+    for key, p in _flat(tr.model.spec()).items():
+        s = part._leaf_spec(p)
+        named = [n for n, e in zip(p.axes, s) if e is None and any(
+            _filter_axis(mesh, c) is not None
+            for c in _candidates(rules.get(n))[:-1])]
+        if named:
+            fallback.append(f"{key} {tuple(p.shape)} {named}")
+    say(f"{what}bytes at rest (fp32 parameters and AdamW's two moments): "
+        f"{held} held on this rank, {predicted} by the placements, "
+        f"{whole} on one device ({held / whole:.2%}); "
+        f"{len(fallback)} leaves replicated where a rule named an "
+        f"axis (no axis divides them, or the leaf's axis was taken)")
+    if held != predicted:
+        failures.append(f"rank {rank} {what}holds {held} B, placements "
+                        f"predict {predicted}")
+    return {"held": held, "predicted": predicted, "whole": whole,
+            "fallback": fallback}
+
+
+def _phase16_moe_cfg(moe_kw):
+    """granite-moe-1b-a400m at full width in float32, its depth cut to
+    ``TRAIN16_MOE_LAYERS`` (``moe_kw`` overrides for a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), **dict(dict(
+        n_layers=TRAIN16_MOE_LAYERS, dtype="float32",
+        kv_cache_dtype="float32"), **moe_kw))
+
+
+def routing_stats(model, batch, part=None):
+    """``launch.steps.routing_stats`` (on ``part``'s mesh when given) as
+    lists and floats."""
+    from repro_torch.launch.steps import routing_stats as stats
+    aux = stats(model, batch, part)
+    return {"expert_fraction": aux["expert_fraction"].cpu().tolist(),
+            "load_balance": float(aux["load_balance"]),
+            "router_z": float(aux["router_z"])}
+
+
+def _moe_rank(mesh, part, dev, timed, say, failures, rank, moe_kw):
+    """Phase 16 (f) on one rank: granite-moe-1b-a400m on the mesh."""
+    from repro_torch.train.trainer import Trainer
+    cfg = _phase16_moe_cfg(moe_kw)
+    tr = Trainer(cfg, _phase16_train_config(), mesh=mesh, partitioner=part,
+                 device=dev)
+    state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
+    calls = timed.calls
+    comm = _count_collectives(tr, timed)
+    t1 = time.perf_counter()
+    state, _ = tr.run(state)
+    run_s = time.perf_counter() - t1
+    _say_steps(say, f"{MOE_ARCH} ", tr.history, comm)
+    say(f"{MOE_ARCH} {len(tr.history)} steps in {run_s:.1f} s "
+        f"({timed.calls - calls} collectives)")
+    out = {"history": tr.history, "comm_s": comm,
+           "bytes": _bytes_at_rest(tr, part, state, say, failures, rank,
+                                   f"{MOE_ARCH} ")}
+    out["routing"] = routing_stats(tr.model, tr._batch(0), part)
+    return out
+
+
+def train_rank(rank, world, tmp, timeout_s, device, cfg_kw, moe_kw):
+    """Phase 16 (a)–(d), (f): rank ``rank`` of ``world`` ranks sharing the
+    card over gloo, spawned by :func:`sharded_train_phase`; writes its
+    results and failures to ``tmp/train<rank>.json``."""
     import datetime
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.sharding import Partitioner, layout
-    from repro_torch.sharding.partitioner import _candidates, _filter_axis
-    from repro_torch.train.trainer import Trainer, _flat
+    from repro_torch.train.trainer import Trainer
 
     def say(msg):     # one write per line: the ranks share stdout
         os.write(1, f"train16 r{rank}: {msg}\n".encode())
@@ -1268,65 +1416,20 @@ def train_rank(rank, world, tmp, timeout_s, device, cfg_kw):
         tr = Trainer(cfg, _phase16_train_config(ckpt), mesh=mesh,
                      partitioner=part, device=dev)
         state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
-        step_fn, comm = tr.train_step, []
-
-        def counted(*a):
-            before = timed.seconds
-            res = step_fn(*a)
-            comm.append(timed.seconds - before)
-            return res
-        tr.train_step = counted
+        comm = _count_collectives(tr, timed)
         t1 = time.perf_counter()
         state, _ = tr.run(state)
         run_s = time.perf_counter() - t1
         out["history"] = tr.history
         out["comm_s"] = comm
-        tokens = TRAIN_SEQ * TRAIN_BATCH
-        for h, c in zip(tr.history, comm):
-            say(f"step {h['step']}: loss {h['loss']:.6f}, grad_norm "
-                f"{h['grad_norm']:.6f}, {h['step_time_s']:.3f} s host "
-                f"(ending in a synchronize), collectives {c:.3f} s "
-                f"({c / h['step_time_s']:.1%}), "
-                f"{tokens / h['step_time_s']:.1f} tokens/s")
+        _say_steps(say, "", tr.history, comm)
         say(f"{len(tr.history)} steps and the final checkpoint in "
             f"{run_s:.1f} s ({timed.calls} collectives, "
             f"{timed.seconds:.1f} s in them)")
         # (b) bytes at rest: each rank's slices against the placements'
         # prediction and the single-device total
         params, opt_state = state
-        flat_opt = {}
-        for name in ("m", "v"):
-            flat_opt.update({f"{name}/{k}": t
-                             for k, t in opt_state[name].items()})
-        held = predicted = whole = 0
-        for key, t in list(params.items()) + list(flat_opt.items()):
-            n_full = t.numel() * t.element_size()
-            pieces = 1
-            for i, pl in enumerate(t.placements):
-                pieces *= mesh.size(i) if pl.is_shard() else 1
-            local = t.to_local()
-            held += local.numel() * local.element_size()
-            predicted += n_full // pieces
-            whole += n_full
-        fallback = []
-        rules = part.rules.params
-        for key, p in _flat(tr.model.spec()).items():
-            s = part._leaf_spec(p)
-            named = [n for n, e in zip(p.axes, s) if e is None and any(
-                _filter_axis(mesh, c) is not None
-                for c in _candidates(rules.get(n))[:-1])]
-            if named:
-                fallback.append(f"{key} {tuple(p.shape)} {named}")
-        out["bytes"] = {"held": held, "predicted": predicted,
-                        "whole": whole, "fallback": fallback}
-        say(f"bytes at rest (fp32 parameters and AdamW's two moments): "
-            f"{held} held on this rank, {predicted} by the placements, "
-            f"{whole} on one device ({held / whole:.2%}); "
-            f"{len(fallback)} leaves replicated where a rule named an "
-            f"axis (no axis divides them, or the leaf's axis was taken)")
-        if held != predicted:
-            failures.append(f"rank {rank} holds {held} B, placements "
-                            f"predict {predicted}")
+        out["bytes"] = _bytes_at_rest(tr, part, state, say, failures, rank)
         # (c) the checkpoint (step TRAIN16_STEPS - 1) onto (1, world):
         # every slice bitwise the (2, 2) state's, gathered leaf by leaf
         mesh2 = make_mesh((1, world), ("data", "model"),
@@ -1354,7 +1457,14 @@ def train_rank(rank, world, tmp, timeout_s, device, cfg_kw):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"restore onto (1, {world}): {bad[:4]}")
-        del tr2, params2, opt2, pairs, want
+        del tr2, params2, opt2, pairs, want, tr, state, params, opt_state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # (f) granite-moe-1b-a400m on the same mesh: each rank routes its
+        # rows with the whole microbatch's capacity, positions and aux
+        out["moe"] = _moe_rank(mesh, part, dev, timed, say, failures, rank,
+                               moe_kw)
         out["phase_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -1498,12 +1608,88 @@ def _launcher_ranks(world, tmp, deadline_s, device, argv):
     return texts[0], err
 
 
-def sharded_train_phase(dev, failures, tag, cfg_kw=None):
+def _moe_one_device(dev, moe_kw):
+    """Phase 16 (f) on one device: granite-moe-1b-a400m's history and
+    routing statistics on the first batch."""
+    import torch
+    from repro_torch.train.trainer import Trainer
+    t1 = time.perf_counter()
+    single = Trainer(_phase16_moe_cfg(moe_kw), _phase16_train_config(),
+                     device=dev)
+    single.run(single.init_state(TRAIN_SEQ, TRAIN_BATCH))
+    n_params = sum(t.numel() for t in single.model.tensors().values()
+                   if t.is_floating_point())
+    want = {"history": single.history,
+            "routing": routing_stats(single.model, single._batch(0))}
+    log(f"train16 (f) {MOE_ARCH} one device: {n_params} float parameters, "
+        f"losses {[round(h['loss'], 6) for h in single.history]}, "
+        f"load_balance {[round(h['load_balance'], 6) for h in single.history]}"
+        f", host s per step "
+        f"{[round(h['step_time_s'], 3) for h in single.history]} in "
+        f"{time.perf_counter() - t1:.1f} s")
+    del single
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return want
+
+
+def _moe_compare(ranks, want, failures, world, tag):
+    """Phase 16 (f): the ranks' MoE steps and routing against one
+    device's."""
+    rel = lambda g, w: abs(g - w) / max(abs(w), 1e-30)      # noqa: E731
+    gaps = collections.defaultdict(float)
+    for res in ranks:
+        got = res["moe"]
+        for g, w in zip(got["history"], want["history"], strict=True):
+            for k in ("loss", "ce", "load_balance", "grad_norm"):
+                gaps[k] = max(gaps[k], rel(g[k], w[k]))
+        for k in ("load_balance", "router_z"):
+            gaps[f"routing {k}"] = max(gaps[f"routing {k}"], rel(
+                got["routing"][k], want["routing"][k]))
+        frac = np.asarray(got["routing"]["expert_fraction"])
+        gaps["expert_fraction (abs)"] = max(
+            gaps["expert_fraction (abs)"], float(np.abs(
+                frac - np.asarray(want["routing"]["expert_fraction"])).max()))
+    ok = all(v <= TRAIN16_MOE_TOL for v in gaps.values())
+    log(f"train16 (f) {MOE_ARCH} on {world} ranks against one device: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" (relative unless marked; tol {TRAIN16_MOE_TOL:g}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"train16 {MOE_ARCH}: gaps {dict(gaps)}")
+    frac = np.asarray(ranks[0]["moe"]["routing"]["expert_fraction"])
+    log(f"train16 (f) {MOE_ARCH} expert_fraction on the first batch, per "
+        f"layer (min, max over {frac.shape[1]} experts; 1/{frac.shape[1]} "
+        f"= {1 / frac.shape[1]:.4f} is balanced): "
+        f"{[(round(float(r.min()), 4), round(float(r.max()), 4)) for r in frac]}"
+        f"; load_balance {ranks[0]['moe']['routing']['load_balance']:.6f}, "
+        f"router_z {ranks[0]['moe']['routing']['router_z']:.6f}")
+    steps = ranks[0]["moe"]["history"]
+    host = [h["step_time_s"] for h in steps]
+    comm = [max(res["moe"]["comm_s"][i] for res in ranks)
+            for i in range(len(steps))]
+    log(f"train16 (f) {MOE_ARCH} per step: host "
+        f"{[round(x, 3) for x in host]} s, collectives "
+        f"{[round(x, 3) for x in comm]} s "
+        f"({[f'{c / h:.0%}' for c, h in zip(comm, host)]}), "
+        f"{[round(TRAIN_SEQ * TRAIN_BATCH / h, 1) for h in host]} tokens/s "
+        f"{tag}")
+    b = [res["moe"]["bytes"] for res in ranks]
+    log(f"train16 (f) {MOE_ARCH} bytes at rest per rank: "
+        f"{[x['held'] for x in b]} held, {[x['predicted'] for x in b]} by "
+        f"the placements, {b[0]['whole']} on one device "
+        f"({b[0]['held'] / b[0]['whole']:.2%}); replicated by the "
+        f"fallback: {b[0]['fallback'] or 'none'}")
+
+
+def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
     """Phase 16, sharded training on a ``TRAIN16_MESH`` mesh of gloo
     ranks sharing the card (see the module's note)."""
     import torch
     from repro_torch.train.trainer import Trainer
     cfg_kw = dict(cfg_kw or {})
+    moe_kw = dict(moe_kw or {})
     t16 = time.perf_counter()
     device = dev.type
     world = int(np.prod(TRAIN16_MESH))
@@ -1530,11 +1716,12 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None):
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
+    moe_want = _moe_one_device(dev, moe_kw)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train16_"))
     try:
         t1 = time.perf_counter()
         err = _spawn_ranks(train_rank, world, tmp, TRAIN16_DEADLINE_S,
-                           (SHARD_TIMEOUT_S, device, cfg_kw))
+                           (SHARD_TIMEOUT_S, device, cfg_kw, moe_kw))
         if err:
             failures.append(f"train16 ranks: {err}")
             return
@@ -1575,6 +1762,7 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None):
             f"{[x['held'] for x in b]} held, {[x['predicted'] for x in b]} "
             f"by the placements, {b[0]['whole']} on one device; replicated "
             f"by the fallback: {b[0]['fallback'] or 'none'}")
+        _moe_compare(ranks, moe_want, failures, world, tag)
         # (c) the same checkpoint onto a 2-rank (2,) mesh
         t1 = time.perf_counter()
         err = _spawn_ranks(restore_rank, 2, tmp, TRAIN16_DEADLINE_S,
@@ -1616,6 +1804,154 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
+
+
+# ------------------------------------------------------ phase 17: remat
+
+
+def _remat_steps(dev, base, batches, what, tag):
+    """``base`` under each remat, from the seed: the loss and backward of
+    the first batch, with the memory the forward leaves held for the
+    backward (what remat trades) and their peak, both above what was
+    allocated before (AdamW's update of the 403 MB embedding sets a whole
+    step's peak), then two train steps, the second timed: {remat: (loss,
+    step-2 loss, peak B, before B, step peak B, warm step ms, held B)}."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import LanguageModel
+    from repro_torch.train.optimizer import OptimizerConfig
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    peak_now = torch.cuda.max_memory_allocated if cuda else (lambda: 0)
+    res = {}
+    for remat in ("none", "full", "dots"):
+        model = LanguageModel(dataclasses.replace(base, remat=remat),
+                              device=dev, seed=SEED).requires_grad_(True)
+        sync()
+        resident = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batches[0].items()}
+        loss, _ = model.loss(batch)
+        sync()
+        held = (torch.cuda.memory_allocated() if cuda else 0) - resident
+        loss.backward()
+        first = float(loss)
+        sync()
+        peak = peak_now()
+        del loss
+        for p in model.parameters():
+            p.grad = None
+        step, init = make_train_step(model, OptimizerConfig(
+            warmup_steps=2, decay_steps=TRAIN16_STEPS))
+        params = model.tensors()
+        state = init(params)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        params, state, _ = step(params, state, batches[0])
+        sync()
+        step_peak = peak_now()
+        t1 = time.perf_counter()
+        params, state, m2 = step(params, state, batches[1])
+        second = float(m2["loss"])
+        sync()
+        ms = (time.perf_counter() - t1) * 1e3
+        res[remat] = (first, second, peak, resident, step_peak, ms, held)
+        log(f"remat {what} {remat}: loss {first:.6f}; the forward holds "
+            f"{held / 2**30:.3f} GiB for the backward, forward and backward "
+            f"peak {(peak - resident) / 2**30:.3f} GiB, above the "
+            f"{resident / 2**30:.3f} GiB allocated before; a train step's "
+            f"peak {step_peak / 2**30:.3f} GiB (AdamW's moments and update "
+            f"in it); warm step {ms:.1f} ms (host, ending in a "
+            f"synchronize), its loss {second:.6f} {tag}")
+        del model, step, params, state, m2, batch
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return res
+
+
+def remat_phase(dev, failures, tag, cfg_kw=None):
+    """Phase 17: one train step of phase 16's granite-3-2b on one device
+    under each remat, from the same seed on the same batch, then a warm
+    step that is timed; with the RgCSR FFN (the segment sum, not a matrix
+    product) and with the dense FFN."""
+    from repro_torch.configs.base import SparsityConfig
+    from repro_torch.train.data import DataConfig, make_batch
+    t17 = time.perf_counter()
+    sparse = _phase16_cfg(dict(cfg_kw or {}))
+    batches = [make_batch(DataConfig(vocab=sparse.vocab, seq_len=TRAIN17_SEQ,
+                                     global_batch=TRAIN17_BATCH, seed=SEED),
+                          i) for i in range(2)]
+    log(f"remat: {sparse.name} d_model {sparse.d_model}, {sparse.n_layers} "
+        f"layers (phase 16's cut), fp32, AdamW, one device, "
+        f"{TRAIN17_BATCH} x {TRAIN17_SEQ} tokens a step; the FFN in RgCSR "
+        f"through the segment sum (sparse), then dense")
+    for what, base in (("sparse", sparse), ("dense", dataclasses.replace(
+            sparse, sparsity=SparsityConfig()))):
+        res = _remat_steps(dev, base, batches, what, tag)
+        want = res["none"][0]
+        gap = max(abs(r[0] - want) / abs(want) for r in res.values())
+        ok = gap <= TRAIN17_TOL and all(np.isfinite(r[1])
+                                        for r in res.values())
+        held = {k: round(r[6] / 2**30, 3) for k, r in res.items()}
+        peaks = {k: round((r[2] - r[3]) / 2**30, 3) for k, r in res.items()}
+        times = {k: round(r[5], 1) for k, r in res.items()}
+        log(f"remat {what}: losses equal within {gap:.3e} relative "
+            f"(tol {TRAIN17_TOL:g}) {'ok' if ok else 'FAIL'}; GiB held "
+            f"for the backward {held}; forward and backward peak GiB "
+            f"{peaks}; warm step ms {times}; dots between none and full: "
+            f"held {held['full'] <= held['dots'] <= held['none']}, time "
+            f"{times['none'] <= times['dots'] <= times['full']}")
+        if not ok:
+            failures.append(f"remat {what}: loss gap {gap:.3e}")
+    log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
+
+
+# ------------------------------------------- phase 18: the example twins
+
+
+def _load_example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def twins_phase(dev, failures, tag):
+    """Phase 18: the four example twins through their ``main(argv)`` on
+    ``dev``, their output logged line by line; the launch counters, set to
+    0 just before and read just after, show K1 and K3."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    t18 = time.perf_counter()
+    reset_launch_counts()
+    for name, argv in TWIN_RUNS:
+        argv = list(argv) + ["--device", dev.type]
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        err = None
+        try:
+            with contextlib.redirect_stdout(buf):
+                _load_example(name).main(argv)
+        except Exception as exc:      # noqa: BLE001 — fail the phase
+            err = f"{type(exc).__name__}: {exc}"
+        for line in buf.getvalue().splitlines():
+            log(f"twins {name}: {line}")
+        log(f"twins {name} {' '.join(argv)} in "
+            f"{time.perf_counter() - t1:.1f} s "
+            f"{'ok' if err is None else 'FAIL ' + err}")
+        if err is not None:
+            failures.append(f"twins {name} {' '.join(argv)}: {err}")
+    counts = launch_counts()
+    ok = counts["rgcsr_spmv"] > 0 and counts["ell_spmv"] > 0
+    log(f"twins launch counts {counts}: K1 and K3 launched "
+        f"{'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        failures.append(f"twins launch counts {counts}")
+    log(f"phase 18 in {time.perf_counter() - t18:.1f} s")
 
 
 def _launcher_cfg_argv(cfg_kw):
@@ -3703,7 +4039,7 @@ def main() -> int:
     hist = tr.history
     finite = all(np.isfinite([h[k] for h in hist
                               for k in ("ce", "load_balance", "loss")])) \
-        and all(torch.isfinite(v).item() for v in aux.values())
+        and all(torch.isfinite(v).all().item() for v in aux.values())
     ok = finite and len(hist) == MOE_TRAIN_STEPS \
         and tr.model.device.type == "cuda"
     for h in hist:
@@ -4624,6 +4960,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sharded_train_phase(dev, failures, tag)
+
+    # ---- 17. remat none / full / dots
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_phase(dev, failures, tag)
+
+    # ---- 18. the example twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    twins_phase(dev, failures, tag)
 
 
     for kernel in KERNEL_META:

@@ -25,7 +25,10 @@ from the global batch every rank holds), so the ranks' losses sum to the
 microbatch's token-weighted mean, never a mean of per-shard means.  The
 ranks along mesh dims that do not split the batch (``model``) repeat the
 same work on the same rows: their gradients are scaled by one over their
-count before the sum.
+count before the sum.  A MoE layer routes each rank's rows with the
+whole microbatch's capacity, positions and aux terms
+(``models.moe.row_shard``): the ranks' load-balance and z-loss shares sum
+to the microbatch's terms as their CE parts do.
 """
 from __future__ import annotations
 
@@ -36,12 +39,13 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models.moe import RowShard, row_shard
 from repro_torch.sharding import layout
 from repro_torch.train.optimizer import OptimizerConfig, global_norm, \
     make_optimizer
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
-           "auto_microbatches"]
+           "auto_microbatches", "routing_stats"]
 
 
 def auto_microbatches(cfg, global_batch: int, seq: int, n_data_shards: int,
@@ -148,18 +152,6 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
     return train_step, opt_init
 
 
-def refuse_on_mesh(cfg):
-    """Raise for a config whose loss couples examples across ranks: MoE
-    capacities come from the per-rank token count and its load-balance
-    loss from per-rank routing statistics, so a sharded step would not be
-    the single-device step."""
-    if cfg.moe.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE on a mesh is not ported yet (its capacity "
-            f"and load-balance loss couple examples across ranks; ROADMAP "
-            f"queue 1, item 9: MoE on a mesh)")
-
-
 @contextlib.contextmanager
 def _bound(model, tensors: Dict[str, torch.Tensor]):
     """``model`` computing with ``tensors`` (keyed as ``model.tensors()``)
@@ -180,7 +172,6 @@ def _bound(model, tensors: Dict[str, torch.Tensor]):
 
 def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
                         partitioner):
-    refuse_on_mesh(model.cfg)
     mesh = partitioner.mesh
 
     def train_step(params, opt_state, batch):
@@ -201,13 +192,14 @@ def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
         repeats = math.prod(mesh.size(i) for i in range(mesh.ndim)
                             if i not in batch_dims)
         dev = rows.device()
+        shard = RowShard.on_mesh(mesh, rows.placements())
         # each parameter whole, its gradient routed back to its shard
         whole = {k: layout.gather_at_use(p) if k in trained
                  else layout.gather(p) for k, p in params.items()}
         leaves = {k: w.detach().requires_grad_(k in trained)
                   for k, w in whole.items()}
         seen = {}
-        with _bound(model, leaves):
+        with _bound(model, leaves), row_shard(shard):
             for mb in parts:
                 totals = model.token_totals(mb)
                 local = {k: layout.local_chunk(v, mesh, shardings[k]
@@ -246,6 +238,33 @@ def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
         return params, opt_state, metrics
 
     return train_step
+
+
+def routing_stats(model, batch, partitioner=None) -> Dict[str, torch.Tensor]:
+    """The MoE layers' routing of ``model`` on ``batch`` in train mode,
+    without gradient: ``expert_fraction`` (``(layers, E)``) and the
+    ``load_balance`` and ``router_z`` terms summed over the layers.  With
+    ``partitioner`` the model's tensors are DTensors on its mesh (a
+    sharded trainer's) and ``batch`` is the global batch: each rank
+    routes its rows, as the sharded step does, and the terms are the whole
+    batch's (collective: every rank calls)."""
+    batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+             else v.cpu() for k, v in batch.items()}
+    with torch.no_grad():
+        if partitioner is None:
+            return model.forward({k: v.to(model.device) for k, v in
+                                  batch.items()}, mode="train")[2]
+        mesh = partitioner.mesh
+        rows = partitioner.batch_shardings(batch)["tokens"].placements()
+        local = {k: layout.local_chunk(v, mesh, rows).to(model.device)
+                 for k, v in batch.items()}
+        whole = {k: layout.gather(t) for k, t in model.tensors().items()}
+        with _bound(model, whole), row_shard(RowShard.on_mesh(mesh, rows)):
+            aux = model.forward(local, mode="train")[2]
+        terms = torch.stack([aux["load_balance"], aux["router_z"]])
+        layout.all_reduce_over(terms, mesh,
+                               layout.sharded_mesh_dims(rows).get(0, []))
+    return dict(aux, load_balance=terms[0], router_z=terms[1])
 
 
 def make_prefill_step(model, s_max: int, shape_kind: str = "prefill"):

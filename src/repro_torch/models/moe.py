@@ -26,10 +26,24 @@ CUDA card ``index_add_`` (the scatter dispatch) sums with atomics and is
 not bitwise repeatable.  The reference's expert-parallel hint
 (``shardlib.constrain`` of the ``(E, C, d)`` buffer over ``model``) sits
 where it does; on plain tensors it is the identity.
+
+**Rows split across ranks** (sharded training, :func:`row_shard`): each
+rank routes its own rows, yet capacity, positions and the aux terms are
+the whole batch's, as the reference computes them over the global
+flattened batch.  Each rank all-gathers its per-expert routed-copy counts
+(``(E,)`` int32); its offset in an expert is the sum over the ranks whose
+rows come first in the batch (token-major) order, and a copy is kept iff
+``offset[e] + local position < capacity(T_global)``, ``T_global`` from
+shapes.  The expert buffer holds only the positions the rank owns.
+``expert_fraction`` comes from the summed counts; the load-balance and
+z-loss terms are each rank's share (its rows' sums over ``T_global``), so
+the shares sum over the ranks to the reference's terms.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,7 +53,7 @@ from repro_torch.models.layers import ParamModule, dense_spec
 from repro_torch.models.shardlib import constrain
 from repro_torch.models.spec import P
 
-__all__ = ["moe_spec", "moe_apply", "MoE"]
+__all__ = ["moe_spec", "moe_apply", "MoE", "RowShard", "row_shard"]
 
 # dropless einsum dispatch/combine tensors are (T, E, cap≈T); above this
 # element budget (~256 MB fp32 for the pair) moe_apply reroutes to scatter
@@ -90,9 +104,53 @@ def _top_k(select, k: int):
     return order[..., :k]
 
 
-def _routing(layer: "MoE", cfg, x_flat):
-    """Returns (expert_idx (T,k), combine_w (T,k) in x's dtype, aux).
-    Routing runs in float32."""
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """This rank's rows of a batch split by rows across ``n_pieces``
+    ranks: ``piece`` is its place in the batch order, and ``gather`` maps
+    its ``(E,)`` int32 counts to every piece's, ``(n_pieces, E)`` in
+    batch order (a collective on a mesh; a test may simulate it)."""
+    n_pieces: int
+    piece: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+    @classmethod
+    def on_mesh(cls, mesh, placements) -> "RowShard":
+        """The rows of a ``(B, ...)`` batch laid out by ``placements``
+        (``Partitioner.batch_shardings``): dim 0 cut by each sharding mesh
+        dim in mesh-dim order, as ``layout.local_chunk`` cuts it."""
+        from repro_torch.sharding import layout
+        dims = layout.sharded_mesh_dims(placements).get(0, [])
+        coord = mesh.get_coordinate()
+        n, piece = 1, 0
+        for i in dims:
+            n *= mesh.size(i)
+            piece = piece * mesh.size(i) + coord[i]
+
+        def gather(counts):
+            return layout.gather_rows(counts[None], mesh, placements)
+        return cls(n, piece, gather)
+
+
+_ROW_SHARD: Optional[RowShard] = None
+
+
+@contextlib.contextmanager
+def row_shard(shard: Optional[RowShard]):
+    """MoE layers inside the block route this rank's rows of the batch
+    that ``shard`` describes (the module's note); None: the rows are the
+    whole batch."""
+    global _ROW_SHARD
+    saved, _ROW_SHARD = _ROW_SHARD, shard
+    try:
+        yield shard
+    finally:
+        _ROW_SHARD = saved
+
+
+def _select(layer: "MoE", cfg, x_flat):
+    """(router logits, scores, expert_idx (T,k), combine_w (T,k) in x's
+    dtype); routing runs in float32."""
     m = cfg.moe
     logits = x_flat.float() @ layer.router.kernel.float()
     if m.score_fn == "sigmoid":
@@ -106,7 +164,14 @@ def _routing(layer: "MoE", cfg, x_flat):
     idx = _top_k(select, m.top_k)                                 # (T, k)
     gathered = torch.gather(scores, -1, idx)                      # (T, k)
     w = gathered / (gathered.sum(-1, keepdim=True) + 1e-9)
+    return logits, scores, idx, w.to(x_flat.dtype)
 
+
+def _routing(layer: "MoE", cfg, x_flat):
+    """Returns (expert_idx (T,k), combine_w (T,k) in x's dtype, aux).
+    Routing runs in float32."""
+    m = cfg.moe
+    logits, scores, idx, w = _select(layer, cfg, x_flat)
     # Switch-style load-balance aux (also a balance metric for aux-free
     # models), and the router z-loss for logit drift
     probs_mean = (scores / (scores.sum(-1, keepdim=True) + 1e-9)).mean(0)
@@ -116,7 +181,28 @@ def _routing(layer: "MoE", cfg, x_flat):
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
     aux = {"load_balance": lb_loss, "router_z": z_loss,
            "expert_fraction": frac}
-    return idx, w.to(x_flat.dtype), aux
+    return idx, w, aux
+
+
+def _routing_shard(layer: "MoE", cfg, x_flat, shard: RowShard):
+    """:func:`_routing` of this rank's rows of a split batch: (idx, w,
+    aux, offset).  ``aux`` holds the whole batch's ``expert_fraction`` and
+    this rank's shares of the load-balance and z-loss terms; ``offset``
+    (E,) int32 counts the routed copies of the ranks before this one."""
+    m = cfg.moe
+    logits, scores, idx, w = _select(layer, cfg, x_flat)
+    n_tokens = x_flat.shape[0] * shard.n_pieces
+    counts = _one_hot(idx, m.n_experts, torch.int32).sum((0, 1),
+                                                         dtype=torch.int32)
+    every = shard.gather(counts)                                  # (P, E)
+    offset = every[:shard.piece].sum(0, dtype=torch.int32)
+    frac = every.sum(0).float() / n_tokens / m.top_k
+    probs = scores / (scores.sum(-1, keepdim=True) + 1e-9)
+    lb_loss = m.n_experts * (frac * probs.sum(0)).sum() / n_tokens
+    z_loss = torch.logsumexp(logits, dim=-1).square().sum() / n_tokens
+    aux = {"load_balance": lb_loss, "router_z": z_loss,
+           "expert_fraction": frac}
+    return idx, w, aux, offset
 
 
 def _capacity(cfg, n_tokens: int, dropless: bool = False) -> int:
@@ -129,22 +215,43 @@ def _capacity(cfg, n_tokens: int, dropless: bool = False) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
+def _positions(cfg, idx, cap: int, offset=None):
+    """(pos, keep), each (T,k,E): a routed copy's position in its expert
+    counted over the ``(T·k, E)`` one-hot in token-major order, and
+    whether it is kept, ``offset[e] + pos < cap`` (offset: the copies of
+    the ranks before this one, None for none)."""
+    m = cfg.moe
+    t = idx.shape[0]
+    onehot = _one_hot(idx, m.n_experts, torch.int32)              # (T,k,E)
+    pos = (torch.cumsum(onehot.reshape(t * m.top_k, m.n_experts),
+                        dim=0).reshape(t, m.top_k, m.n_experts)
+           - onehot)
+    ahead = pos if offset is None else pos + offset
+    return pos, (ahead < cap) & (onehot > 0)
+
+
+def _buffer_rows(cfg, t: int, cap: int, offset) -> int:
+    """Positions of an expert's buffer: ``cap``, or with an offset (a
+    split batch) the positions this rank can own — fewer than its ``t``
+    tokens, each of which routes to an expert at most once."""
+    return cap if offset is None else min(cap, _capacity(cfg, t, True))
+
+
+def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
+                     n_tokens=None, offset=None):
     """GShard dense dispatch: (T,E,C) one-hot dispatch/combine tensors,
-    built with a loop over the k routing slots."""
+    built with a loop over the k routing slots.  ``n_tokens`` (the whole
+    batch's, for the capacity) and ``offset`` describe a split batch."""
     m = cfg.moe
     t = x_flat.shape[0]
-    cap = _capacity(cfg, t, dropless)
-    onehot = _one_hot(idx, m.n_experts, torch.int32)              # (T,k,E)
-    pos_in_expert = (torch.cumsum(onehot.reshape(t * m.top_k, m.n_experts),
-                                  dim=0).reshape(t, m.top_k, m.n_experts)
-                     - onehot)                                    # (T,k,E)
-    keep = (pos_in_expert < cap) & (onehot > 0)
-    dispatch = x_flat.new_zeros((t, m.n_experts, cap))
-    combine = x_flat.new_zeros((t, m.n_experts, cap))
+    cap = _capacity(cfg, n_tokens or t, dropless)
+    pos_in_expert, keep = _positions(cfg, idx, cap, offset)
+    c = _buffer_rows(cfg, t, cap, offset)
+    dispatch = x_flat.new_zeros((t, m.n_experts, c))
+    combine = x_flat.new_zeros((t, m.n_experts, c))
     for kk in range(m.top_k):
-        pos = torch.where(keep[:, kk], pos_in_expert[:, kk], cap)
-        pos_oh = _one_hot(pos, cap, x_flat.dtype)                 # (T,E,C)
+        pos = torch.where(keep[:, kk], pos_in_expert[:, kk], c)
+        pos_oh = _one_hot(pos, c, x_flat.dtype)                   # (T,E,C)
         dispatch = dispatch + pos_oh
         combine = combine + pos_oh * w[:, kk][:, None, None]
     expert_in = torch.einsum("tec,td->ecd", dispatch, x_flat)     # (E,C,d)
@@ -153,14 +260,17 @@ def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
     return torch.einsum("tec,ecd->td", combine, expert_out)
 
 
-def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
+def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
+                      n_tokens=None, offset=None):
     """Sort-based dispatch: tokens ordered by target expert with a stable
     sort; each expert's first ``cap`` copies gathered into a dense
     (E, C, d) buffer, processed, and summed back into their tokens weighted
-    by the router weights."""
+    by the router weights.  ``n_tokens`` and ``offset`` as in
+    :func:`_dispatch_einsum`."""
     m = cfg.moe
     t, d = x_flat.shape
-    cap = _capacity(cfg, t, dropless)
+    cap = _capacity(cfg, n_tokens or t, dropless)
+    c = _buffer_rows(cfg, t, cap, offset)
     dev = x_flat.device
     flat_e = idx.reshape(-1)                                      # (T*k,)
     order = torch.sort(flat_e, stable=True).indices
@@ -170,18 +280,19 @@ def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False):
     seg_start = torch.searchsorted(
         sorted_e, torch.arange(m.n_experts, device=dev, dtype=sorted_e.dtype))
     pos_within = pos_sorted - seg_start[sorted_e]
-    keep = pos_within < cap
-    slot = sorted_e * cap + torch.where(keep, pos_within, 0)      # (T*k,)
+    ahead = pos_within if offset is None else pos_within + offset[sorted_e]
+    keep = ahead < cap
+    slot = sorted_e * c + torch.where(keep, pos_within, 0)        # (T*k,)
 
     token_of_copy = torch.div(order, m.top_k, rounding_mode="floor")
     gathered = x_flat[token_of_copy]                              # (T*k, d)
-    buf = x_flat.new_zeros((m.n_experts * cap, d))
+    buf = x_flat.new_zeros((m.n_experts * c, d))
     buf.index_add_(0, slot, torch.where(keep[:, None], gathered,
                                         gathered.new_zeros(())))
-    expert_in = constrain(cfg, buf.reshape(m.n_experts, cap, d), "model",
+    expert_in = constrain(cfg, buf.reshape(m.n_experts, c, d), "model",
                           None, None)                              # EP
     expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
-    out_flat = expert_out.reshape(m.n_experts * cap, d)
+    out_flat = expert_out.reshape(m.n_experts * c, d)
 
     w_copy = w.reshape(-1)[order]                                 # (T*k,)
     contrib = out_flat[slot] * torch.where(keep, w_copy,
@@ -199,19 +310,32 @@ def moe_apply(layer: "MoE", cfg, x, *, dropless: bool = False
     ``_DROPLESS_EINSUM_BUDGET`` elements of ``(T, E, cap)`` reroutes to the
     scatter dispatch (the same math), as the reference does: the same
     sizes take the same path in both packages.
+
+    Inside :func:`row_shard` the rows are this rank's part of a split
+    batch (the module's note); dropless, a token's output depends on no
+    other token, so only the aux terms are the whole batch's.
     """
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
     t = b * s
-    idx, w, aux = _routing(layer, cfg, x_flat)
+    shard = _ROW_SHARD
+    if shard is None:
+        idx, w, aux = _routing(layer, cfg, x_flat)
+        split = {}
+    else:
+        idx, w, aux, offset = _routing_shard(layer, cfg, x_flat, shard)
+        split = {} if dropless else dict(n_tokens=t * shard.n_pieces,
+                                         offset=offset)
     use_scatter = cfg.moe.dispatch == "scatter"
     if dropless and not use_scatter:
         cap = _capacity(cfg, t, dropless=True)
         use_scatter = t * cfg.moe.n_experts * cap > _DROPLESS_EINSUM_BUDGET
     if use_scatter:
-        y = _dispatch_scatter(layer, cfg, x_flat, idx, w, dropless=dropless)
+        y = _dispatch_scatter(layer, cfg, x_flat, idx, w, dropless=dropless,
+                              **split)
     else:
-        y = _dispatch_einsum(layer, cfg, x_flat, idx, w, dropless=dropless)
+        y = _dispatch_einsum(layer, cfg, x_flat, idx, w, dropless=dropless,
+                             **split)
     if layer.shared is not None:
         y = y + gated_ffn_apply(layer.shared, cfg, x_flat)
     return y.reshape(b, s, d), aux

@@ -21,14 +21,25 @@ serving ``dec_attn`` layer's cache is ``{"self": its KV cache, "ck",
 "cv"}``: the cross-attention keys and values, made once per request from
 the encoder's output (``LanguageModel.prefill``); without them the layer
 needs ``enc_out``.
+
+Remat (``cfg.remat``) wraps each repeat of ``layer_pattern`` in
+``torch.utils.checkpoint``: ``"full"`` keeps only its input, as the
+reference's ``jax.checkpoint``; ``"dots"`` keeps every matrix product's
+output (``aten`` ``mm``, ``addmm``, ``bmm``, ``baddbmm`` and the like,
+which ``matmul``, ``linear`` and ``einsum`` lower to) and recomputes the
+rest, as ``jax.checkpoint_policies.checkpoint_dots``.  Whatever the
+recomputed part runs (a MoE layer's collectives on a mesh) runs again in
+the backward, in the same order on every rank.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
@@ -231,20 +242,33 @@ def init_block_cache(cfg, kind: str, batch: int, s_max: int,
     return cache
 
 
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+                   torch.ops.aten.mv.default, torch.ops.aten.addmv.default,
+                   torch.ops.aten.dot.default))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy of ``"dots"``: keep a matrix
+    product's output, recompute anything else."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(cfg, fn):
-    """``fn`` under ``cfg.remat`` while gradients are recorded: ``"full"``
-    keeps only each period's input and recomputes the rest in the
-    backward (``torch.utils.checkpoint``, as the reference's
-    ``jax.checkpoint``)."""
+    """``fn`` under ``cfg.remat`` while gradients are recorded (the
+    module's note): ``"full"`` keeps only each period's input and
+    recomputes the rest in the backward; ``"dots"`` also keeps the matrix
+    products' outputs."""
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
     if cfg.remat == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat 'dots' (keep the matmul outputs, recompute the rest) is "
-            "not ported yet (ROADMAP queue 1, item 6: training's "
-            "leftovers)")
+        context = functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_policy)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context)
     raise ValueError(f"unknown remat {cfg.remat!r}")
 
 
@@ -254,7 +278,9 @@ def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
     """Run every layer in order.  Returns (x, new_caches, aux_sums):
     ``aux_sums`` holds ``load_balance`` and ``router_z`` summed over the
     MoE layers, in layer order, as the reference sums them (never
-    averaged; ``expert_fraction`` is not summed).  ``caches`` is one cache
+    averaged), and without caches, where the stack has MoE layers,
+    ``expert_fraction``: each MoE layer's, stacked ``(layers, E)``,
+    without gradient.  ``caches`` is one cache
     per layer (or None).  Without caches, each repeat of ``layer_pattern``
     after the prefix runs under ``cfg.remat`` (the reference's scanned
     period body).  ``enc_out``: the encoder's output, which the
@@ -269,21 +295,30 @@ def stack_apply(layers, cfg, x, positions, *, mode: str = "train",
 
     def run(lo, hi):
         def body(x, *sums):
+            fracs = []
             for i in range(lo, hi):
                 x, _, aux = block_apply(layers[i], cfg, layers[i].kind, x,
                                         positions, mode=mode,
                                         shape_kind=shape_kind,
                                         enc_out=enc_out)
                 sums = add(sums, aux)
-            return (x, *sums)
+                if "expert_fraction" in aux:
+                    fracs.append(aux["expert_fraction"].detach())
+            return (x, *sums, *fracs)
         return body
 
     sums = tuple(torch.zeros((), device=x.device) for _ in keys)
     if caches is None:
-        x, *sums = run(0, n_prefix)(x, *sums)
+        fracs = []
+        x, *out = run(0, n_prefix)(x, *sums)
+        sums, fracs = out[:len(keys)], fracs + out[len(keys):]
         for lo in range(n_prefix, len(layers), period):
-            x, *sums = _remat(cfg, run(lo, lo + period))(x, *sums)
-        return x, None, dict(zip(keys, sums))
+            x, *out = _remat(cfg, run(lo, lo + period))(x, *sums)
+            sums, fracs = out[:len(keys)], fracs + out[len(keys):]
+        aux = dict(zip(keys, sums))
+        if fracs:
+            aux["expert_fraction"] = torch.stack(fracs)
+        return x, None, aux
     for i, block in enumerate(layers):
         x, new_cache, aux = block_apply(
             block, cfg, block.kind, x, positions, mode=mode,

@@ -22,6 +22,7 @@ minor) is cut by each mesh dim in turn, in mesh-dim order, as DTensor's
   whole-tensor gradients of every rank and hands each its slice, as a
   DTensor of the parameter's placements (a reduce-scatter along sharded
   mesh dims, an all-reduce along replicated ones).
+* :func:`gather_rows` — every rank's own rows, stacked in batch order.
 * :func:`all_reduce_over` — a sum over some mesh dims' groups.
 * :func:`relayout` — a DTensor on other placements.
 * :func:`select` — one index of a DTensor's replicated leading dim (a
@@ -35,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["local_chunk", "distribute", "from_local", "gather",
-           "gather_at_use",
+           "gather_at_use", "gather_rows",
            "reduce_to_local", "all_reduce_over", "relayout", "is_dtensor",
            "sharded_mesh_dims", "replicas", "select"]
 
@@ -140,6 +141,16 @@ def gather(dt) -> torch.Tensor:
     with torch.no_grad():
         return _gather_local(dt.to_local().detach(), dt.device_mesh,
                              dt.placements)
+
+
+def gather_rows(local: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """Every rank's ``local`` (``(n, ...)``, one per rank) stacked along
+    dim 0 in the order in which ``placements`` cut a batch's dim 0 (its
+    other placements are ignored); ranks along the other mesh dims hold
+    the same rows and give the same result (collective)."""
+    from torch.distributed.tensor import Replicate
+    rows = [pl if pl.is_shard(0) else Replicate() for pl in placements]
+    return _gather_local(local, mesh, rows)
 
 
 def reduce_to_local(full: torch.Tensor, mesh, placements) -> torch.Tensor:

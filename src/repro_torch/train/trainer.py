@@ -35,7 +35,7 @@ import torch.distributed as dist
 from torch import nn
 
 from repro_torch.core.formats import resolve_device
-from repro_torch.launch.steps import make_train_step, refuse_on_mesh
+from repro_torch.launch.steps import make_train_step
 from repro_torch.models import LanguageModel
 from repro_torch.models.model import port_layout, reference_layout
 from repro_torch.sharding import layout
@@ -107,7 +107,6 @@ class Trainer:
         self._p_sh = self._o_sh = None
         if mesh is not None or partitioner is not None:
             self._check_mesh(mesh, partitioner)
-            refuse_on_mesh(model_cfg)
         self.model: Optional[LanguageModel] = None
         self.fault_injector = fault_injector
         self.data_cfg = DataConfig(

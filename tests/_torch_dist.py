@@ -216,6 +216,35 @@ FAMILIES = {"minicpm3-4b": (True, 1e-8), "mamba2-780m": (False, 1e-5),
             "seamless-m4t-medium": (True, 1e-8), "pixtral-12b": (True, 1e-8)}
 
 
+# the MoE configs on a mesh (capacities, positions and aux terms over the
+# whole batch) with the optimizer of their reference cells; and one
+# remat="dots" case, whose backward runs the MoE layers' collectives again
+MOE_CASES = {"granite-moe-1b-a400m": ("adamw", "none"),
+             "deepseek-v3-671b": ("adafactor", "none"),
+             "granite-moe-1b-a400m/dots": ("adamw", "dots")}
+
+
+def moe_trainer(case, device, ckpt_dir=None, **mesh_kw):
+    """Three steps (``micro=2``) of a ``MOE_CASES`` case; with
+    ``ckpt_dir`` a checkpoint at step 2 and after the last."""
+    from repro_torch.train.trainer import Trainer
+    opt, remat = MOE_CASES[case]
+    cfg = dataclasses.replace(sharded_cfg(case.split("/")[0], False),
+                              remat=remat)
+    extra = dict(ckpt_dir=ckpt_dir, ckpt_every=2) if ckpt_dir else {}
+    return Trainer(cfg, train_config(opt, **extra), device=device,
+                   **mesh_kw)
+
+
+def routing_stats(tr, batch, part=None):
+    """``launch.steps.routing_stats`` of the trainer's model on ``batch``
+    (on ``part``'s mesh when given), as numpy."""
+    from repro_torch.launch.steps import routing_stats as stats
+    aux = stats(tr.model, batch, part)
+    return {k: aux[k].cpu().numpy()
+            for k in ("expert_fraction", "load_balance", "router_z")}
+
+
 def family_trainer(arch, device, **mesh_kw):
     """Two AdamW steps of ``arch``'s smoke config (``FAMILIES``)."""
     from repro_torch.train.trainer import Trainer
@@ -250,9 +279,12 @@ def train_ranks(rank, world, ckpt_dir, mesh_shape, axes, arch="granite-3-2b",
     AdamW (checkpoints under ``ckpt_dir``: steps 2 and the last) and
     Adafactor, three steps with ``micro=2`` each of ``arch``'s smoke
     config with the RgCSR FFN; each rank's history, whole final state
-    (rank 0) and local shapes.  Then the launcher's ``--mesh``, a MoE
-    config's refusal, a tuple axis's rows, the fault drill and two steps
-    of each of ``FAMILIES``."""
+    (rank 0) and local shapes.  Then the launcher's ``--mesh`` (also with
+    granite-moe's ``--arch``), a tuple
+    axis's rows, the fault drill, two steps of each of ``FAMILIES`` and
+    three of each of ``MOE_CASES`` (with the final model's routing
+    statistics on the first batch; deepseek-v3's checkpoints under
+    ``ckpt_dir + "_moe"``)."""
     import io
     import contextlib as cl
     from repro_torch.launch import train as launch_train
@@ -284,6 +316,16 @@ def train_ranks(rank, world, ckpt_dir, mesh_shape, axes, arch="granite-3-2b",
         out["families"][fam] = {"history": tr.history, "params": {
             k: v for k, v in whole.items() if k.startswith("params/")}
             if rank == 0 else None}
+    out["moe"] = {}
+    for case in MOE_CASES:
+        moe_dir = ckpt_dir + "_moe" if case == "deepseek-v3-671b" else None
+        tr = moe_trainer(case, device, moe_dir, mesh=mesh, partitioner=part)
+        state, _ = tr.run(tr.init_state(seq_len=SEQ, global_batch=BATCH))
+        whole, _ = _state_view(state)
+        out["moe"][case] = {
+            "history": tr.history,
+            "routing": routing_stats(tr, tr._batch(0), part),
+            "whole": whole if rank == 0 else None}
     buf = io.StringIO()
     with cl.redirect_stdout(buf):
         launch_train.main(["--smoke", "--sparse-ffn", "--device", device,
@@ -291,13 +333,13 @@ def train_ranks(rank, world, ckpt_dir, mesh_shape, axes, arch="granite-3-2b",
                            "--steps", "3", "--seq", "16", "--batch", "8",
                            "--micro", "2"])
     out["launcher"] = buf.getvalue()
-    try:
-        Trainer(sharded_cfg("granite-moe-1b-a400m", False),
-                train_config("adamw"), mesh=mesh, partitioner=part,
-                device=device)
-        out["moe"] = None
-    except NotImplementedError as err:
-        out["moe"] = str(err)
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        launch_train.main(["--arch", "granite-moe-1b-a400m", "--smoke",
+                           "--device", device, "--mesh",
+                           "x".join(map(str, mesh_shape)), "--steps", "2",
+                           "--seq", "16", "--batch", "8", "--micro", "2"])
+    out["launcher_moe"] = buf.getvalue()
     rows = NamedSharding(mesh, (tuple(axes),)).distribute(
         torch.arange(16, dtype=torch.float32))
     out["tuple_rows"] = rows.to_local().tolist()
@@ -322,8 +364,9 @@ def restore_ranks(rank, world, ref_dir, port_dir, mesh_shape, axes):
     """Restores on a mesh of ``mesh_shape``: the reference's one-array
     checkpoint under ``ref_dir`` through ``restore_sharded`` and
     ``CheckpointManager.restore_latest(shardings=)``, and the port
-    trainer's checkpoint under ``port_dir`` through a ``Trainer`` on this
-    mesh (its whole params and moments, and its local shapes)."""
+    trainer's checkpoints under ``port_dir`` (granite-3-2b, AdamW) and
+    ``port_dir + "_moe"`` (deepseek-v3, Adafactor) through a ``Trainer``
+    on this mesh (their whole params and moments, and local shapes)."""
     from repro_torch.sharding import NamedSharding, Partitioner, layout
     from repro_torch.train.checkpoint import (CheckpointManager,
                                               restore_sharded)
@@ -347,4 +390,11 @@ def restore_ranks(rank, world, ref_dir, port_dir, mesh_shape, axes):
     whole, local = _state_view(state)
     out.update(next_step=nxt, whole=whole if rank == 0 else None,
                local=local)
+    tr = moe_trainer("deepseek-v3-671b", "cpu", port_dir + "_moe",
+                     mesh=mesh, partitioner=part)
+    tr.init_state(seq_len=SEQ, global_batch=BATCH)
+    state, nxt = tr.restore_latest()
+    whole, local = _state_view(state)
+    out["moe"] = {"next_step": nxt, "whole": whole if rank == 0 else None,
+                  "local": local}
     return out

@@ -82,3 +82,23 @@ def assert_same_fields(ref, port):
             assert tuple(r) == tuple(p), f.name
         else:
             assert r == p, (f.name, r, p)
+
+
+def row_shards(layer, cfg, x_flat, n):
+    """``n`` row shards of the tokens ``x_flat`` for the port's MoE layer,
+    each with a ``models.moe.RowShard`` whose ``gather`` returns every
+    shard's routed-copy counts (what the all-gather gives on a mesh),
+    after checking that the shard gave its own: ``(parts, shards)``."""
+    from repro_torch.models import moe
+    parts = list(x_flat.chunk(n))
+    counts = torch.stack([
+        moe._one_hot(moe._routing(layer, cfg, p)[0], cfg.moe.n_experts,
+                     torch.int32).sum((0, 1), dtype=torch.int32)
+        for p in parts])
+
+    def gather(c, i):
+        assert torch.equal(c, counts[i].to(c.device))
+        return counts.to(c.device)
+
+    return parts, [moe.RowShard(n, i, lambda c, i=i: gather(c, i))
+                   for i in range(n)]

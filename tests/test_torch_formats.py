@@ -177,6 +177,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files.extend(sorted((REPO / "scripts").glob("torch_*.py")))
+    twins = sorted((REPO / "examples").glob("torch_*.py"))
+    assert [f.name for f in twins] == [
+        "torch_quickstart.py", "torch_serve_lm.py", "torch_spmv_suite.py",
+        "torch_train_lm.py"]
+    files.extend(twins)
     # what the spawned ranks and the card's tests import
     files.extend(REPO / "tests" / f for f in (
         "_torch_dist.py", "_torch_parity.py", "test_torch_gpu.py"))
@@ -195,5 +200,5 @@ def test_port_imports_neither_jax_nor_the_reference():
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)
-               if r in ("jax", "jaxlib", "repro")}
+               if r in ("jax", "jaxlib", "repro", "benchmarks")}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -14,6 +14,7 @@ K2 skip padding slots (value 0 at column 0) that the plain version sums as
 these tests use finite x.  ``piece_rows`` forces the split of long groups
 at each piece size.
 """
+import copy
 import dataclasses
 import importlib
 
@@ -21,9 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import (BATCH, SEQ, run_ranks, sharded_cfg, sweep,
-                         train_config, train_ranks)
-from _torch_parity import rand_sparse, skewed
+from _torch_dist import (BATCH, MOE_CASES, SEQ, moe_trainer, run_ranks,
+                         sharded_cfg, sweep, train_config, train_ranks)
+from _torch_parity import rand_sparse, row_shards, skewed
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import SparsityConfig
@@ -35,7 +36,7 @@ from repro_torch.kernels.ell_spmv import ell_spmv_launch, ell_spmv_plain
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch, rgcsr_spmm_plain
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch, rgcsr_spmv_plain
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import ffn
+from repro_torch.models import LanguageModel, ffn, moe
 from repro_torch.models.spec import init_from_spec
 from repro_torch.serve import Engine, Request, Router, RouterConfig, \
     ServeConfig
@@ -906,7 +907,9 @@ def test_sharded_training_on_four_gloo_ranks_sharing_the_card(cuda,
     of smoke granite-3-2b with the RgCSR FFN under AdamW and Adafactor
     within 1e-4 relative of the port's single-device trainer on the card
     (CUDA's ``index_add_`` adds in no fixed order); every slice laid out
-    by its placements; the launcher's ``--mesh`` and its ``done:`` line."""
+    by its placements; the launcher's ``--mesh`` and its ``done:`` line;
+    the MoE cases (their counts all-gathered as int32 over gloo) within
+    1e-4 relative of one device."""
     from repro_torch.train.trainer import Trainer
     ranks = run_ranks(tmp_path, 4, train_ranks, str(tmp_path / "ckpt"),
                       (2, 2), ("data", "model"), "granite-3-2b", "cuda")
@@ -926,3 +929,85 @@ def test_sharded_training_on_four_gloo_ranks_sharing_the_card(cuda,
                 assert tuple(cut) == local, key
     assert ranks[0]["launcher"].strip().splitlines()[-1].startswith(
         "done: 3 steps, final loss ")
+    for case in MOE_CASES:
+        tr = moe_trainer(case, "cuda")
+        tr.run(tr.init_state(seq_len=SEQ, global_batch=BATCH))
+        for res in ranks:
+            for g, w in zip(res["moe"][case]["history"], tr.history,
+                            strict=True):
+                for k in ("loss", "load_balance", "grad_norm"):
+                    assert abs(g[k] - w[k]) <= 1e-4 * abs(w[k]), (case, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+def test_split_moe_dispatch_on_the_card_matches_the_cpu(cuda, arch,
+                                                        dispatch):
+    """A MoE layer's rows split in two (``row_shard``, the counts gathered
+    in process), train mode at capacity factor 0.5 so that copies drop:
+    each shard's outputs and aux shares on the card within 1e-5 of the
+    same shard on the CPU, and the kept copies the same."""
+    cfg = dataclasses.replace(get_smoke(arch), dtype="float32",
+                              moe=dataclasses.replace(
+                                  get_smoke(arch).moe, dispatch=dispatch,
+                                  capacity_factor=0.5))
+    layer = moe.MoE(init_from_spec(moe.moe_spec(cfg),
+                                   torch.Generator().manual_seed(5),
+                                   device="cpu"), cfg)
+    layers = {"cpu": layer, "cuda": copy.deepcopy(layer).to(cuda)}
+    x = torch.from_numpy(_x(6, 4, 16, cfg.d_model))
+    outs = {}
+    for d, layer in layers.items():
+        xd = x.to(cuda if d == "cuda" else "cpu")
+        _, shards = row_shards(layer, cfg, xd.reshape(-1, cfg.d_model), 2)
+        outs[d] = []
+        for rows, s in zip(xd.chunk(2), shards):
+            with moe.row_shard(s):
+                y, aux = moe.moe_apply(layer, cfg, rows)
+            _, _, _, offset = moe._routing_shard(
+                layer, cfg, rows.reshape(-1, cfg.d_model), s)
+            idx = moe._routing(layer, cfg, rows.reshape(-1, cfg.d_model))[0]
+            _, keep = moe._positions(cfg, idx, moe._capacity(cfg, 64),
+                                     offset)
+            outs[d].append((y, aux, keep))
+    for (y, aux, keep), (yc, auxc, keepc) in zip(outs["cuda"], outs["cpu"]):
+        assert y.device.type == cuda.type
+        assert torch.equal(keep.cpu(), keepc)
+        torch.testing.assert_close(y.cpu(), yc, rtol=1e-5, atol=1e-5)
+        for k in ("load_balance", "router_z", "expert_fraction"):
+            torch.testing.assert_close(aux[k].cpu(), auxc[k], rtol=1e-5,
+                                       atol=1e-6)
+    kept = sum(int(k.sum()) for _, _, k in outs["cpu"])
+    assert kept < 64 * cfg.moe.top_k          # copies were dropped
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,sparse", [("granite-3-2b", True),
+                                         ("granite-moe-1b-a400m", False)])
+def test_remat_dots_on_the_card_equals_none(cuda, arch, sparse):
+    """``remat="dots"`` (the matrix products kept, the rest recomputed) on
+    the card: the loss and every gradient within 1e-6 of ``"none"``."""
+    cfg = sharded_cfg(arch, sparse)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in
+             _batch_of(cfg).items()}
+    runs = {}
+    for remat in ("none", "dots"):
+        model = LanguageModel(dataclasses.replace(cfg, remat=remat),
+                              device=cuda).requires_grad_(True)
+        loss, _ = model.loss(batch)
+        loss.backward()
+        runs[remat] = (loss.detach(), {k: p.grad for k, p in
+                                       model.named_parameters()
+                                       if p.grad is not None})
+    (loss, grads), (want_loss, want) = runs["dots"], runs["none"]
+    torch.testing.assert_close(loss, want_loss, rtol=1e-6, atol=1e-6)
+    assert grads.keys() == want.keys() and grads
+    for k, g in grads.items():
+        torch.testing.assert_close(g, want[k], rtol=1e-6, atol=1e-6)
+
+
+def _batch_of(cfg):
+    from repro_torch.train.data import DataConfig, make_batch
+    return make_batch(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                 global_batch=BATCH, seed=0), 0)

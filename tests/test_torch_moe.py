@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import row_shards
 from repro.configs import get_smoke as ref_get_smoke
 from repro.models import ffn as ref_ffn
 from repro.models import moe as ref_moe
@@ -219,3 +220,100 @@ def test_the_router_bias_takes_no_gradient():
     assert layer.router.bias.grad is None
     assert layer.router.kernel.grad.abs().sum() > 0
     assert layer.experts.w_in.grad.abs().sum() > 0
+
+
+# ------------------------------------------------- rows split across ranks
+# (each shard's counts gathered by ``_torch_parity.row_shards``, in
+# process, as the all-gather gives them on a mesh)
+
+
+@pytest.mark.parametrize("arch,bias", [("granite-moe-1b-a400m", False),
+                                       ("deepseek-v3-671b", True)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_routing_shares_sum_to_the_reference(arch, bias, n):
+    """Each shard routes its rows as the whole batch does; its load-balance
+    and z-loss shares sum to the reference's terms, and every shard sees
+    the whole batch's ``expert_fraction``."""
+    ref_cfg, ref_params, cfg, layer = _layer(arch, 16, bias=bias)
+    x = _x(17, 48, cfg.d_model)
+    want_idx, want_w, want_aux = ref_moe._routing(ref_params, ref_cfg,
+                                                  jnp.asarray(x))
+    parts, shards = row_shards(layer, cfg, torch.from_numpy(x), n)
+    got = [moe._routing_shard(layer, cfg, p, s)
+           for p, s in zip(parts, shards)]
+    np.testing.assert_array_equal(torch.cat([g[0] for g in got]).numpy(),
+                                  np.asarray(want_idx))
+    _close(torch.cat([g[1] for g in got]).numpy(), want_w)
+    for k in ("load_balance", "router_z"):
+        _close(sum(g[2][k] for g in got).numpy(), want_aux[k])
+    for g in got:
+        assert set(g[2]) == set(want_aux)
+        _close(g[2]["expert_fraction"].numpy(), want_aux["expert_fraction"])
+    # offsets: the copies of the shards before, per expert
+    seen = torch.zeros(cfg.moe.n_experts, dtype=torch.int32)
+    for (idx, _, _, offset), p in zip(got, parts):
+        assert offset.dtype == torch.int32 and torch.equal(offset, seen)
+        seen = seen + moe._one_hot(idx, cfg.moe.n_experts,
+                                   torch.int32).sum((0, 1), dtype=torch.int32)
+
+
+@pytest.mark.parametrize("cf", [0.5, 1.25], ids=["drops", "cf1.25"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_positions_keep_the_whole_batch_s_copies(cf, n):
+    """A copy is kept iff its global position (the shard's offset plus its
+    local one) is under the whole batch's capacity: the shards' kept
+    copies and positions are the unsplit ones, row for row."""
+    arch = "granite-moe-1b-a400m"
+    _, _, cfg, layer = _layer(arch, 18, moe=dataclasses.replace(
+        get_smoke(arch).moe, capacity_factor=cf))
+    x = torch.from_numpy(_x(19, 64, cfg.d_model))
+    idx, _, _ = moe._routing(layer, cfg, x)
+    cap = moe._capacity(cfg, 64)
+    want_pos, want_keep = moe._positions(cfg, idx, cap)
+    parts, shards = row_shards(layer, cfg, x, n)
+    pos, keep = [], []
+    for p, s in zip(parts, shards):
+        i, _, _, offset = moe._routing_shard(layer, cfg, p, s)
+        lp, k = moe._positions(cfg, i, cap, offset)
+        pos.append(lp + offset)
+        keep.append(k)
+        # the positions the shard keeps fit its compacted buffer
+        assert not k.any() or int(lp[k].max()) < moe._buffer_rows(
+            cfg, p.shape[0], cap, offset)
+    keep = torch.cat(keep)
+    assert torch.equal(keep, want_keep)
+    assert torch.equal(torch.cat(pos)[keep], want_pos[want_keep])
+    assert (int(want_keep.sum()) < idx.numel()) == (cf < 1)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dispatch", ["einsum", "scatter"])
+@pytest.mark.parametrize("dropless", [False, True],
+                         ids=["train", "dropless"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_moe_apply_matches_the_reference(arch, dispatch, dropless, n):
+    """``moe_apply`` of each shard's rows inside ``row_shard``: the rows'
+    outputs are the reference's over the whole batch (copies dropped in
+    train mode at capacity factor 0.5, none dropless), the aux shares sum
+    to its terms, ``expert_fraction`` is its own."""
+    x = _x(20, 4, 16, 64)
+    over = dict(moe=dataclasses.replace(get_smoke(arch).moe,
+                                        dispatch=dispatch,
+                                        capacity_factor=0.5))
+    ref_cfg, ref_params, cfg, layer = _layer(arch, 21, **over)
+    want, want_aux = ref_moe.moe_apply(ref_params, ref_cfg, jnp.asarray(x),
+                                       dropless=dropless)
+    xt = torch.from_numpy(x)
+    _, shards = row_shards(layer, cfg, xt.reshape(64, 64), n)
+    ys, auxes = [], []
+    for rows, s in zip(xt.chunk(n), shards):
+        with moe.row_shard(s):
+            y, aux = moe.moe_apply(layer, cfg, rows, dropless=dropless)
+        ys.append(y)
+        auxes.append(aux)
+    assert moe._ROW_SHARD is None
+    _close(torch.cat(ys).numpy(), want)
+    for k in ("load_balance", "router_z"):
+        _close(sum(a[k] for a in auxes).numpy(), want_aux[k])
+    for a in auxes:
+        _close(a["expert_fraction"].numpy(), want_aux["expert_fraction"])

@@ -1,6 +1,7 @@
 """Sharded training (the partitioner's training half, ``shardlib``,
 ``Trainer(mesh=, partitioner=)``, ``launch/train.py --mesh``,
-``restore_sharded``) against the reference and the port's one device.
+``restore_sharded``, MoE on a mesh) against the reference and the port's
+one device.
 
 In process: the port's specs equal ``repro.sharding.Partitioner``'s leaf
 by leaf, the reference's stacked ``layers`` dim dropped, on duck meshes of
@@ -15,8 +16,12 @@ placements' slices; the launcher's ``--mesh`` ends in its ``done:`` line;
 a checkpoint of the reference's ``save`` and one of the (2, 2) trainer
 restore bitwise onto (1, 4) and onto two ranks; two steps each of MLA,
 the recurrent families, the encoder-decoder and the vision frontend
-match one device within 1e-5.  The reference's own
-multi-device step is red (ROADMAP queue 3) and is no oracle here.
+match one device within 1e-5, and so do three steps of granite-moe
+(AdamW, also under remat "dots") and deepseek-v3 (Adafactor), whose
+routing takes the whole microbatch's capacity, positions and aux terms;
+deepseek-v3's checkpoint restores bitwise onto the other meshes.  The
+reference's own multi-device step is red (ROADMAP queue 3) and is no
+oracle here.
 """
 import dataclasses
 import types
@@ -25,8 +30,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import (BATCH, FAMILIES, SEQ, family_trainer, fault_drill,
-                         restore_ranks, run_ranks, sharded_cfg, train_config,
+from _torch_dist import (BATCH, FAMILIES, MOE_CASES, SEQ, family_trainer,
+                         fault_drill, moe_trainer, restore_ranks,
+                         routing_stats, run_ranks, sharded_cfg, train_config,
                          train_ranks)
 
 import jax.numpy as jnp
@@ -53,7 +59,8 @@ KINDS = ("train", "decode", "prefill", "long_decode")
 SPARSE = dict(enabled=True, density=0.25, group_size=128, impl="ref")
 ARCHS = [("granite-3-2b", False), ("granite-3-2b", True),
          ("minicpm3-4b", False), ("mamba2-780m", False),
-         ("seamless-m4t-medium", False), ("granite-moe-1b-a400m", False)]
+         ("seamless-m4t-medium", False), ("granite-moe-1b-a400m", False),
+         ("deepseek-v3-671b", False)]
 
 
 def _meshes(shape, axes):
@@ -179,7 +186,7 @@ def test_param_specs_match_the_reference(arch, sparse, kind):
             _check_placements(port.mesh, s, len(leaves[key].shape))
 
 
-@pytest.mark.parametrize("arch,sparse", ARCHS[:5])
+@pytest.mark.parametrize("arch,sparse", ARCHS)
 @pytest.mark.parametrize("opt", ["adamw", "adafactor"])
 def test_opt_shardings_match_the_reference(arch, sparse, opt):
     """Layers dim dropped.  Adafactor: the port factors each layer's own
@@ -438,16 +445,50 @@ def test_fault_drill_restarts_on_the_mesh(trained, tmp_path):
 
 
 def test_launcher_mesh_ends_in_its_done_line(trained):
+    """``--mesh 2x2`` with the RgCSR FFN, and with a MoE ``--arch``."""
     ranks, _, _ = trained
     last = ranks[0]["launcher"].strip().splitlines()[-1]
     assert last.startswith("done: 3 steps, final loss ")
     assert all(not r["launcher"] for r in ranks[1:])
+    last = ranks[0]["launcher_moe"].strip().splitlines()[-1]
+    assert last.startswith("done: 2 steps, final loss ")
+    assert all(not r["launcher_moe"] for r in ranks[1:])
 
 
-def test_moe_on_a_mesh_raises_and_tuple_axes_place_rows(trained):
+@pytest.mark.parametrize("case", list(MOE_CASES))
+def test_sharded_moe_steps_match_one_device(trained, case):
+    """granite-moe-1b-a400m (AdamW) and deepseek-v3-671b (Adafactor), and
+    granite-moe under remat "dots": three steps on the (2, 2) mesh, each
+    rank routing its rows with the whole microbatch's capacity, positions
+    and aux terms, within 1e-5 of one device — losses, the summed
+    load-balance term, ``grad_norm``, parameters, and on the first batch
+    the final model's expert fractions and load-balance and z-loss
+    terms."""
+    ranks, _, _ = trained
+    tr = moe_trainer(case, "cpu")
+    state, _ = tr.run(tr.init_state(seq_len=SEQ, global_batch=BATCH))
+    routing = routing_stats(tr, tr._batch(0))
+    assert routing["expert_fraction"].shape[1] == tr.model_cfg.moe.n_experts
+    for res in ranks:
+        got = res["moe"][case]
+        assert [h["step"] for h in got["history"]] == [0, 1, 2]
+        for g, w in zip(got["history"], tr.history, strict=True):
+            for k in ("loss", "ce", "load_balance", "grad_norm"):
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-5,
+                                           atol=1e-5, err_msg=k)
+        for k, want in routing.items():
+            np.testing.assert_allclose(got["routing"][k], want, rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+    whole = ranks[0]["moe"][case]["whole"]
+    assert sum(k.startswith("params/") for k in whole) == len(state[0])
+    for k, t in state[0].items():
+        np.testing.assert_allclose(whole[f"params/{k}"], t.detach().numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def test_tuple_axes_place_rows(trained):
     ranks, _, _ = trained
     for res in ranks:
-        assert "MoE on a mesh" in res["moe"] and "item 9" in res["moe"]
         i, j = res["coord"]
         # ("data", "model") on one dim: data major, model minor
         assert res["tuple_rows"] == list(range(4 * (2 * i + j),
@@ -494,3 +535,16 @@ def test_checkpoints_restore_bitwise_on_another_mesh(trained, ref_ckpt,
     assert restored.keys() == saved.keys()
     for key, a in saved.items():
         np.testing.assert_array_equal(restored[key], a, err_msg=key)
+    # deepseek-v3's expert leaves and Adafactor's factored statistics
+    saved = ranks[0]["moe"]["deepseek-v3-671b"]["whole"]
+    restored = got[0]["moe"]["whole"]
+    assert restored.keys() == saved.keys()
+    assert any("experts" in k for k in saved)
+    for key, a in saved.items():
+        np.testing.assert_array_equal(restored[key], a, err_msg=key)
+    for res in got:
+        assert res["moe"]["next_step"] == 3
+        for key, (local, placements) in res["moe"]["local"].items():
+            pieces = np.prod([shape[i] for i, p in enumerate(placements)
+                              if p.startswith("S(")])
+            assert np.prod(local) * pieces == np.prod(saved[key].shape), key

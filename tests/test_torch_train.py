@@ -380,11 +380,14 @@ def test_segment_sum_chunks_keep_the_forward_and_give_the_gradients(
 
 
 def _run_both(micro: int, n_steps: int, arch="granite-3-2b", sparse=True,
-              **okw):
+              remat="none", **okw):
     """``n_steps`` train steps of both packages from the same parameters
-    on the same batches: (per-step metrics pairs, the port's tensors, the
-    reference's parameters in the port's layout, the port's state)."""
+    on the same batches (both under ``remat``): (per-step metrics pairs,
+    the port's tensors, the reference's parameters in the port's layout,
+    the port's state)."""
     ref_cfg, ref_params, cfg, host = _pair(sparse, arch)
+    ref_cfg = dataclasses.replace(ref_cfg, remat=remat)
+    cfg = dataclasses.replace(cfg, remat=remat)
     okw = dict(dict(lr=3e-3, warmup_steps=2, decay_steps=10), **okw)
     ref_fn, ref_init = ref_steps.make_train_step(
         RefModel(ref_cfg), ref_opt.OptimizerConfig(**okw), micro)
@@ -409,6 +412,74 @@ def _metrics_close(metrics):
         for k in want:
             np.testing.assert_allclose(float(got[k]), float(want[k]),
                                        rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+def _loss_and_grads(cfg, host, batch):
+    """The port's loss and every parameter's gradient, and the number of
+    matrix products (``aten`` ``mm``/``bmm``/``addmm``/``baddbmm``) that
+    the backward ran."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    dots = {aten.mm.default, aten.bmm.default, aten.addmm.default,
+            aten.baddbmm.default}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += func in dots
+            return func(*args, **(kwargs or {}))
+
+    model = _port_model(cfg, host)
+    loss, _ = model.loss({k: torch.from_numpy(v) for k, v in batch.items()})
+    with Count():
+        loss.backward()
+    return loss.item(), {k: p.grad.clone() for k, p in
+                         model.named_parameters() if p.grad is not None}, \
+        Count.n
+
+
+@pytest.mark.parametrize("arch,sparse", [("granite-3-2b", True),
+                                         ("granite-moe-1b-a400m", False)],
+                         ids=["sparse", "moe"])
+def test_remat_dots_gives_the_loss_and_gradients_of_none_and_full(arch,
+                                                                  sparse):
+    """``"dots"`` (selective checkpointing that keeps the matrix
+    products' outputs): the loss and every gradient within 1e-6 of
+    ``"none"`` and ``"full"``.  Its backward reruns no forward product:
+    it runs as many as ``"none"``'s, where ``"full"`` reruns them all."""
+    _, _, cfg, host = _pair(sparse, arch)
+    batch = _batch(cfg, 0)
+    runs = {remat: _loss_and_grads(dataclasses.replace(cfg, remat=remat),
+                                   host, batch)
+            for remat in ("none", "full", "dots")}
+    loss, grads, n_dots = runs["dots"]
+    for other in ("none", "full"):
+        want_loss, want, _ = runs[other]
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-6, atol=1e-6)
+        assert grads.keys() == want.keys()
+        for k, g in grads.items():
+            np.testing.assert_allclose(g.numpy(), want[k].numpy(),
+                                       rtol=1e-6, atol=1e-6, err_msg=k)
+    assert n_dots == runs["none"][2] < runs["full"][2]
+
+
+@pytest.mark.parametrize("arch,sparse", [("granite-3-2b", True),
+                                         ("granite-moe-1b-a400m", False)],
+                         ids=["sparse", "moe"])
+def test_three_train_steps_under_remat_dots_match_reference(arch, sparse):
+    """Both packages under ``remat="dots"`` (the reference's
+    ``jax.checkpoint`` with ``checkpoint_dots``): three AdamW steps
+    without weight decay, metrics within 1e-4, every parameter within
+    1e-5 (Adam's eps 1e-6, as the MoE step above)."""
+    metrics, got, want, _ = _run_both(1, 3, arch=arch, sparse=sparse,
+                                      remat="dots", weight_decay=0.0,
+                                      eps=1e-6)
+    _metrics_close(metrics)
+    assert got.keys() == want.keys()
+    for k, a in got.items():
+        np.testing.assert_allclose(a, want[k], rtol=1e-5, atol=1e-5,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("micro", [1, 2])
@@ -583,8 +654,8 @@ def test_a_fault_just_after_a_checkpoint_restores_it(tmp_path,
 
 def test_trainer_refuses_a_mesh_and_remat_dots_is_named():
     """A mesh without its partitioner, and ``--mesh`` without a process
-    group, are refused with what is missing (a MoE config on a mesh:
-    ``test_torch_sharded_train.py``)."""
+    group, are refused with what is missing; ``remat="dots"`` trains (its
+    numbers: the tests above) and an unknown remat is refused by name."""
     cfg = get_smoke("granite-3-2b")
     with pytest.raises(ValueError, match="partitioner="):
         Trainer(cfg, TrainConfig(), mesh=object(), device="cpu")
@@ -593,7 +664,12 @@ def test_trainer_refuses_a_mesh_and_remat_dots_is_named():
     model = LanguageModel(dataclasses.replace(cfg, remat="dots"),
                           device="cpu").requires_grad_(True)
     batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, 0).items()}
-    with pytest.raises(NotImplementedError, match="remat 'dots'"):
+    loss, _ = model.loss(batch)
+    loss.backward()
+    assert math.isfinite(loss.item())
+    model = LanguageModel(dataclasses.replace(cfg, remat="most"),
+                          device="cpu").requires_grad_(True)
+    with pytest.raises(ValueError, match="unknown remat 'most'"):
         model.loss(batch)
 
 
