@@ -293,7 +293,19 @@ Phases (any failure exits non-zero and prints no result line):
    ``grad_norm``, and on the first batch the final model's load-balance
    and z-loss terms within 1e-5 relative of one device and its expert
    fractions within 1e-5; each rank's bytes at rest against its
-   placements; per step the collectives' share; grep ``^train16``;
+   placements; per step the collectives' share; (g) in the same ranks,
+   tensor-parallel compute over ``model`` (``act_shard``: each rank
+   holds and computes its slice of the heads, FFN lanes, experts and
+   vocabulary): granite-3-2b with the RgCSR FFN on (2, 2) (``heads``),
+   again under remat ``full``, and on ``(1, 4)``, and granite-moe on
+   (2, 2) (expert-parallel), the same three steps: losses within
+   ``TRAIN16_TOL`` (granite) and ``TRAIN16_MOE_TOL`` (MoE) relative of
+   one device; per rank ``max_memory_allocated`` over a step for (a)'s
+   gather-at-use and for each tensor-parallel run, the phase failing
+   unless the (2, 2) tensor-parallel peak is below gather-at-use's on
+   every rank; per step the collectives' bytes by kind (all-gather,
+   reduce-scatter, all-reduce; by mesh axis), host seconds and tokens/s;
+   (e)'s launcher now runs tensor-parallel; grep ``^train16``;
 17. remat: phase 16's granite-3-2b on one device, 4 × 256 tokens a
    batch, from the same seed under each of ``remat`` ``none``, ``full``
    and ``dots`` (the matrix products' outputs kept, the rest
@@ -1244,21 +1256,38 @@ def _phase16_train_config(ckpt_dir=None):
                            warmup_steps=2, decay_steps=TRAIN16_STEPS))
 
 
+# the tensor each collective moves whole: an all-gather's output, a
+# reduce-scatter's input, an all-reduce's tensor (positional argument)
+_COLLECTIVE_TENSOR = {"all_gather_into_tensor": 0,
+                      "reduce_scatter_tensor": 1, "all_reduce": 0}
+
+
 class _TimedDist:
     """``torch.distributed`` with the wall time of every collective the
     sharding layer calls summed in ``seconds`` (a synchronize before and
-    after each, so the card's queued work is not counted in it)."""
+    after each, so the card's queued work is not counted in it), and the
+    bytes of the whole tensor each moves (``_COLLECTIVE_TENSOR``) summed
+    in ``bytes`` by (collective, mesh axis): ``axes`` maps a group to its
+    axis's name."""
 
     def __init__(self, dist, sync):
         self._dist, self._sync, self.seconds, self.calls = dist, sync, 0.0, 0
+        self.bytes = collections.Counter()
+        self.axes = {}
+
+    def name_axes(self, mesh, label=""):
+        for i, axis in enumerate(mesh.mesh_dim_names):
+            self.axes[id(mesh.get_group(i))] = axis + label
 
     def __getattr__(self, name):
         fn = getattr(self._dist, name)
-        if name not in ("all_gather_into_tensor", "reduce_scatter_tensor",
-                        "all_reduce"):
+        if name not in _COLLECTIVE_TENSOR:
             return fn
 
         def timed(*a, **kw):
+            t = a[_COLLECTIVE_TENSOR[name]]
+            self.bytes[name, self.axes.get(id(kw.get("group")), "world")] \
+                += t.numel() * t.element_size()
             self._sync()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
@@ -1269,18 +1298,30 @@ class _TimedDist:
         return timed
 
 
-def _count_collectives(tr, timed):
-    """Wrap ``tr``'s step so that each step's seconds in collectives are
-    appended to the returned list."""
-    step_fn, comm = tr.train_step, []
+def _count_collectives(tr, timed, dev):
+    """Wrap ``tr``'s step so that each step's seconds in collectives
+    (``comm_s``), its collectives' bytes by kind (``moved``) and, on the
+    card, its ``max_memory_allocated`` (``peak``; the counter reset just
+    before) are appended to the returned lists."""
+    import torch
+    step_fn = tr.train_step
+    stats = {"comm_s": [], "moved": [], "peak": []}
+    cuda = dev.type == "cuda"
 
     def counted(*a):
-        before = timed.seconds
+        seconds, moved = timed.seconds, collections.Counter(timed.bytes)
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         res = step_fn(*a)
-        comm.append(timed.seconds - before)
+        stats["comm_s"].append(timed.seconds - seconds)
+        stats["moved"].append({f"{k} {axis}": n for (k, axis), n in
+                               (timed.bytes - moved).items()})
+        stats["peak"].append(torch.cuda.max_memory_allocated(dev) if cuda
+                             else None)
         return res
     tr.train_step = counted
-    return comm
+    return stats
 
 
 def _say_steps(say, what, history, comm):
@@ -1365,23 +1406,63 @@ def _moe_rank(mesh, part, dev, timed, say, failures, rank, moe_kw):
                  device=dev)
     state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
     calls = timed.calls
-    comm = _count_collectives(tr, timed)
+    stats = _count_collectives(tr, timed, dev)
     t1 = time.perf_counter()
     state, _ = tr.run(state)
     run_s = time.perf_counter() - t1
-    _say_steps(say, f"{MOE_ARCH} ", tr.history, comm)
+    _say_steps(say, f"{MOE_ARCH} ", tr.history, stats["comm_s"])
     say(f"{MOE_ARCH} {len(tr.history)} steps in {run_s:.1f} s "
         f"({timed.calls - calls} collectives)")
-    out = {"history": tr.history, "comm_s": comm,
+    out = {"history": tr.history, **stats,
            "bytes": _bytes_at_rest(tr, part, state, say, failures, rank,
                                    f"{MOE_ARCH} ")}
     out["routing"] = routing_stats(tr.model, tr._batch(0), part)
     return out
 
 
+def _tp_runs(part, dev, timed, say, world, cfg, moe_kw):
+    """Phase 16 (g) on one rank: the tensor-parallel runs (the module's
+    note), each rank's history, attention mode, per step collective
+    seconds and bytes, and peak."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import Partitioner
+    from repro_torch.train.trainer import Trainer
+    mesh14 = make_mesh((1, world), ("data", "model"), device_type=dev.type)
+    timed.name_axes(mesh14, f"(1x{world})")
+    part14 = Partitioner(mesh14, "train")
+    tp = dict(act_shard=True)
+    runs = (("tp", dataclasses.replace(cfg, **tp), part),
+            ("tp_full", dataclasses.replace(cfg, remat="full", **tp), part),
+            ("tp_1x4", dataclasses.replace(cfg, **tp), part14),
+            ("moe_tp", dataclasses.replace(_phase16_moe_cfg(moe_kw), **tp),
+             part))
+    out = {}
+    for name, c, p in runs:
+        tr = Trainer(c, _phase16_train_config(), mesh=p.mesh,
+                     partitioner=p, device=dev)
+        state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
+        stats = _count_collectives(tr, timed, dev)
+        t1 = time.perf_counter()
+        tr.run(state)
+        mode = tr.model_cfg.attn_shard_mode
+        _say_steps(say, f"(g) {name} ({mode}) ", tr.history,
+                   stats["comm_s"])
+        say(f"(g) {name} {len(tr.history)} steps in "
+            f"{time.perf_counter() - t1:.1f} s; peak per step "
+            f"{stats['peak']} B; step 0's collective bytes "
+            f"{stats['moved'][0]}")
+        out[name] = {"history": tr.history, "mode": mode, **stats}
+        del tr, state
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def train_rank(rank, world, tmp, timeout_s, device, cfg_kw, moe_kw):
-    """Phase 16 (a)–(d), (f): rank ``rank`` of ``world`` ranks sharing the
-    card over gloo, spawned by :func:`sharded_train_phase`; writes its
+    """Phase 16 (a)–(d), (f), (g): rank ``rank`` of ``world`` ranks sharing
+    the card over gloo, spawned by :func:`sharded_train_phase`; writes its
     results and failures to ``tmp/train<rank>.json``."""
     import datetime
     sys.path.insert(0, str(ROOT / "src"))
@@ -1412,17 +1493,18 @@ def train_rank(rank, world, tmp, timeout_s, device, cfg_kw, moe_kw):
     try:     # a rank that raises fails the spawn, which ends the others
         mesh = make_mesh(TRAIN16_MESH, ("data", "model"),
                          device_type=dev.type)
+        timed.name_axes(mesh)
         part = Partitioner(mesh, "train")
         tr = Trainer(cfg, _phase16_train_config(ckpt), mesh=mesh,
                      partitioner=part, device=dev)
         state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
-        comm = _count_collectives(tr, timed)
+        stats = _count_collectives(tr, timed, dev)
         t1 = time.perf_counter()
         state, _ = tr.run(state)
         run_s = time.perf_counter() - t1
         out["history"] = tr.history
-        out["comm_s"] = comm
-        _say_steps(say, "", tr.history, comm)
+        out.update(stats)
+        _say_steps(say, "", tr.history, stats["comm_s"])
         say(f"{len(tr.history)} steps and the final checkpoint in "
             f"{run_s:.1f} s ({timed.calls} collectives, "
             f"{timed.seconds:.1f} s in them)")
@@ -1465,6 +1547,8 @@ def train_rank(rank, world, tmp, timeout_s, device, cfg_kw, moe_kw):
         # rows with the whole microbatch's capacity, positions and aux
         out["moe"] = _moe_rank(mesh, part, dev, timed, say, failures, rank,
                                moe_kw)
+        # (g) tensor-parallel compute over `model`, on the same ranks
+        out["tp"] = _tp_runs(part, dev, timed, say, world, cfg, moe_kw)
         out["phase_s"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
@@ -1683,6 +1767,75 @@ def _moe_compare(ranks, want, failures, world, tag):
         f"fallback: {b[0]['fallback'] or 'none'}")
 
 
+def _gib(n):
+    return "n/a" if n is None else f"{n / 2**30:.3f}"
+
+
+def _bytes_line(per_step):
+    """A step's collective bytes by kind, in MB, and their total."""
+    parts = ", ".join(f"{k} {v / 1e6:.2f}" for k, v in sorted(
+        per_step.items()))
+    return f"{sum(per_step.values()) / 1e6:.2f} MB ({parts})"
+
+
+def _tp_compare(ranks, want, moe_want, failures, world, tag):
+    """Phase 16 (g): the tensor-parallel runs against one device, their
+    peaks against (a)'s gather-at-use and their collective bytes."""
+    rel = lambda g, w: abs(g - w) / max(abs(w), 1e-30)      # noqa: E731
+    for name, ref, tol, keys in (
+            ("tp", want, TRAIN16_TOL, ("loss", "grad_norm")),
+            ("tp_full", want, TRAIN16_TOL, ("loss", "grad_norm")),
+            ("tp_1x4", want, TRAIN16_TOL, ("loss", "grad_norm")),
+            ("moe_tp", moe_want["history"], TRAIN16_MOE_TOL,
+             ("loss", "ce", "load_balance", "grad_norm"))):
+        gaps = collections.defaultdict(float)
+        for res in ranks:
+            for g, w in zip(res["tp"][name]["history"], ref, strict=True):
+                for k in keys:
+                    gaps[k] = max(gaps[k], rel(g[k], w[k]))
+        ok = gaps["loss"] <= tol
+        run = ranks[0]["tp"][name]
+        host = [h["step_time_s"] for h in run["history"]]
+        comm = [max(res["tp"][name]["comm_s"][i] for res in ranks)
+                for i in range(len(host))]
+        log(f"train16 (g) {name} (attention {run['mode']}) on {world} "
+            f"ranks against one device: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+            + f" relative (loss tol {tol:g}); host "
+            f"{[round(x, 3) for x in host]} s a step, collectives "
+            f"{[round(x, 3) for x in comm]} s, "
+            f"{[round(TRAIN_SEQ * TRAIN_BATCH / h, 1) for h in host]} "
+            f"tokens/s {tag} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train16 (g) {name}: gaps {dict(gaps)}")
+    def peak(steps):        # a run's largest step peak (None off the card)
+        return None if None in steps else max(steps)
+    peaks = {"gather-at-use": [peak(r["peak"]) for r in ranks]}
+    for name in ("tp", "tp_full", "tp_1x4", "moe_tp"):
+        peaks[name] = [peak(r["tp"][name]["peak"]) for r in ranks]
+    peaks["moe gather-at-use"] = [peak(r["moe"]["peak"]) for r in ranks]
+    lower = all(t is not None and g is not None and t < g for t, g in
+                zip(peaks["tp"], peaks["gather-at-use"]))
+    on_card = peaks["tp"][0] is not None
+    log(f"train16 (g) per rank max_memory_allocated over a step, GiB: "
+        + "; ".join(f"{k} {[_gib(x) for x in v]}" for k, v in peaks.items())
+        + f"; (2, 2) tensor-parallel below gather-at-use on every rank "
+        f"{lower if on_card else 'n/a (no card)'} {tag} "
+        f"{'ok' if lower or not on_card else 'FAIL'}")
+    if on_card and not lower:
+        failures.append(f"train16 (g) tensor-parallel peak "
+                        f"{peaks['tp']} not below gather-at-use "
+                        f"{peaks['gather-at-use']}")
+    for name, steps in (("gather-at-use", ranks[0]["moved"]),
+                        ("tp", ranks[0]["tp"]["tp"]["moved"]),
+                        ("tp_full", ranks[0]["tp"]["tp_full"]["moved"]),
+                        ("tp_1x4", ranks[0]["tp"]["tp_1x4"]["moved"]),
+                        ("moe gather-at-use", ranks[0]["moe"]["moved"]),
+                        ("moe_tp", ranks[0]["tp"]["moe_tp"]["moved"])):
+        log(f"train16 (g) rank 0's collective bytes a step, {name}: "
+            f"{_bytes_line(steps[0])} {tag}")
+
+
 def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
     """Phase 16, sharded training on a ``TRAIN16_MESH`` mesh of gloo
     ranks sharing the card (see the module's note)."""
@@ -1746,6 +1899,7 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"train16: loss gap {worst:.3e}")
+        _tp_compare(ranks, want, moe_want, failures, world, tag)
         steps = ranks[0]["history"]
         host = [h["step_time_s"] for h in steps]
         comm = [max(res["comm_s"][i] for res in ranks)
@@ -1797,7 +1951,7 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
         ok = err is None and last.startswith(
             f"done: {TRAIN16_STEPS} steps, final loss ")
         log(f"train16 (e) launch/train.py {' '.join(argv)} on {world} "
-            f"ranks of its own: last line {last!r} in "
+            f"ranks of its own (tensor-parallel): last line {last!r} in "
             f"{time.perf_counter() - t1:.1f} s {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"train16 launcher: {err or last}")

@@ -6,7 +6,12 @@ DTensor's redistribution: each case below runs on every rank and prints
 ``ok`` or ``FAIL``; the last case, DTensor's functional all-gather on a
 mesh axis's group, ends the rank with a segmentation fault on PyTorch
 2.11 with CUDA 12.8 (NVIDIA H100), after the plain collectives and the
-DTensor containers passed.  On the CPU every case passes::
+DTensor containers passed.  The cases ``region_*`` run the port's
+tensor-parallel region operators (``sharding/layout.py``: ``copy_in``,
+``reduce_out``, ``gather_dim`` along a non-leading dim with either
+backward, ``split_dim``, ``all_reduce_max``), forward and backward, on
+the ``model`` group, each checked against its sum.  On the CPU every case
+passes::
 
     python3 scripts/torch_gloo_probe.py             # cuda:0
     PROBE_DEV=cpu python3 scripts/torch_gloo_probe.py
@@ -14,6 +19,7 @@ DTensor containers passed.  On the CPU every case passes::
 import os
 import sys
 import tempfile
+from pathlib import Path
 
 import torch
 import torch.distributed as dist
@@ -97,6 +103,55 @@ def rank_fn(rank, world, store):
             p.to_local().mul_(2)
         return p.to_local()[0, :2].tolist()
     tryit("dtensor_param_local_inplace", dt_param)
+    dist.barrier()
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+    from repro_torch.sharding import layout
+    r = mesh.get_coordinate()[1]
+    base = (torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3)
+            + 10 * r)
+
+    def region(fn, up, want_y, want_g, x=base):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        y.backward(up(y))
+        if not (torch.equal(y.detach(), want_y)
+                and torch.equal(x.grad, want_g)):
+            raise AssertionError(f"got {y.tolist()} / {x.grad.tolist()}")
+        return tuple(y.shape)
+    other = base + 10 * (1 - 2 * r)           # the other model rank's base
+    ones = lambda y: torch.full_like(y, 1.0 + r)  # noqa: E731
+    tryit("region_copy_in", lambda: region(
+        lambda x: layout.copy_in(x, mesh, 1), ones, base,
+        torch.full_like(base, 3.0)))
+    tryit("region_reduce_out", lambda: region(
+        lambda x: layout.reduce_out(x, mesh, 1), ones, base + other,
+        torch.full_like(base, 1.0 + r)))
+    pair = [base, other] if r == 0 else [other, base]
+    whole = torch.cat(pair, dim=1)
+    ramp = lambda y: torch.arange(y.numel(), dtype=y.dtype,  # noqa: E731
+                                  device=y.device).reshape(y.shape) + 100 * r
+    tryit("region_gather_dim1_slice", lambda: region(
+        lambda x: layout.gather_dim(x, 1, mesh, 1), ramp, whole,
+        ramp(whole)[:, 3 * r:3 * r + 3]))
+    summed = 2 * (ramp(whole) - 100 * r) + 100
+    tryit("region_gather_dim1_sum", lambda: region(
+        lambda x: layout.gather_dim(x, 1, mesh, 1, grad="sum"), ramp, whole,
+        summed[:, 3 * r:3 * r + 3]))
+    wide = torch.arange(8, dtype=torch.float32, device=dev).reshape(2, 4)
+    tryit("region_split_dim1", lambda: region(
+        lambda x: layout.split_dim(x, 1, mesh, 1), ones,
+        wide[:, 2 * r:2 * r + 2], torch.cat([torch.full((2, 2), 1.0,
+                                                       device=dev),
+                                            torch.full((2, 2), 2.0,
+                                                       device=dev)], 1),
+        x=wide))
+    def max_case():
+        got = layout.all_reduce_max(base, mesh, 1)
+        if not torch.equal(got, torch.maximum(base, other)):
+            raise AssertionError(f"got {got.tolist()}")
+        return tuple(got.shape)
+    tryit("region_all_reduce_max", max_case)
     dist.barrier()
 
     def funcol():

@@ -29,6 +29,22 @@ count before the sum.  A MoE layer routes each rank's rows with the
 whole microbatch's capacity, positions and aux terms
 (``models.moe.row_shard``): the ranks' load-balance and z-loss shares sum
 to the microbatch's terms as their CE parts do.
+
+**Tensor-parallel** (``cfg.act_shard`` on a mesh whose ``model`` axis has
+more than one rank, as ``launch/train.py --mesh`` sets it): nothing is
+gathered whole at the start.  Each rank holds and computes its own
+``model`` slice, as the partitioner's rules place it
+(``LanguageModel.tensor_parallel_plan``; ``models.shardlib``): a block
+gathers its parameters over the batch mesh dims when it runs, the
+embedding, norms and head once per microbatch, and the activations stay
+plain local tensors that cross ranks through ``sharding.layout``'s region
+operators.  The gradient rule is per leaf: a leaf split over ``model``
+reaches its shard summed over the batch dims alone, with no division by
+the ``model`` ranks; so does a leaf replicated along ``model`` (every
+``model`` rank computes the same gradient for it); a leaf a split unit
+uses whole (``seq`` attention, ``repeat``'s k and v) is summed over every
+mesh dim; a gather-at-use sublayer's cut leaf (the recurrent mixers)
+takes this rank's slice of its own whole gradient.
 """
 from __future__ import annotations
 
@@ -39,6 +55,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models import shardlib
 from repro_torch.models.moe import RowShard, row_shard
 from repro_torch.sharding import layout
 from repro_torch.train.optimizer import OptimizerConfig, global_norm, \
@@ -170,9 +187,134 @@ def _bound(model, tensors: Dict[str, torch.Tensor]):
             table[attr] = old
 
 
+class _Binding:
+    """A model's tensors bound, while a block runs, to this step's
+    tensor-parallel slices: each rank's plain local slice (``leaves``)
+    gathered by the plan's class of the leaf (the module's note).  The
+    embedding, norms and heads outside the blocks are bound per
+    microbatch (:meth:`top`); a block binds its own when it runs
+    (``shardlib.gathered``)."""
+
+    def __init__(self, model, view):
+        self.model, self.view = model, view
+        self.modes, self.classes = model.tensor_parallel_plan(view)
+        names = list(model.tensors())
+        self.members = {id(b): [k for k in names
+                                if k.startswith(prefix + "/")]
+                        for prefix, b in model.blocks()}
+        inside = {k for ks in self.members.values() for k in ks}
+        self.outside = [k for k in names if k not in inside]
+        self.leaves = self.placements = None
+
+    def gather(self, name: str) -> torch.Tensor:
+        view, t = self.view, self.leaves[name]
+        mesh, pl = view.mesh, self.placements[name]
+        cls = self.classes.get(name)
+        if cls == "whole":
+            return layout.gather_local_at_use(t, mesh, pl)
+        g = layout.gather_local_at_use(t, mesh, pl, view.batch_dims)
+        cut = view.cuts.get(name)
+        if cls is None and cut is not None:     # gather-at-use over model
+            g = layout.gather_dim(g, cut, mesh, view.mesh_dim)
+        return g
+
+    def bind(self, module):
+        return _bound(self.model, {k: self.gather(k)
+                                   for k in self.members[id(module)]})
+
+    def top(self):
+        return _bound(self.model, {k: self.gather(k) for k in self.outside})
+
+    @contextlib.contextmanager
+    def step(self, tensors, trained=()):
+        """Model code computes tensor-parallel on the slices of
+        ``tensors`` (the model's DTensors, keyed as ``model.tensors()``):
+        yields each one's plain local slice, a leaf that takes gradients
+        for the keys of ``trained``."""
+        self.placements = {k: tuple(t.placements) for k, t in
+                           tensors.items()}
+        self.leaves = {k: t.to_local().detach().requires_grad_(k in trained)
+                       for k, t in tensors.items()}
+        try:
+            with shardlib.tensor_parallel(shardlib.TensorParallel(
+                    self.view, self.modes, self.bind)):
+                yield self.leaves
+        finally:
+            self.leaves = self.placements = None
+
+
+def _tensor_parallel(model, partitioner):
+    """A :class:`_Binding` when ``model`` trains tensor-parallel on
+    ``partitioner``'s mesh (``cfg.act_shard`` and a ``model`` axis of more
+    than one rank), else None."""
+    if not model.cfg.act_shard:
+        return None
+    view = partitioner.tensor_parallel(model.spec())
+    return None if view is None else _Binding(model, view)
+
+
+def _gathered_grads(model, params, trained, parts, place, microbatches,
+                    repeats):
+    """Gather-at-use: each parameter whole for the step, its gradient
+    routed back to its shard (the module's note); ``(grads, metrics)``."""
+    whole = {k: layout.gather_at_use(p) if k in trained
+             else layout.gather(p) for k, p in params.items()}
+    leaves = {k: w.detach().requires_grad_(k in trained)
+              for k, w in whole.items()}
+    seen = {}
+    with _bound(model, leaves):
+        for mb in parts:
+            loss, metrics = model.loss(place(mb),
+                                       token_totals=model.token_totals(mb))
+            loss.backward()
+            for k, v in metrics.items():
+                seen.setdefault(k, []).append(v.detach())
+    grads = []
+    for k in trained:
+        g = leaves[k].grad
+        g = torch.zeros_like(leaves[k]) if g is None else g
+        if microbatches > 1:
+            g = (g.float() / microbatches).to(g.dtype)
+        grads.append(g / repeats if repeats > 1 else g)
+    for p in trained.values():
+        p.grad = None
+    torch.autograd.backward([whole[k] for k in trained], grads)
+    del whole, leaves, grads
+    acc = {k: p.grad for k, p in trained.items()}
+    for p in trained.values():
+        p.grad = None
+    return acc, seen
+
+
+def _parallel_grads(model, binding, params, trained, parts, place,
+                    microbatches, repeats):
+    """Tensor-parallel: each rank's slices, gathered per block as it runs
+    (the module's note); ``(grads, metrics)``."""
+    seen = {}
+    with binding.step(params, trained) as leaves:
+        for mb in parts:
+            with binding.top():
+                loss, metrics = model.loss(
+                    place(mb), token_totals=model.token_totals(mb))
+            loss.backward()
+            for k, v in metrics.items():
+                seen.setdefault(k, []).append(v.detach())
+    acc = {}
+    for k, p in trained.items():
+        g = leaves[k].grad
+        g = torch.zeros_like(leaves[k]) if g is None else g
+        if microbatches > 1:
+            g = (g.float() / microbatches).to(g.dtype)
+        if repeats > 1:
+            g = g / repeats
+        acc[k] = layout.from_local(g, p.device_mesh, p.placements, p.shape)
+    return acc, seen
+
+
 def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
                         partitioner):
     mesh = partitioner.mesh
+    binding = _tensor_parallel(model, partitioner)
 
     def train_step(params, opt_state, batch):
         trained = {k: p for k, p in params.items()
@@ -189,40 +331,25 @@ def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
         rows = shardings["tokens"]
         batch_dims = sorted({i for dims in layout.sharded_mesh_dims(
             rows.placements()).values() for i in dims})
-        repeats = math.prod(mesh.size(i) for i in range(mesh.ndim)
-                            if i not in batch_dims)
+        # the ranks that repeat the same work on the same rows (model's
+        # are not: tensor-parallel, each computes its slice)
+        same = [i for i in range(mesh.ndim) if i not in batch_dims and (
+            binding is None or i != binding.view.mesh_dim)]
+        repeats = math.prod(mesh.size(i) for i in same)
         dev = rows.device()
-        shard = RowShard.on_mesh(mesh, rows.placements())
-        # each parameter whole, its gradient routed back to its shard
-        whole = {k: layout.gather_at_use(p) if k in trained
-                 else layout.gather(p) for k, p in params.items()}
-        leaves = {k: w.detach().requires_grad_(k in trained)
-                  for k, w in whole.items()}
-        seen = {}
-        with _bound(model, leaves), row_shard(shard):
-            for mb in parts:
-                totals = model.token_totals(mb)
-                local = {k: layout.local_chunk(v, mesh, shardings[k]
-                                               .placements()).to(dev)
-                         for k, v in mb.items()}
-                loss, metrics = model.loss(local, token_totals=totals)
-                loss.backward()
-                for k, v in metrics.items():
-                    seen.setdefault(k, []).append(v.detach())
-        grads = []
-        for k in trained:
-            g = leaves[k].grad
-            g = torch.zeros_like(leaves[k]) if g is None else g
-            if microbatches > 1:
-                g = (g.float() / microbatches).to(g.dtype)
-            grads.append(g / repeats if repeats > 1 else g)
-        for p in trained.values():
-            p.grad = None
-        torch.autograd.backward([whole[k] for k in trained], grads)
-        del whole, leaves, grads
-        acc = {k: p.grad for k, p in trained.items()}
-        for p in trained.values():
-            p.grad = None
+
+        def place(mb):
+            return {k: layout.local_chunk(v, mesh, shardings[k]
+                                          .placements()).to(dev)
+                    for k, v in mb.items()}
+        with row_shard(RowShard.on_mesh(mesh, rows.placements())):
+            if binding is None:
+                acc, seen = _gathered_grads(model, params, trained, parts,
+                                            place, microbatches, repeats)
+            else:
+                acc, seen = _parallel_grads(model, binding, params, trained,
+                                            parts, place, microbatches,
+                                            repeats)
         with torch.no_grad():
             gnorm = global_norm(acc)
             scale = torch.clamp(opt_cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -246,8 +373,9 @@ def routing_stats(model, batch, partitioner=None) -> Dict[str, torch.Tensor]:
     ``load_balance`` and ``router_z`` terms summed over the layers.  With
     ``partitioner`` the model's tensors are DTensors on its mesh (a
     sharded trainer's) and ``batch`` is the global batch: each rank
-    routes its rows, as the sharded step does, and the terms are the whole
-    batch's (collective: every rank calls)."""
+    routes its rows, as the sharded step does (tensor-parallel where the
+    step is), and the terms are the whole batch's (collective: every rank
+    calls)."""
     batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
              else v.cpu() for k, v in batch.items()}
     with torch.no_grad():
@@ -258,9 +386,16 @@ def routing_stats(model, batch, partitioner=None) -> Dict[str, torch.Tensor]:
         rows = partitioner.batch_shardings(batch)["tokens"].placements()
         local = {k: layout.local_chunk(v, mesh, rows).to(model.device)
                  for k, v in batch.items()}
-        whole = {k: layout.gather(t) for k, t in model.tensors().items()}
-        with _bound(model, whole), row_shard(RowShard.on_mesh(mesh, rows)):
-            aux = model.forward(local, mode="train")[2]
+        binding = _tensor_parallel(model, partitioner)
+        with row_shard(RowShard.on_mesh(mesh, rows)):
+            if binding is None:
+                whole = {k: layout.gather(t)
+                         for k, t in model.tensors().items()}
+                with _bound(model, whole):
+                    aux = model.forward(local, mode="train")[2]
+            else:
+                with binding.step(model.tensors()), binding.top():
+                    aux = model.forward(local, mode="train")[2]
         terms = torch.stack([aux["load_balance"], aux["router_z"]])
         layout.all_reduce_over(terms, mesh,
                                layout.sharded_mesh_dims(rows).get(0, []))

@@ -10,7 +10,10 @@ config's depth (the port's addition).
 
 ``--mesh DxM`` (axes ``data``, ``model``) or ``PxDxM`` (``pod``, ``data``,
 ``model``) trains on a ``DeviceMesh`` with a ``Partitioner(mesh,
-"train")``, as the reference does.  Every rank runs this launcher; the
+"train")``, as the reference does, with ``act_shard`` on: tensor-parallel
+compute over ``model`` (each rank its slice of the heads, FFN, experts and
+vocabulary; ``launch/steps.py``), the attention's mode resolved for the
+axis's size.  Every rank runs this launcher; the
 default process group comes from the standard launcher environment
 (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, as
 ``torchrun`` sets them) with the backend named by ``--backend`` (``nccl``
@@ -71,6 +74,7 @@ def main(argv=None):
     device = args.device
     if args.mesh:
         from repro_torch.launch.mesh import make_mesh
+        from repro_torch.models.shardlib import attn_mode_for
         from repro_torch.sharding import Partitioner
         _init_process_group(args.backend)
         device = _rank_device(args.device)
@@ -79,8 +83,11 @@ def main(argv=None):
             else ("pod", "data", "model")
         mesh = make_mesh(shape, axes, device_type=device.type)
         part = Partitioner(mesh, "train")
+        # tensor-parallel compute over `model`, the attention's mode
+        # resolved for its size (models/shardlib.py)
         cfg = dataclasses.replace(
             cfg, act_shard=True,
+            attn_shard_mode=attn_mode_for(cfg, shape[-1]),
             mesh_batch_axes=("pod", "data") if len(shape) == 3 else ("data",))
 
     seq = args.seq or (32 if args.smoke else 4096)

@@ -54,6 +54,24 @@ written to a self-attention cache: :func:`gqa_apply` with
 ``mode="cross"`` projects them at every call, and a serving decoder
 keeps them per layer in ``cfg.dtype`` (:func:`make_cross_cache`, once
 per request) and attends to them with :func:`cross_attend_cached`.
+
+**Tensor-parallel training** (``models.shardlib.unit`` gives the layer a
+mode; no cache): the input is copied in over ``model`` and
+
+* ``heads``  — q, k and v are this rank's column slices: ``Hq/n`` query
+  and ``Hkv/n`` kv heads (contiguous, so each query head keeps its kv
+  head), and ``o`` is row-parallel (a reduce-out);
+* ``repeat`` — q is this rank's ``Hq/n`` heads, k and v are whole (every
+  kv head) and each local query head takes its own kv head (the repeat,
+  sliced); ``o`` row-parallel;
+* ``seq``    — the four weights are whole: the rank computes its slice of
+  the query sequence against every key, and the output is gathered along
+  the sequence.
+
+MLA follows the same pattern: ``heads`` splits the columns of ``q_up``
+(or ``q_proj``), ``k_up`` and ``v_up`` and the rows of ``o``, while the
+latents stay replicated, copied in where they enter the split heads; its
+``repeat`` is ``heads`` (every head has its own k and v).
 """
 from __future__ import annotations
 
@@ -63,9 +81,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch.models import shardlib
 from repro_torch.models.layers import Dense, RMSNorm, dense_spec, rope
 from repro_torch.models.shardlib import shard_attn_qkv
 from repro_torch.models.spec import P
+from repro_torch.sharding import layout
 
 __all__ = ["MaskInfo", "attend", "gqa_spec", "init_gqa_cache",
            "init_gqa_paged_cache", "PageGeometry", "gqa_apply",
@@ -400,6 +420,37 @@ def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
     return cache
 
 
+def _parallel(layer, cache):
+    """``(view, mode)`` of a layer computing tensor-parallel, or None."""
+    tp = shardlib.unit(layer)
+    if tp is not None and cache is not None:
+        raise ValueError("tensor-parallel attention trains: it takes no "
+                         "cache")
+    return tp
+
+
+def _query_part(s: int, view):
+    """``(rows, first)`` of this rank's part of a query sequence of ``s``
+    positions under ``seq``."""
+    if s % view.size:
+        raise ValueError(f"attn_shard_mode 'seq': a query sequence of {s} "
+                         f"does not split over {view.size} model ranks")
+    rows = s // view.size
+    return rows, view.rank * rows
+
+
+def _attn_out(o: Dense, y, tp):
+    """The output projection: whole, row-parallel (``heads``, ``repeat``)
+    or on this rank's query positions, gathered along the sequence
+    (``seq``)."""
+    if tp is None:
+        return o(y)
+    view, how = tp
+    if how == "seq":
+        return layout.gather_dim(o(y), 1, view.mesh, view.mesh_dim)
+    return o.row(y, view)
+
+
 def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
               cache=None, window: Optional[int] = None, kv_x=None):
     """mode: causal | full (the encoder: no mask) | cross (keys and values
@@ -418,13 +469,24 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
                          f"kv_x (the encoder's output)")
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = _parallel(layer, cache)
+    if tp is not None:          # every use below is split over the ranks
+        view = tp[0]
+        x = layout.copy_in(x, view.mesh, view.mesh_dim)
+        if kv_x is not None:
+            kv_x = layout.copy_in(kv_x, view.mesh, view.mesh_dim)
     kv_src = x if kv_x is None else kv_x
     t = kv_src.shape[1]
-    q = layer.q(x).reshape(b, s, hq, dh)
-    k = layer.k(kv_src).reshape(b, t, hkv, dh)
-    v = layer.v(kv_src).reshape(b, t, hkv, dh)
+    first, q_src, q_pos = 0, x, positions
+    if tp is not None and tp[1] == "seq":
+        s, first = _query_part(s, tp[0])
+        q_src = x[:, first:first + s]
+        q_pos = None if positions is None else positions[:, first:first + s]
+    q = layer.q(q_src).reshape(b, s, -1, dh)
+    k = layer.k(kv_src).reshape(b, t, -1, dh)
+    v = layer.v(kv_src).reshape(b, t, -1, dh)
     if mode != "cross":
-        q = rope(q, positions, cfg.rope_theta)
+        q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
@@ -461,10 +523,18 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
                               valid_len=index + s)
                 y = attend(q, k, v, mask_info=mi)
     else:
-        q, k, v = shard_attn_qkv(cfg, q, k, v)
-        mi = MaskInfo(causal=mode == "causal", window=window)
+        if tp is None:
+            q, k, v = shard_attn_qkv(cfg, q, k, v)
+        elif tp[1] == "repeat":
+            # this rank's query heads, each with its own kv head
+            heads = q.shape[2] * tp[0].rank + torch.arange(
+                q.shape[2], device=q.device)
+            kv = torch.div(heads, hq // hkv, rounding_mode="floor")
+            k, v = k.index_select(2, kv), v.index_select(2, kv)
+        mi = MaskInfo(causal=mode == "causal", window=window,
+                      q_offset=first)
         y = attend(q, k, v, mask_info=mi)
-    y = layer.o(y.reshape(b, s, hq * dh))
+    y = _attn_out(layer.o, y.reshape(b, s, -1), tp)
     return y, new_cache
 
 
@@ -608,22 +678,38 @@ def mla_apply(layer: "MLA", cfg, x, positions, *, mode: str = "causal",
     it at every call.  Causal whatever ``mode`` says, as the reference's.
     Returns (y, new_cache)."""
     b, s, d = x.shape
-    h, m = cfg.n_heads, cfg.mla
+    m = cfg.mla
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    tp = _parallel(layer, cache)
+    # heads: the latents are replicated, copied in where they enter the
+    # split heads; seq: every use of x is this rank's part
+    split = tp is not None and tp[1] != "seq"
+
+    def part(t):
+        return layout.copy_in(t, tp[0].mesh, tp[0].mesh_dim) if split else t
+    first, xq, q_pos = 0, x, positions
+    if tp is not None and tp[1] == "seq":
+        x = layout.copy_in(x, tp[0].mesh, tp[0].mesh_dim)
+        s, first = _query_part(s, tp[0])
+        xq, q_pos = x[:, first:first + s], positions[:, first:first + s]
 
     if m.q_lora_rank:
-        q = layer.q_up(layer.q_norm(layer.q_down(x))).reshape(b, s, h,
-                                                              dn + dr)
+        q = layer.q_up(part(layer.q_norm(layer.q_down(xq))))
     else:
-        q = layer.q_proj(x).reshape(b, s, h, dn + dr)
+        q = layer.q_proj(part(xq))
+    q = q.reshape(b, s, -1, dn + dr)
+    h = q.shape[2]
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    q_rope = rope(q_rope, q_pos, cfg.rope_theta)
 
     down = layer.kv_down(x)
     ckv, k_rope = down[..., :m.kv_lora_rank], down[..., m.kv_lora_rank:]
     ckv = layer.kv_norm(ckv)
     # the rope key is one head, broadcast over the heads below
     k_rope = rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    if split:
+        ckv, k_rope = part(torch.cat([ckv, k_rope], dim=-1)).split(
+            [m.kv_lora_rank, dr], dim=-1)
 
     new_cache = None
     if cache is not None:
@@ -647,7 +733,8 @@ def mla_apply(layer: "MLA", cfg, x, positions, *, mode: str = "causal",
     q_cat = torch.cat([q_nope, q_rope], dim=-1)
     k_cat = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, dr)],
                       dim=-1)
-    q_cat, k_cat, v = shard_attn_qkv(cfg, q_cat, k_cat, v)
+    if tp is None:
+        q_cat, k_cat, v = shard_attn_qkv(cfg, q_cat, k_cat, v)
 
     scale = (dn + dr) ** -0.5
     if cache is not None and window and s == 1:
@@ -658,9 +745,10 @@ def mla_apply(layer: "MLA", cfg, x, positions, *, mode: str = "causal",
         out = attend(q_cat, k_cat, v, mask_info=mi, scale=scale)
     else:
         out = attend(q_cat, k_cat, v,
-                     mask_info=MaskInfo(causal=True, window=window),
+                     mask_info=MaskInfo(causal=True, window=window,
+                                        q_offset=first),
                      scale=scale)
-    y = layer.o(out.reshape(b, s, h * dv))
+    y = _attn_out(layer.o, out.reshape(b, s, h * dv), tp)
     return y, new_cache
 
 

@@ -24,6 +24,15 @@ slot-major layout — ``values2d (S, G)`` and the frozen ``columns2d (S, G)``,
 ``ffn_apply_stacked`` is the MoE experts' FFN over expert-stacked weights:
 batched matmuls in plain torch, as the reference computes these products
 outside any Pallas kernel.
+
+Tensor-parallel training (``models.shardlib.unit`` gives the FFN the mode
+``split``): the input is copied in over ``model``, ``w_in`` and ``w_gate``
+are column-parallel (this rank's ``d_ff / n`` columns), and ``w_out`` is
+row-parallel with a reduce-out, or, stored in RgCSR, computes on its lane
+slice (:meth:`SparseLinear.lanes`): ``values2d`` and ``columns2d``
+``[:, r·G/n : (r+1)·G/n]``, whose rows are ``group·G + lane``; its input
+is first gathered over ``model`` along ``d_ff`` and its rows gathered
+back into row order.
 """
 from __future__ import annotations
 
@@ -32,8 +41,10 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.models import shardlib
 from repro_torch.models.layers import Dense, ParamModule, dense_spec
 from repro_torch.models.spec import P
+from repro_torch.sharding import layout
 
 __all__ = ["ffn_spec", "ffn_apply", "gated_ffn_apply", "ffn_apply_stacked",
            "sparse_linear_spec", "sparse_linear_init_mask",
@@ -72,20 +83,39 @@ def ffn_spec(cfg, d_ff: int | None = None):
     return spec
 
 
+def _ffn_out(layer: "FFN", h, tp):
+    """``w_out`` of ``h``: whole, or on this rank's slice (``tp``)."""
+    if tp is None:
+        return layer.w_out(h)
+    if isinstance(layer.w_out, SparseLinear):
+        return layer.w_out.lanes(h, tp[0])
+    return layer.w_out.row(h, tp[0])
+
+
+def _ffn_in(layer: "FFN", x):
+    """``(tp, x)``: x copied in when the FFN computes tensor-parallel."""
+    tp = shardlib.unit(layer)
+    if tp is not None:
+        x = layout.copy_in(x, tp[0].mesh, tp[0].mesh_dim)
+    return tp, x
+
+
 def ffn_apply(layer: "FFN", cfg, x):
     act = _activation(cfg.activation)
+    tp, x = _ffn_in(layer, x)
     h = layer.w_in(x)
     if layer.w_gate is not None:
         h = act(layer.w_gate(x)) * h
     else:
         h = act(h)
-    return layer.w_out(h)
+    return _ffn_out(layer, h, tp)
 
 
 def gated_ffn_apply(layer: "FFN", cfg, x):
     """Shared-expert FFN on flat tokens (w_in/w_gate/w_out)."""
     act = _activation(cfg.activation)
-    return layer.w_out(act(layer.w_gate(x)) * layer.w_in(x))
+    tp, x = _ffn_in(layer, x)
+    return _ffn_out(layer, act(layer.w_gate(x)) * layer.w_in(x), tp)
 
 
 def ffn_apply_stacked(layer: ParamModule, cfg, x):
@@ -299,6 +329,33 @@ class SparseLinear(ParamModule):
                 if self.cfg.sparsity.impl_is_kernel() else None)
         return sparse_linear_apply(params, self.cfg, x, self.d_out,
                                    plan=plan)
+
+    def lanes(self, h, view):
+        """Tensor-parallel ``y = x @ Wᵀ`` with ``values2d`` and
+        ``columns2d`` bound to this rank's lanes ``[r·G/n, (r+1)·G/n)``:
+        ``h`` (``(..., d_in / n)``, this rank's slice) is gathered along
+        ``d_in`` (its gradient reduce-scattered: each rank's lanes read
+        every column), the segment sum gives the rank's rows ``group·G +
+        lane`` in ``(group, local lane)`` order, and the ranks' rows are
+        gathered and put back into row order: ``(..., d_out)`` on every
+        rank.  The segment sum only: K2 has no backward."""
+        if self.cfg.sparsity.impl_is_kernel():
+            raise NotImplementedError(
+                "tensor-parallel lanes run the segment sum: train a "
+                "SparseLinear with impl='ref'")
+        mesh, md, n = view.mesh, view.mesh_dim, view.size
+        x = layout.gather_dim(h, -1, mesh, md, grad="sum")
+        lead = x.shape[:-1]
+        xt = x.reshape(-1, self.d_in).T                   # (d_in, T)
+        lanes = self.values2d.shape[1]
+        n_groups = -(-self.d_out // self.cfg.sparsity.group_size)
+        y = SegmentSum.apply(self.cast("values2d", x.dtype), xt,
+                             self.columns2d, self.chunk_group,
+                             n_groups * lanes)            # (rows / n, T)
+        y = layout.gather_dim(y.T, -1, mesh, md)          # rank-major
+        y = y.reshape(-1, n, n_groups, lanes).transpose(1, 2)
+        return y.reshape(-1, n * n_groups * lanes)[:, :self.d_out] \
+            .reshape(*lead, self.d_out)
 
 
 class FFN(nn.Module):

@@ -15,6 +15,15 @@ same numbers without a cast of every weight on every decode step.  A model
 that trains (``requires_grad_(True)`` on its parameters, grad mode on)
 casts at every use, as the reference does, so that gradients flow back to
 the float32 weights.
+
+Tensor-parallel forms (``models.shardlib``; the step binds each module's
+``model`` slice): :meth:`Dense.column` is the product with this rank's
+columns of a replicated input (copied in), :meth:`Dense.row` the product
+of this rank's slice of the input with its rows, summed over the group (a
+reduce-out); :meth:`Embed.lookup` with ``view`` looks up only the
+vocabulary rows this rank holds and sums the ranks' lookups, and
+:meth:`Embed.logits` on the bound slice gives this rank's vocabulary
+columns.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.spec import P
+from repro_torch.sharding import layout
 
 __all__ = [
     "rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm",
@@ -204,10 +214,38 @@ class Dense(ParamModule):
         bias = self.cast("bias", x.dtype) if hasattr(self, "bias") else None
         return dense(self.cast("kernel", x.dtype), x, bias)
 
+    def column(self, x, view):
+        """Column-parallel: this rank's output columns of the replicated
+        ``x`` (copied in over ``view``'s group; the kernel bound to its
+        column slice)."""
+        return self(layout.copy_in(x, view.mesh, view.mesh_dim))
+
+    def row(self, x, view):
+        """Row-parallel: ``x``'s slice along ``d_in`` times this rank's
+        rows of the kernel, summed over ``view``'s group (a reduce-out):
+        the whole output on every rank.  A bias is added once, after."""
+        y = dense(self.cast("kernel", x.dtype), x)
+        y = layout.reduce_out(y, view.mesh, view.mesh_dim)
+        if hasattr(self, "bias"):
+            y = y + self.cast("bias", x.dtype)
+        return y
+
 
 class Embed(ParamModule):
-    def lookup(self, tokens, dtype):
-        return embed_lookup(self.cast("table", dtype), tokens)
+    def lookup(self, tokens, dtype, view=None):
+        """The tokens' rows of the table; with ``view`` (tensor-parallel,
+        the table bound to this rank's vocabulary rows) each rank looks up
+        the tokens it holds, zeros for the others, and the ranks' lookups
+        are summed (a reduce-out)."""
+        table = self.cast("table", dtype)
+        if view is None:
+            return embed_lookup(table, tokens)
+        rows = table.shape[0]
+        local = tokens.long() - view.rank * rows
+        held = (local >= 0) & (local < rows)
+        out = embed_lookup(table, local.clamp(0, rows - 1)) \
+            * held[..., None].to(dtype)
+        return layout.reduce_out(out, view.mesh, view.mesh_dim)
 
     def logits(self, x):
         return embed_logits(self.cast("table", x.dtype), x)

@@ -44,6 +44,16 @@ per-tensor leaves (parameters, optimizer moments) between ``tensors()``'s
 names and that layout, for checkpoints both packages read; a recurrent
 layer's subtree (``mixer`` for ``ssm``, ``rec`` for ``rec``) and a decoder
 layer's ``ln_cross`` and ``cross`` ride along as any other.
+
+Tensor-parallel training (``models.shardlib``): the embedding and an
+untied head are vocabulary-parallel (each rank holds ``padded_vocab / n``
+rows of the table, or columns of the head): a lookup sums the ranks'
+lookups of the tokens each holds, the logits are this rank's vocabulary
+columns with the padding masked at its global indices, and the CE takes
+the row maximum, the sum of exponentials and the target's logit each
+over the ranks (``all_reduce`` over ``model``).
+:meth:`LanguageModel.tensor_parallel_plan` gives each unit's mode and
+each leaf's gather.
 """
 from __future__ import annotations
 
@@ -56,12 +66,14 @@ from torch import nn
 
 from repro_torch.core.formats import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import shardlib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import _NEG
 from repro_torch.models.layers import (Dense, Embed, RMSNorm, dense_spec,
                                        embed_spec, rmsnorm_spec,
                                        rope_positions)
 from repro_torch.models.spec import count_params, init_from_spec
+from repro_torch.sharding import layout
 
 __all__ = ["LanguageModel", "model_spec", "init_params", "params_from_numpy",
            "reference_layout", "port_layout"]
@@ -176,10 +188,20 @@ class LanguageModel(nn.Module):
             * per_expert
 
     # ------------------------------------------------------------- embedding
+    def _vocab_view(self, module):
+        """The tensor-parallel view when ``module`` (the embedding or the
+        head) is vocabulary-parallel, else None."""
+        tp = shardlib.unit(module)
+        return None if tp is None else tp[0]
+
+    def _head(self):
+        return self.embed if self.lm_head is None else self.lm_head
+
     def _embed_sequence(self, batch):
         """The decoder's input: the tokens' embeddings, after the projected
         patches for ``vlm``."""
-        x = self.embed.lookup(batch["tokens"], self.compute_dtype)
+        x = self.embed.lookup(batch["tokens"], self.compute_dtype,
+                              self._vocab_view(self.embed))
         if self.cfg.frontend == "vision":
             patches = self.frontend_proj(
                 batch["patch_embeds"].to(x.device, self.compute_dtype))
@@ -197,12 +219,23 @@ class LanguageModel(nn.Module):
         return self.enc_norm(h)
 
     def _logits(self, h):
-        if self.lm_head is None:
-            logits = self.embed.logits(h)
+        """The logits of ``h``; vocabulary-parallel, this rank's columns
+        (the padding masked at its global indices)."""
+        view = self._vocab_view(self._head())
+        lo = 0
+        if view is None:
+            logits = self.embed.logits(h) if self.lm_head is None \
+                else self.lm_head(h)
+        elif self.lm_head is None:
+            logits = self.embed.logits(layout.copy_in(h, view.mesh,
+                                                      view.mesh_dim))
+            lo = view.rank * logits.shape[-1]
         else:
-            logits = self.lm_head(h)
-        if self.cfg.padded_vocab != self.cfg.vocab:
-            logits[..., self.cfg.vocab:] = _NEG     # padding rows out
+            logits = self.lm_head.column(h, view)
+            lo = view.rank * logits.shape[-1]
+        first_pad = self.cfg.vocab - lo
+        if first_pad < logits.shape[-1]:
+            logits[..., max(first_pad, 0):] = _NEG      # padding rows out
         return logits
 
     # ---------------------------------------------------------------- forward
@@ -235,7 +268,8 @@ class LanguageModel(nn.Module):
         logits, h, aux = self.forward(batch, shape_kind=shape_kind,
                                       mode="train")
         labels = _ce_labels(cfg, batch["labels"].to(logits.device))
-        loss = _masked_ce(logits, labels, totals.get("ce"))
+        loss = _masked_ce(logits, labels, totals.get("ce"),
+                          self._vocab_view(self._head()))
         metrics = {"ce": loss}
         if cfg.moe.n_experts:
             loss = loss + _LB_COEF * aux["load_balance"] \
@@ -267,7 +301,8 @@ class LanguageModel(nn.Module):
             return torch.zeros((), device=h.device)
         mtp = self.mtp
         tokens, labels = batch["tokens"], batch["labels"]
-        emb_next = self.embed.lookup(tokens[:, 1:], self.compute_dtype)
+        emb_next = self.embed.lookup(tokens[:, 1:], self.compute_dtype,
+                                     self._vocab_view(self.embed))
         merged = mtp.proj(torch.cat([mtp.norm_h(h[:, :-1, :]),
                                      mtp.norm_e(emb_next)], dim=-1))
         pos = rope_positions(merged.shape[0], merged.shape[1],
@@ -276,7 +311,39 @@ class LanguageModel(nn.Module):
                                     mode="train")
         logits = self._logits(self.final_norm(out))
         # the target at merged position t is labels[t+1] (the t+2 token)
-        return _masked_ce(logits, labels[:, 1:], total)
+        return _masked_ce(logits, labels[:, 1:], total,
+                          self._vocab_view(self._head()))
+
+    def blocks(self):
+        """``(key prefix, Block)`` of every residual block: the decoder's
+        layers, the encoder's and the MTP module's."""
+        out = [(f"layers/{i}", b) for i, b in enumerate(self.layers)]
+        if self.encoder is not None:
+            out += [(f"encoder/{i}", b) for i, b in enumerate(self.encoder)]
+        if self.mtp is not None:
+            out.append(("mtp/block", self.mtp.block))
+        return out
+
+    def tensor_parallel_plan(self, view):
+        """``(modes, classes)`` of tensor-parallel training on ``view``
+        (the partitioner's ``TensorParallelView``): each unit's mode by
+        ``id(module)`` and each leaf's gather by key (``split`` / ``whole``;
+        ``models.transformer.block_tp_plan``).  The attention mode is
+        ``cfg.attn_shard_mode``, ``"none"`` resolved by divisibility."""
+        attn_mode = shardlib.attn_mode_for(self.cfg, view.size)
+        modes: Dict[int, str] = {}
+        classes: Dict[str, str] = {}
+        if view.cuts.get("embed/table") == 0:
+            modes[id(self.embed)] = "vocab"
+            classes["embed/table"] = "split"
+        if self.lm_head is not None \
+                and view.cuts.get("lm_head/kernel") == 1:
+            modes[id(self.lm_head)] = "vocab"
+            classes["lm_head/kernel"] = "split"
+        for prefix, block in self.blocks():
+            tfm.block_tp_plan(block, view, prefix, attn_mode, modes,
+                              classes)
+        return modes, classes
 
     def tensors(self) -> Dict[str, torch.Tensor]:
         """Every parameter and buffer, keyed by its path in the parameter
@@ -357,15 +424,31 @@ def _ce_labels(cfg, labels):
     return labels
 
 
-def _masked_ce(logits, labels, total=None):
+def _masked_ce(logits, labels, total=None, view=None):
     """Cross-entropy over positions with label >= 0, in float32: predicts
     ``labels[t]`` from position ``t``.  The sum is divided by ``total``
-    when given, else by the labelled positions here."""
+    when given, else by the labelled positions here.  With ``view``
+    (vocabulary-parallel) ``logits`` are this rank's columns: the row
+    maximum, the sum of exponentials and the target's logit are each
+    taken over the ``model`` ranks."""
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
     logits32 = logits.float()
-    logz = torch.logsumexp(logits32, dim=-1)
-    gold = logits32.gather(-1, safe[..., None])[..., 0]
+    if view is None:
+        logz = torch.logsumexp(logits32, dim=-1)
+        gold = logits32.gather(-1, safe[..., None])[..., 0]
+    else:
+        cols = logits32.shape[-1]
+        top = layout.all_reduce_max(logits32.amax(-1), view.mesh,
+                                    view.mesh_dim)
+        local = safe - view.rank * cols
+        held = (local >= 0) & (local < cols)
+        mine = logits32.gather(-1, local.clamp(0, cols - 1)[..., None])
+        sums = layout.reduce_out(torch.stack([
+            torch.exp(logits32 - top[..., None]).sum(-1),
+            mine[..., 0] * held]), view.mesh, view.mesh_dim)
+        logz = torch.log(sums[0]) + top
+        gold = sums[1]
     nll = (logz - gold) * mask
     if total is not None:
         return nll.sum() / total

@@ -38,6 +38,15 @@ shapes.  The expert buffer holds only the positions the rank owns.
 ``expert_fraction`` comes from the summed counts; the load-balance and
 z-loss terms are each rank's share (its rows' sums over ``T_global``), so
 the shares sum over the ranks to the reference's terms.
+
+**Expert-parallel** (tensor-parallel training, ``models.shardlib.unit``
+gives the layer the mode ``experts``): the input is copied in over
+``model``; the router's logits are column-parallel (this rank's ``E/n``
+experts) and gathered over ``model``, so routing — capacity, positions
+and aux terms, :func:`row_shard`'s too — is the same on every ``model``
+rank, and so is the dispatch buffer; the combine weights are copied in.
+Each rank runs its ``E/n`` experts, combines their outputs alone, and a
+reduce-out sums the ranks' parts.  A shared expert is its own split FFN.
 """
 from __future__ import annotations
 
@@ -48,10 +57,12 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.models import shardlib
 from repro_torch.models.ffn import FFN, ffn_apply_stacked, gated_ffn_apply
 from repro_torch.models.layers import ParamModule, dense_spec
 from repro_torch.models.shardlib import constrain
 from repro_torch.models.spec import P
+from repro_torch.sharding import layout
 
 __all__ = ["moe_spec", "moe_apply", "MoE", "RowShard", "row_shard"]
 
@@ -148,11 +159,15 @@ def row_shard(shard: Optional[RowShard]):
         _ROW_SHARD = saved
 
 
-def _select(layer: "MoE", cfg, x_flat):
+def _select(layer: "MoE", cfg, x_flat, view=None):
     """(router logits, scores, expert_idx (T,k), combine_w (T,k) in x's
-    dtype); routing runs in float32."""
+    dtype); routing runs in float32.  With ``view`` (expert-parallel) the
+    router's kernel is this rank's experts' columns, and the logits are
+    gathered over ``model``."""
     m = cfg.moe
     logits = x_flat.float() @ layer.router.kernel.float()
+    if view is not None:
+        logits = layout.gather_dim(logits, -1, view.mesh, view.mesh_dim)
     if m.score_fn == "sigmoid":
         scores = torch.sigmoid(logits)
     else:
@@ -167,11 +182,11 @@ def _select(layer: "MoE", cfg, x_flat):
     return logits, scores, idx, w.to(x_flat.dtype)
 
 
-def _routing(layer: "MoE", cfg, x_flat):
+def _routing(layer: "MoE", cfg, x_flat, view=None):
     """Returns (expert_idx (T,k), combine_w (T,k) in x's dtype, aux).
     Routing runs in float32."""
     m = cfg.moe
-    logits, scores, idx, w = _select(layer, cfg, x_flat)
+    logits, scores, idx, w = _select(layer, cfg, x_flat, view)
     # Switch-style load-balance aux (also a balance metric for aux-free
     # models), and the router z-loss for logit drift
     probs_mean = (scores / (scores.sum(-1, keepdim=True) + 1e-9)).mean(0)
@@ -184,13 +199,13 @@ def _routing(layer: "MoE", cfg, x_flat):
     return idx, w, aux
 
 
-def _routing_shard(layer: "MoE", cfg, x_flat, shard: RowShard):
+def _routing_shard(layer: "MoE", cfg, x_flat, shard: RowShard, view=None):
     """:func:`_routing` of this rank's rows of a split batch: (idx, w,
     aux, offset).  ``aux`` holds the whole batch's ``expert_fraction`` and
     this rank's shares of the load-balance and z-loss terms; ``offset``
     (E,) int32 counts the routed copies of the ranks before this one."""
     m = cfg.moe
-    logits, scores, idx, w = _select(layer, cfg, x_flat)
+    logits, scores, idx, w = _select(layer, cfg, x_flat, view)
     n_tokens = x_flat.shape[0] * shard.n_pieces
     counts = _one_hot(idx, m.n_experts, torch.int32).sum((0, 1),
                                                          dtype=torch.int32)
@@ -238,10 +253,11 @@ def _buffer_rows(cfg, t: int, cap: int, offset) -> int:
 
 
 def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
-                     n_tokens=None, offset=None):
+                     n_tokens=None, offset=None, experts=None):
     """GShard dense dispatch: (T,E,C) one-hot dispatch/combine tensors,
     built with a loop over the k routing slots.  ``n_tokens`` (the whole
-    batch's, for the capacity) and ``offset`` describe a split batch."""
+    batch's, for the capacity) and ``offset`` describe a split batch;
+    ``experts`` (lo, hi): this rank's experts alone (expert-parallel)."""
     m = cfg.moe
     t = x_flat.shape[0]
     cap = _capacity(cfg, n_tokens or t, dropless)
@@ -254,6 +270,9 @@ def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
         pos_oh = _one_hot(pos, c, x_flat.dtype)                   # (T,E,C)
         dispatch = dispatch + pos_oh
         combine = combine + pos_oh * w[:, kk][:, None, None]
+    if experts is not None:
+        dispatch, combine = (t[:, experts[0]:experts[1]]
+                             for t in (dispatch, combine))
     expert_in = torch.einsum("tec,td->ecd", dispatch, x_flat)     # (E,C,d)
     expert_in = constrain(cfg, expert_in, "model", None, None)    # EP
     expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
@@ -261,12 +280,13 @@ def _dispatch_einsum(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
 
 
 def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
-                      n_tokens=None, offset=None):
+                      n_tokens=None, offset=None, experts=None):
     """Sort-based dispatch: tokens ordered by target expert with a stable
     sort; each expert's first ``cap`` copies gathered into a dense
     (E, C, d) buffer, processed, and summed back into their tokens weighted
-    by the router weights.  ``n_tokens`` and ``offset`` as in
-    :func:`_dispatch_einsum`."""
+    by the router weights.  ``n_tokens``, ``offset`` and ``experts`` as in
+    :func:`_dispatch_einsum`: expert-parallel, the buffer is built whole
+    and the rank processes and combines its experts' rows."""
     m = cfg.moe
     t, d = x_flat.shape
     cap = _capacity(cfg, n_tokens or t, dropless)
@@ -291,8 +311,14 @@ def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
                                         gathered.new_zeros(())))
     expert_in = constrain(cfg, buf.reshape(m.n_experts, c, d), "model",
                           None, None)                              # EP
+    if experts is not None:
+        lo, hi = experts
+        expert_in = expert_in[lo:hi]
+        mine = (sorted_e >= lo) & (sorted_e < hi)
+        keep = keep & mine
+        slot = torch.where(mine, slot - lo * c, 0)
     expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
-    out_flat = expert_out.reshape(m.n_experts * c, d)
+    out_flat = expert_out.reshape(-1, d)
 
     w_copy = w.reshape(-1)[order]                                 # (T*k,)
     contrib = out_flat[slot] * torch.where(keep, w_copy,
@@ -319,23 +345,34 @@ def moe_apply(layer: "MoE", cfg, x, *, dropless: bool = False
     x_flat = x.reshape(b * s, d)
     t = b * s
     shard = _ROW_SHARD
+    tp = shardlib.unit(layer)
+    view = None if tp is None else tp[0]
+    x_in = x_flat
+    split = {}
+    if view is not None:              # expert-parallel (the module's note)
+        x_in = layout.copy_in(x_flat, view.mesh, view.mesh_dim)
+        per = cfg.moe.n_experts // view.size
+        split["experts"] = (view.rank * per, (view.rank + 1) * per)
     if shard is None:
-        idx, w, aux = _routing(layer, cfg, x_flat)
-        split = {}
+        idx, w, aux = _routing(layer, cfg, x_in, view)
     else:
-        idx, w, aux, offset = _routing_shard(layer, cfg, x_flat, shard)
-        split = {} if dropless else dict(n_tokens=t * shard.n_pieces,
-                                         offset=offset)
+        idx, w, aux, offset = _routing_shard(layer, cfg, x_in, shard, view)
+        if not dropless:
+            split.update(n_tokens=t * shard.n_pieces, offset=offset)
+    if view is not None:
+        w = layout.copy_in(w, view.mesh, view.mesh_dim)
     use_scatter = cfg.moe.dispatch == "scatter"
     if dropless and not use_scatter:
         cap = _capacity(cfg, t, dropless=True)
         use_scatter = t * cfg.moe.n_experts * cap > _DROPLESS_EINSUM_BUDGET
     if use_scatter:
-        y = _dispatch_scatter(layer, cfg, x_flat, idx, w, dropless=dropless,
+        y = _dispatch_scatter(layer, cfg, x_in, idx, w, dropless=dropless,
                               **split)
     else:
-        y = _dispatch_einsum(layer, cfg, x_flat, idx, w, dropless=dropless,
+        y = _dispatch_einsum(layer, cfg, x_in, idx, w, dropless=dropless,
                              **split)
+    if view is not None:
+        y = layout.reduce_out(y, view.mesh, view.mesh_dim)
     if layer.shared is not None:
         y = y + gated_ffn_apply(layer.shared, cfg, x_flat)
     return y.reshape(b, s, d), aux

@@ -30,6 +30,17 @@ which ``matmul``, ``linear`` and ``einsum`` lower to) and recomputes the
 rest, as ``jax.checkpoint_policies.checkpoint_dots``.  Whatever the
 recomputed part runs (a MoE layer's collectives on a mesh) runs again in
 the backward, in the same order on every rank.
+
+**Tensor-parallel training** (``models.shardlib``): the residual stream
+is replicated along ``model``; each unit copies its input in where it
+splits (``attention``, ``ffn``, ``moe``).  :func:`block_apply` gathers
+the block's parameters over the batch mesh dims when the block runs
+(``shardlib.gathered``), so under remat the gather sits inside the
+recomputed region and ``full`` keeps no gathered weight between the
+forward and the backward.  :func:`block_tp_plan` gives each unit of a
+block its mode and each leaf its gather; the sublayers of
+:data:`GATHERED_OVER_MODEL` keep gather-at-use over ``model`` (their
+compute repeats on every ``model`` rank).
 """
 from __future__ import annotations
 
@@ -43,12 +54,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import recurrent as rec_mod
-from repro_torch.models.ffn import FFN, ffn_apply, ffn_spec
+from repro_torch.models import shardlib
+from repro_torch.models.ffn import FFN, SparseLinear, ffn_apply, ffn_spec
 from repro_torch.models.layers import RMSNorm, rmsnorm_spec
 from repro_torch.models.moe import MoE, moe_apply, moe_spec
 
 __all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
-           "stack_apply", "init_block_cache", "Block"]
+           "stack_apply", "init_block_cache", "Block", "block_tp_plan",
+           "GATHERED_OVER_MODEL"]
 
 _KINDS = ("attn", "attn_local", "moe", "ssm", "rec", "enc_attn", "dec_attn")
 
@@ -176,7 +189,16 @@ def block_apply(block: Block, cfg, kind: str, x, positions, *,
     """One residual block.  Returns (x, new_cache, aux); ``aux`` holds an
     MoE block's routing terms.  A ``dec_attn`` block's cache is
     ``{"self", "ck", "cv"}`` (or its self-attention cache alone, with
-    ``enc_out``)."""
+    ``enc_out``).  Tensor-parallel, its parameters are gathered while it
+    runs (the module's note)."""
+    with shardlib.gathered(block):
+        return _block_apply(block, cfg, kind, x, positions, mode=mode,
+                            shape_kind=shape_kind, cache=cache,
+                            enc_out=enc_out)
+
+
+def _block_apply(block: Block, cfg, kind: str, x, positions, *, mode: str,
+                 shape_kind: str, cache, enc_out):
     h = block.ln1(x)
     if kind in ("ssm", "rec"):
         y, new_cache = _recurrent_apply(block, cfg, kind, h, mode=mode,
@@ -203,6 +225,108 @@ def block_apply(block: Block, cfg, kind: str, x, positions, *,
     else:
         y2, aux = ffn_apply(block.ffn, cfg, h2), {}
     return x + y2, new_cache, aux
+
+
+# ----------------------------------------------------- tensor parallel
+# The sublayers that keep gather-at-use over ``model`` in tensor-parallel
+# training: each rank gathers their leaves whole and repeats their compute
+# on its rows (a cut leaf's gradient is this rank's slice of its own).
+# The block's norms and FFN are tensor-parallel as in any block.
+GATHERED_OVER_MODEL = {
+    "mixer": "ssm (Mamba-2): in_proj's columns concatenate z, x, B, C and "
+             "dt; the reference's cut of them gives a rank slices of all "
+             "five, which the SSD scan over heads would need rearranged",
+    "rec": "rec (RG-LRU): the conv, gates and scan run on d_rnn channels "
+           "that rg_w and in_w mix (mlp x mlp2); a split scan needs the "
+           "gates' rows and columns cut alike",
+}
+
+
+def _expect(view, leaves: Dict[str, Optional[int]], what: str):
+    """Raise unless each leaf is cut by ``model`` along the given dim."""
+    bad = {k: (view.cuts.get(k), d) for k, d in leaves.items()
+           if view.cuts.get(k) != d}
+    if bad:
+        raise ValueError(f"{what}: the partitioner's model cuts "
+                         f"(leaf: (cut, wanted)) {bad} do not fit it")
+
+
+def _attn_plan(layer, prefix, view, mode, modes, classes):
+    names = [f"{prefix}/{name}/{leaf}" for name, mod in layer.named_children()
+             for leaf in mod._parameters]
+    modes[id(layer)] = mode
+    if mode == "seq":
+        classes.update({k: "whole" for k in names})
+        return
+    if isinstance(layer, attn_mod.MLA):
+        heads = ("q_up", "q_proj", "k_up", "v_up")
+    else:
+        heads = ("q", "k", "v") if mode == "heads" else ("q",)
+    want = {}
+    for name in heads:
+        if hasattr(layer, name):
+            want[f"{prefix}/{name}/kernel"] = 1
+            if hasattr(getattr(layer, name), "bias"):
+                want[f"{prefix}/{name}/bias"] = 0
+    want[f"{prefix}/o/kernel"] = 0
+    for name in ("kv_down", "q_down"):      # MLA's latents stay whole
+        if hasattr(layer, name):
+            want[f"{prefix}/{name}/kernel"] = None
+    _expect(view, want, f"{prefix} attention in mode {mode!r}")
+    for k in names:
+        whole = isinstance(layer, attn_mod.GQA) and mode == "repeat" \
+            and k.split("/")[-2] in ("k", "v")
+        classes[k] = "whole" if whole else "split"
+
+
+def _ffn_plan(layer: FFN, prefix, view, modes, classes):
+    """Mode ``split`` when ``model`` cuts the FFN as the rules place it
+    (``w_in``/``w_gate`` columns, ``w_out`` rows or RgCSR lanes); else it
+    computes whole (the partitioner left its ``mlp`` dim whole)."""
+    want = {f"{prefix}/w_in/kernel": 1}
+    if layer.w_gate is not None:
+        want[f"{prefix}/w_gate/kernel"] = 1
+    if isinstance(layer.w_out, SparseLinear):
+        want.update({f"{prefix}/w_out/values2d": 1,
+                     f"{prefix}/w_out/columns2d": 1})
+    else:
+        want[f"{prefix}/w_out/kernel"] = 0
+    if any(view.cuts.get(k) != d for k, d in want.items()):
+        return
+    modes[id(layer)] = "split"
+    for name, mod in layer.named_children():
+        for leaf in list(mod._parameters) + list(mod._buffers):
+            classes[f"{prefix}/{name}/{leaf}"] = "split"
+
+
+def _moe_plan(layer: MoE, prefix, view, modes, classes):
+    """Mode ``experts`` when ``model`` cuts the router's columns and the
+    stacked experts' leading dim; the shared expert is an FFN."""
+    experts = {f"{prefix}/experts/{k}": 0 for k in layer.experts._parameters}
+    want = dict(experts, **{f"{prefix}/router/kernel": 1})
+    if all(view.cuts.get(k) == d for k, d in want.items()):
+        modes[id(layer)] = "experts"
+        classes.update({k: "split" for k in want})
+    if layer.shared is not None:
+        _ffn_plan(layer.shared, f"{prefix}/shared", view, modes, classes)
+
+
+def block_tp_plan(block: Block, view, prefix: str, attn_mode: str,
+                  modes: Dict[int, str], classes: Dict[str, str]):
+    """Fill ``modes`` (``id(unit)`` → mode) and ``classes`` (leaf key →
+    ``split`` / ``whole``; a leaf left out is gathered over the batch dims
+    and, where ``model`` cuts it, whole over ``model`` with its gradient
+    this rank's slice) for the units of ``block`` at ``prefix``
+    (``models.shardlib``)."""
+    for name in ("attn", "cross"):
+        if hasattr(block, name):
+            _attn_plan(getattr(block, name), f"{prefix}/{name}", view,
+                       attn_mode, modes, classes)
+    if hasattr(block, "ffn"):
+        if isinstance(block.ffn, MoE):
+            _moe_plan(block.ffn, f"{prefix}/ffn", view, modes, classes)
+        else:
+            _ffn_plan(block.ffn, f"{prefix}/ffn", view, modes, classes)
 
 
 def init_block_cache(cfg, kind: str, batch: int, s_max: int,

@@ -21,24 +21,44 @@ minor) is cut by each mesh dim in turn, in mesh-dim order, as DTensor's
 * :func:`gather_at_use` — the same under autograd: the backward sums the
   whole-tensor gradients of every rank and hands each its slice, as a
   DTensor of the parameter's placements (a reduce-scatter along sharded
-  mesh dims, an all-reduce along replicated ones).
+  mesh dims, an all-reduce along replicated ones).  Restricted to some
+  mesh dims (``mesh_dims=``, tensor-parallel training's batch dims), it
+  gathers over those alone, keeps the slice the others cut, and its
+  backward sums over those dims only; :func:`gather_local_at_use` is the
+  same on a rank's plain slice.
 * :func:`gather_rows` — every rank's own rows, stacked in batch order.
 * :func:`all_reduce_over` — a sum over some mesh dims' groups.
 * :func:`relayout` — a DTensor on other placements.
 * :func:`select` — one index of a DTensor's replicated leading dim (a
   stacked layer of a checkpoint).
+
+The region operators of tensor-parallel compute, each an autograd
+function over one mesh dim's group, on plain local tensors (activations
+are never DTensors):
+
+* :func:`copy_in`    — identity forward, ``all_reduce`` backward: where a
+  replicated activation enters compute split over the group;
+* :func:`reduce_out` — ``all_reduce`` forward, identity backward: the sum
+  of the ranks' partial results, which replicated compute then reads;
+* :func:`gather_dim` — ``all_gather`` along a tensor dim forward; the
+  backward takes this rank's slice (replicated compute reads the whole)
+  or, with ``grad="sum"``, reduce-scatters (split compute reads it);
+* :func:`split_dim`  — this rank's slice forward, ``all_gather`` backward;
+* :func:`all_reduce_max` — an elementwise maximum over the group (no
+  gradient).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["local_chunk", "distribute", "from_local", "gather",
-           "gather_at_use", "gather_rows",
+           "gather_at_use", "gather_local_at_use", "gather_rows",
            "reduce_to_local", "all_reduce_over", "relayout", "is_dtensor",
-           "sharded_mesh_dims", "replicas", "select"]
+           "sharded_mesh_dims", "replicas", "select", "copy_in",
+           "reduce_out", "gather_dim", "split_dim", "all_reduce_max"]
 
 
 def is_dtensor(t) -> bool:
@@ -120,12 +140,16 @@ def distribute(full: torch.Tensor, mesh, placements, device=None):
     return from_local(local, mesh, placements, full.shape)
 
 
-def _gather_local(local: torch.Tensor, mesh, placements) -> torch.Tensor:
+def _gather_local(local: torch.Tensor, mesh, placements,
+                  mesh_dims: Optional[Sequence[int]] = None) -> torch.Tensor:
     """The whole tensor from every rank's slice: all-gathers along the
-    sharding mesh dims, minor mesh dim first."""
+    sharding mesh dims (those of ``mesh_dims`` alone when given), minor
+    mesh dim first."""
     t = local.contiguous()
     for i, d in reversed(_shards(placements)):
         n = mesh.size(i)
+        if n == 1 or (mesh_dims is not None and i not in mesh_dims):
+            continue
         buf = t.new_empty((n * t.numel(),))
         dist.all_gather_into_tensor(buf, t.reshape(-1),
                                     group=mesh.get_group(i))
@@ -153,14 +177,20 @@ def gather_rows(local: torch.Tensor, mesh, placements) -> torch.Tensor:
     return _gather_local(local, mesh, rows)
 
 
-def reduce_to_local(full: torch.Tensor, mesh, placements) -> torch.Tensor:
-    """The sum over every rank of the mesh of ``full`` (each rank's whole
-    tensor), this rank's slice of it under ``placements``: a
-    reduce-scatter along each sharding mesh dim (in mesh-dim order) and an
-    all-reduce along each replicated one."""
+def reduce_to_local(full: torch.Tensor, mesh, placements,
+                    mesh_dims: Optional[Sequence[int]] = None
+                    ) -> torch.Tensor:
+    """The sum over every rank of the mesh (of ``mesh_dims`` alone when
+    given) of ``full`` (each rank's tensor, whole along those dims), this
+    rank's slice of it under ``placements``: a reduce-scatter along each
+    sharding mesh dim (in mesh-dim order) and an all-reduce along each
+    replicated one."""
     sharded = dict(_shards(placements))
     t = full.contiguous()
     for i in range(mesh.ndim):
+        if mesh.size(i) == 1 or (mesh_dims is not None
+                                 and i not in mesh_dims):
+            continue                  # a rank's sum over itself
         group = mesh.get_group(i)
         if i in sharded:
             d, n = sharded[i], mesh.size(i)
@@ -183,22 +213,166 @@ def all_reduce_over(t: torch.Tensor, mesh, mesh_dims: Sequence[int]):
 
 class _GatherAtUse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dt):
-        ctx.mesh, ctx.placements, ctx.shape = (dt.device_mesh, dt.placements,
-                                               tuple(dt.shape))
-        return _gather_local(dt.to_local(), dt.device_mesh, dt.placements)
+    def forward(ctx, t, mesh, placements, shape, mesh_dims):
+        ctx.meta = (mesh, placements, shape, mesh_dims, is_dtensor(t))
+        local = t.to_local() if is_dtensor(t) else t
+        return _gather_local(local, mesh, placements, mesh_dims)
 
     @staticmethod
     def backward(ctx, grad):
-        local = reduce_to_local(grad, ctx.mesh, ctx.placements)
-        return from_local(local, ctx.mesh, ctx.placements, ctx.shape)
+        mesh, placements, shape, mesh_dims, wrap = ctx.meta
+        local = reduce_to_local(grad, mesh, placements, mesh_dims)
+        if wrap:
+            local = from_local(local, mesh, placements, shape)
+        return local, None, None, None, None
 
 
-def gather_at_use(dt) -> torch.Tensor:
+def gather_at_use(dt, mesh_dims: Optional[Sequence[int]] = None
+                  ) -> torch.Tensor:
     """The whole tensor of parameter ``dt``, differentiable: its gradient
     reaches ``dt`` summed over every rank of the mesh and laid out as
-    ``dt`` is."""
-    return _GatherAtUse.apply(dt)
+    ``dt`` is.  With ``mesh_dims`` it is gathered over those mesh dims
+    only: the result keeps the slice that the other dims cut (a
+    tensor-parallel rank's ``model`` slice), and the backward sums over
+    ``mesh_dims`` alone (collective over their groups)."""
+    return _GatherAtUse.apply(dt, dt.device_mesh, tuple(dt.placements),
+                              tuple(dt.shape), mesh_dims)
+
+
+def gather_local_at_use(local: torch.Tensor, mesh, placements,
+                        mesh_dims: Optional[Sequence[int]] = None
+                        ) -> torch.Tensor:
+    """:func:`gather_at_use` of a parameter given by this rank's plain
+    slice ``local`` and its ``placements``: the gradient reaches ``local``
+    as a plain tensor."""
+    return _GatherAtUse.apply(local, mesh, tuple(placements), None,
+                              mesh_dims)
+
+
+# ----------------------------------------------------- region operators
+
+
+def _group(mesh, mesh_dim: int):
+    return mesh.get_group(mesh_dim), mesh.size(mesh_dim)
+
+
+def _rank(mesh, mesh_dim: int) -> int:
+    return _coordinate(mesh)[mesh_dim]
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _all_gather_dim(t: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
+    t = t.contiguous()
+    buf = t.new_empty((n * t.numel(),))
+    dist.all_gather_into_tensor(buf, t.reshape(-1), group=group)
+    return torch.cat(buf.view((n,) + tuple(t.shape)).unbind(0), dim=d)
+
+
+def _reduce_scatter_dim(t: torch.Tensor, d: int, group, n: int
+                        ) -> torch.Tensor:
+    pieces = torch.stack(t.chunk(n, dim=d))
+    out = t.new_empty(pieces.shape[1:])
+    dist.reduce_scatter_tensor(out.view(-1), pieces.view(-1), group=group)
+    return out
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, d, group, n, rank, summed):
+        ctx.meta = (d, group, n, rank, summed)
+        return _all_gather_dim(x, d, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d, group, n, rank, summed = ctx.meta
+        if summed:
+            out = _reduce_scatter_dim(grad, d, group, n)
+        else:
+            out = grad.chunk(n, dim=d)[rank].contiguous()
+        return out, None, None, None, None, None
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, d, group, n, rank):
+        ctx.meta = (d, group, n)
+        return x.chunk(n, dim=d)[rank].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        d, group, n = ctx.meta
+        return _all_gather_dim(grad, d, group, n), None, None, None, None
+
+
+def copy_in(x: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``mesh_dim``'s group (the
+    ranks each hold part of it)."""
+    return _CopyIn.apply(x, mesh.get_group(mesh_dim))
+
+
+def reduce_out(x: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``mesh_dim``'s group; its gradient passed to
+    every rank as it is."""
+    return _ReduceOut.apply(x, mesh.get_group(mesh_dim))
+
+
+def gather_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int,
+               grad: str = "slice") -> torch.Tensor:
+    """The ranks' ``x`` concatenated along tensor dim ``d`` in the order of
+    ``mesh_dim``'s coordinate.  Backward: this rank's slice of the
+    gradient (``grad="slice"``: every rank's gradient of the whole is
+    the whole's), or the slice of the gradients summed over the group
+    (``grad="sum"``: each rank's is a part)."""
+    if grad not in ("slice", "sum"):
+        raise ValueError(f"gather_dim grad {grad!r}: 'slice' or 'sum'")
+    group, n = _group(mesh, mesh_dim)
+    return _GatherDim.apply(x, d % x.dim(), group, n, _rank(mesh, mesh_dim),
+                            grad == "sum")
+
+
+def split_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int) -> torch.Tensor:
+    """This rank's slice of ``x`` along tensor dim ``d`` (``x`` the same on
+    every rank of ``mesh_dim``'s group); the backward all-gathers."""
+    group, n = _group(mesh, mesh_dim)
+    if x.shape[d] % n:
+        raise ValueError(f"dim {d} of a {tuple(x.shape)} tensor does not "
+                         f"split into {n}")
+    return _SplitDim.apply(x, d % x.dim(), group, n, _rank(mesh, mesh_dim))
+
+
+def all_reduce_max(t: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over ``mesh_dim``'s group, without
+    gradient."""
+    out = t.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                    group=mesh.get_group(mesh_dim))
+    return out
 
 
 def relayout(dt, placements):

@@ -27,6 +27,12 @@ without communication (every rank holds the whole tensor and keeps its
 slice).  Both tables map ``sparse_rows → model``: that rule routes
 row-sharded SpMV (DESIGN.md §11), which :meth:`Partitioner.spmv_shard_axis`
 resolves.
+
+:meth:`Partitioner.tensor_parallel` reads the same leaf specs as the
+tensor-parallel view of training: the ``model`` mesh dim, its size, this
+rank's coordinate on it and its group, the other (batch, FSDP) mesh dims,
+and for each leaf the tensor dim that ``model`` cuts (None where the
+divisibility fallback left it whole).
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from repro_torch.models.spec import P, map_spec
 from repro_torch.sharding import layout
 
 __all__ = ["Partitioner", "ShardingRules", "TRAIN_RULES", "SERVE_RULES",
-           "NamedSharding", "resolve_spmv_shard_axis", "mesh_signature"]
+           "NamedSharding", "TensorParallelView", "resolve_spmv_shard_axis",
+           "mesh_signature"]
 
 Spec = Tuple[Any, ...]
 
@@ -203,6 +210,42 @@ class NamedSharding:
                                  device=self.device())
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class TensorParallelView:
+    """Training's tensor-parallel view of a mesh: ``mesh_dim`` is the
+    ``model`` axis's index, ``size`` its rank count, ``rank`` this rank's
+    coordinate on it, ``group`` its process group; ``batch_dims`` the
+    other mesh dims (over which parameters are gathered and gradients
+    summed); ``cuts`` maps each leaf (keyed as ``LanguageModel.tensors()``
+    keys it) to the tensor dim that ``model`` cuts, or None."""
+    mesh: Any
+    mesh_dim: int
+    size: int
+    rank: int
+    group: Any
+    batch_dims: Tuple[int, ...]
+    cuts: Dict[str, Optional[int]]
+
+
+def _flat_specs(tree, prefix: str = "") -> Dict[str, Spec]:
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out: Dict[str, Spec] = {}
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _model_cut(spec: Spec) -> Optional[int]:
+    for d, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry):
+            return d
+    return None
+
+
 def resolve_spmv_shard_axis(mesh, shape_kind: str = "decode") -> str:
     """The mesh axis for row-sharded SpMV, or raise with guidance.
 
@@ -250,6 +293,26 @@ class Partitioner:
         """Rank count of the resolved SpMV row-shard axis (1 = unsharded)."""
         axis = self.spmv_shard_axis()
         return 1 if axis is None else _axis_size(self.mesh, axis)
+
+    # ------------------------------------------------------- tensor parallel
+    def tensor_parallel(self, spec_tree) -> Optional[TensorParallelView]:
+        """The tensor-parallel view of this mesh for the parameters of
+        ``spec_tree`` (a model's spec), from :meth:`param_specs`; None when
+        the mesh has no ``model`` axis of more than one rank."""
+        names = _axis_names(self.mesh)
+        if "model" not in names:
+            return None
+        dim = names.index("model")
+        if self.mesh.size(dim) == 1:
+            return None
+        cuts = {k: _model_cut(s) for k, s in
+                _flat_specs(self.param_specs(spec_tree)).items()}
+        return TensorParallelView(
+            mesh=self.mesh, mesh_dim=dim, size=self.mesh.size(dim),
+            rank=self.mesh.get_coordinate()[dim],
+            group=self.mesh.get_group(dim),
+            batch_dims=tuple(i for i in range(len(names)) if i != dim),
+            cuts=cuts)
 
     # ------------------------------------------------------------ primitives
     def _dim_spec(self, dim: int, name: Optional[str], used: set):

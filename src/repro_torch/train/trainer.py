@@ -20,7 +20,11 @@ every rank, as on one device, and each rank keeps its slices.  A
 checkpoint save gathers the whole tensors, rank 0 writes them, and every
 rank waits at a barrier before the next step; restores (the restart
 loop's too) lay the checkpoint out on this trainer's mesh, whatever mesh
-wrote it.
+wrote it.  With ``cfg.act_shard`` (as ``launch/train.py --mesh`` sets it)
+on a mesh whose ``model`` axis has more than one rank the step computes
+tensor-parallel (``launch/steps.py``); the trainer resolves the
+attention's mode for that axis (``shardlib.attn_mode_for``: ``"none"`` by
+divisibility, an explicit mode checked).
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from torch import nn
 
 from repro_torch.core.formats import resolve_device
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models import LanguageModel
+from repro_torch.models import LanguageModel, shardlib
 from repro_torch.models.model import port_layout, reference_layout
 from repro_torch.sharding import layout
 from repro_torch.sharding.partitioner import NamedSharding
@@ -107,6 +111,7 @@ class Trainer:
         self._p_sh = self._o_sh = None
         if mesh is not None or partitioner is not None:
             self._check_mesh(mesh, partitioner)
+            self.model_cfg = model_cfg = _attention_on(model_cfg, mesh)
         self.model: Optional[LanguageModel] = None
         self.fault_injector = fault_injector
         self.data_cfg = DataConfig(
@@ -356,6 +361,17 @@ class Trainer:
             self._save(step - 1, state)
             self.ckpt.wait()
         return state, step
+
+
+def _attention_on(cfg, mesh):
+    """``cfg`` with its attention mode for tensor-parallel compute on
+    ``mesh``'s ``model`` axis (unchanged without ``act_shard`` or that
+    axis)."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if not cfg.act_shard or "model" not in names:
+        return cfg
+    return dataclasses.replace(cfg, attn_shard_mode=shardlib.attn_mode_for(
+        cfg, mesh.size(names.index("model"))))
 
 
 def _unflat(flat: Dict, like):

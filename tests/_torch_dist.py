@@ -398,3 +398,186 @@ def restore_ranks(rank, world, ref_dir, port_dir, mesh_shape, axes):
     out["moe"] = {"next_step": nxt, "whole": whole if rank == 0 else None,
                   "local": local}
     return out
+
+
+# ------------------------------------------------- tensor-parallel training
+
+
+# case → (arch, RgCSR FFN, mesh shape, optimizer, config overrides): every
+# case trains with act_shard on, each rank computing its model slice; the
+# attention mode each resolves is "heads" or TP_MODES's.  Adam's eps is
+# TP_EPS: at 1e-8 an element whose first gradient sits at that scale takes
+# a first update of ~lr whose size follows the rounding of its sum (dense
+# granite's layers/0/attn/q/kernel[21, 13] takes -1.2e-8 against a median
+# |g| of 4.4e-3; minicpm3's q_down 4.0e-8), and the tensor-parallel sums
+# round otherwise than one device's (as FAMILIES' RG-LRU gates)
+TP_CASES = {
+    "granite-3-2b": ("granite-3-2b", False, (2, 2), "adamw", {}),
+    "granite-3-2b/rgcsr": ("granite-3-2b", True, (2, 2), "adamw", {}),
+    "granite-3-2b/full": ("granite-3-2b", True, (2, 2), "adamw",
+                          {"remat": "full"}),
+    "granite-3-2b/1x4": ("granite-3-2b", True, (1, 4), "adamw", {}),
+    "granite-3-2b/6heads": ("granite-3-2b", True, (1, 4), "adamw",
+                            {"n_heads": 6}),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", False, (2, 2), "adamw",
+                             {}),
+    "granite-moe-1b-a400m/dots": ("granite-moe-1b-a400m", False, (2, 2),
+                                  "adamw", {"remat": "dots"}),
+    "nemotron-4-15b": ("nemotron-4-15b", False, (2, 2), "adamw", {}),
+    "minicpm3-4b": ("minicpm3-4b", True, (2, 2), "adamw", {}),
+    "minicpm3-4b/6heads": ("minicpm3-4b", True, (1, 4), "adamw",
+                           {"n_heads": 6}),
+    "seamless-m4t-medium": ("seamless-m4t-medium", True, (2, 2), "adamw",
+                            {}),
+    "seamless-m4t-medium/6heads": ("seamless-m4t-medium", True, (1, 4),
+                                   "adamw", {"n_heads": 6}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", False, (2, 2), "adafactor",
+                         {}),
+    "mamba2-780m": ("mamba2-780m", False, (2, 2), "adamw", {}),
+    "recurrentgemma-9b": ("recurrentgemma-9b", True, (2, 2), "adamw", {}),
+}
+# (mamba2's smoke config has one head: "seq", which no layer of it reads)
+TP_MODES = {"granite-3-2b/1x4": "repeat", "granite-3-2b/6heads": "seq",
+            "minicpm3-4b/6heads": "seq", "seamless-m4t-medium/6heads": "seq",
+            "recurrentgemma-9b": "repeat", "mamba2-780m": "seq"}
+# the cases whose parameter gathers the spy holds to the placements
+TP_SPIED = ("granite-3-2b", "granite-3-2b/rgcsr", "granite-moe-1b-a400m")
+TP_EPS = 1e-5
+TP_STEPS, TP_MICRO = 3, 2
+
+
+def tp_trainer(case, device, **mesh_kw):
+    """``TP_STEPS`` steps (``micro=TP_MICRO``) of a ``TP_CASES`` case."""
+    from repro_torch.train.trainer import Trainer
+    arch, sparse, _, opt, over = TP_CASES[case]
+    cfg = dataclasses.replace(sharded_cfg(arch, sparse), act_shard=True,
+                              **over)
+    return Trainer(cfg, train_config(opt, steps=TP_STEPS, micro=TP_MICRO,
+                                     eps=TP_EPS), device=device, **mesh_kw)
+
+
+class GatherSpy:
+    """Counts, while installed, the elements of every floating parameter
+    that the tensor-parallel step gathers (``launch.steps._Binding``) and
+    the all-gathers it issues for them on the ``model`` group."""
+
+    def __init__(self, model_group):
+        from repro_torch.launch import steps
+        from repro_torch.sharding import layout
+        self.steps, self.layout, self.group = steps, layout, model_group
+        self.elements = 0
+        self.on_model = []
+        self._inside = False
+
+    def __enter__(self):
+        binding, dist_mod = self.steps._Binding, self.layout.dist
+        self._saved = (binding.gather, dist_mod)
+        spy = self
+        gather = binding.gather
+
+        def counted(b, name):
+            spy._inside = True
+            try:
+                out = gather(b, name)
+            finally:
+                spy._inside = False
+            if out.is_floating_point():
+                spy.elements += out.numel()
+            return out
+
+        class Dist:
+            def __getattr__(self, name):
+                fn = getattr(dist_mod, name)
+                if name != "all_gather_into_tensor":
+                    return fn
+
+                def all_gather(out, t, group=None, **kw):
+                    if spy._inside and group is spy.group:
+                        spy.on_model.append(t.numel())
+                    return fn(out, t, group=group, **kw)
+                return all_gather
+        binding.gather = counted
+        self.layout.dist = Dist()
+        return self
+
+    def __exit__(self, *exc):
+        self.steps._Binding.gather, self.layout.dist = self._saved
+
+
+def region_checks(mesh, mesh_dim):
+    """Each of ``layout``'s region operators over ``mesh_dim``, forward and
+    backward, on inputs and upstream gradients that name the rank ``r``:
+    x = arange(6).reshape(2, 3) + 10 r, upstream 1 + r (or, for the
+    gathers, arange over the output + 100 r)."""
+    from repro_torch.sharding import layout
+    r, n = mesh.get_coordinate()[mesh_dim], mesh.size(mesh_dim)
+    out = {}
+
+    def run(name, fn, x, up):
+        x = x.clone().requires_grad_(True)
+        y = fn(x)
+        y.backward(up(y))
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    base = torch.arange(6.0).reshape(2, 3) + 10 * r
+    run("copy_in", lambda x: layout.copy_in(x, mesh, mesh_dim), base,
+        lambda y: torch.full_like(y, 1.0 + r))
+    run("reduce_out", lambda x: layout.reduce_out(x, mesh, mesh_dim), base,
+        lambda y: torch.full_like(y, 1.0 + r))
+    for grad in ("slice", "sum"):
+        run(f"gather_{grad}", lambda x, g=grad: layout.gather_dim(
+            x, 1, mesh, mesh_dim, grad=g), base,
+            lambda y: torch.arange(float(y.numel())).reshape(y.shape)
+            + 100 * r)
+    run("split", lambda x: layout.split_dim(x, 1, mesh, mesh_dim),
+        torch.arange(4.0 * n).reshape(2, 2 * n),
+        lambda y: torch.full_like(y, 1.0 + r))
+    out["max"] = layout.all_reduce_max(base, mesh, mesh_dim).numpy()
+    return {"rank": r, "n": n, "ops": out}
+
+
+def tp_ranks(rank, world, device="cpu", cases=None):
+    """Every ``TP_CASES`` case (of ``cases`` when given) on its mesh of
+    the ``world`` ranks: each rank's history, resolved attention mode, unit
+    modes, a MoE model's final routing statistics on the first batch
+    (tensor-parallel) and (rank 0) whole final parameters; for
+    ``TP_SPIED`` the spy's counts beside the placements' prediction,
+    micro × Σ numel / (the leaf's model shards) a step."""
+    from repro_torch.launch.steps import _tensor_parallel
+    from repro_torch.sharding import Partitioner
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    meshes = {}
+    mesh = make_mesh((2, world // 2), ("data", "model"), device_type=dev.type)
+    out = {"regions": region_checks(mesh, 1)}
+    for case, (_, _, shape, _, _) in TP_CASES.items():
+        if cases is not None and case not in cases:
+            continue
+        if shape not in meshes:
+            mesh = make_mesh(shape, ("data", "model"), device_type=dev.type)
+            meshes[shape] = (mesh, Partitioner(mesh, "train"))
+        mesh, part = meshes[shape]
+        tr = tp_trainer(case, device, mesh=mesh, partitioner=part)
+        state = tr.init_state(seq_len=SEQ, global_batch=BATCH)
+        binding = _tensor_parallel(tr.model, part)
+        res = {"mode": tr.model_cfg.attn_shard_mode,
+               "units": sorted(set(binding.modes.values()))}
+        if case in TP_SPIED:
+            view = binding.view
+            res["predicted"] = TP_STEPS * TP_MICRO * sum(
+                t.numel() // (view.size if view.cuts[k] is not None else 1)
+                for k, t in tr.model.tensors().items()
+                if t.is_floating_point())
+            with GatherSpy(view.group) as spy:
+                state, _ = tr.run(state)
+            res.update(gathered=spy.elements, on_model=spy.on_model)
+        else:
+            state, _ = tr.run(state)
+        if tr.model_cfg.moe.n_experts:
+            res["routing"] = routing_stats(tr, tr._batch(0), part)
+        whole, _ = _state_view(state)
+        res["history"] = tr.history
+        res["params"] = {k: v for k, v in whole.items()
+                         if k.startswith("params/")} if rank == 0 else None
+        out[case] = res
+    return out
