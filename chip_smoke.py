@@ -322,7 +322,23 @@ Phases (any failure exits non-zero and prints no result line):
    (the kernel against the CSR oracle, every request done, the loss
    falling); the launch counters, set to 0 just before and read just
    after, show K1 and K3 launched; grep ``^twins``;
-19. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+19. dryrun: the dry run (``launch/dryrun.py``: one training step on
+   ``meta`` tensors over a fake process group, counted by
+   ``launch/hlo_cost.py``; no kernel, no card), its processes started
+   on the host after phase 10 and collected here.  (a) granite-3-2b
+   ``train_4k`` on (16, 16) and granite-moe-1b-a400m ``train_4k`` on
+   (2, 16, 16) through ``python -m repro_torch.launch.dryrun``: each
+   record ``ok`` with finite, positive roofline terms (predictions from
+   ``launch.mesh.HW``'s H100 figures), its seconds and HBM GiB a device.
+   (b) Phase 16 (g)'s tensor-parallel cell (granite-3-2b, 4 layers, (2,
+   2), ``micro=2``, 4 × 128 tokens) on a fake (2, 2) mesh: rank 0's
+   collective bytes by kind and mesh axis equal to what phase 16 (g)'s
+   rank 0 measured in this run, exactly (both read the sharding layer's
+   collective log); the predicted peak a rank beside the measured one;
+   the roofline's lower bound not above the fastest measured step.  (c)
+   The same for phase 10's one-device granite-3-2b step (peak and step
+   time from phase 10 (b)); grep ``^dryrun``;
+20. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -446,6 +462,12 @@ TWIN_RUNS = (("torch_quickstart", ()), ("torch_spmv_suite", ()),
              ("torch_train_lm", ("--steps", str(TWIN_TRAIN_STEPS))),
              ("torch_train_lm", ("--steps", str(TWIN_TRAIN_STEPS),
                                  "--sparse")))
+
+# phase 19: the dry run's production cells (arch, multi-pod); each of its
+# subprocesses, started after phase 10, is killed DRYRUN_TIMEOUT_S after
+# its start
+DRYRUN_CELLS = (("granite-3-2b", False), ("granite-moe-1b-a400m", True))
+DRYRUN_TIMEOUT_S = 600
 
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
@@ -1256,38 +1278,23 @@ def _phase16_train_config(ckpt_dir=None):
                            warmup_steps=2, decay_steps=TRAIN16_STEPS))
 
 
-# the tensor each collective moves whole: an all-gather's output, a
-# reduce-scatter's input, an all-reduce's tensor (positional argument)
-_COLLECTIVE_TENSOR = {"all_gather_into_tensor": 0,
-                      "reduce_scatter_tensor": 1, "all_reduce": 0}
+_TIMED = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
 
 
 class _TimedDist:
     """``torch.distributed`` with the wall time of every collective the
     sharding layer calls summed in ``seconds`` (a synchronize before and
-    after each, so the card's queued work is not counted in it), and the
-    bytes of the whole tensor each moves (``_COLLECTIVE_TENSOR``) summed
-    in ``bytes`` by (collective, mesh axis): ``axes`` maps a group to its
-    axis's name."""
+    after each, so the card's queued work is not counted in it)."""
 
     def __init__(self, dist, sync):
         self._dist, self._sync, self.seconds, self.calls = dist, sync, 0.0, 0
-        self.bytes = collections.Counter()
-        self.axes = {}
-
-    def name_axes(self, mesh, label=""):
-        for i, axis in enumerate(mesh.mesh_dim_names):
-            self.axes[id(mesh.get_group(i))] = axis + label
 
     def __getattr__(self, name):
         fn = getattr(self._dist, name)
-        if name not in _COLLECTIVE_TENSOR:
+        if name not in _TIMED:
             return fn
 
         def timed(*a, **kw):
-            t = a[_COLLECTIVE_TENSOR[name]]
-            self.bytes[name, self.axes.get(id(kw.get("group")), "world")] \
-                += t.numel() * t.element_size()
             self._sync()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
@@ -1300,23 +1307,27 @@ class _TimedDist:
 
 def _count_collectives(tr, timed, dev):
     """Wrap ``tr``'s step so that each step's seconds in collectives
-    (``comm_s``), its collectives' bytes by kind (``moved``) and, on the
-    card, its ``max_memory_allocated`` (``peak``; the counter reset just
-    before) are appended to the returned lists."""
+    (``comm_s``), the bytes of the whole tensors its collectives moved by
+    kind and mesh axis (``moved``: the sharding layer's collective log,
+    which the dry run reads too) and, on the card, its
+    ``max_memory_allocated`` (``peak``; the counter reset just before)
+    are appended to the returned lists."""
     import torch
+    from repro_torch.launch.hlo_stats import moved_bytes
+    from repro_torch.sharding import layout
     step_fn = tr.train_step
     stats = {"comm_s": [], "moved": [], "peak": []}
     cuda = dev.type == "cuda"
 
     def counted(*a):
-        seconds, moved = timed.seconds, collections.Counter(timed.bytes)
+        seconds = timed.seconds
         if cuda:
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-        res = step_fn(*a)
+        with layout.collective_log() as entries:
+            res = step_fn(*a)
         stats["comm_s"].append(timed.seconds - seconds)
-        stats["moved"].append({f"{k} {axis}": n for (k, axis), n in
-                               (timed.bytes - moved).items()})
+        stats["moved"].append(moved_bytes(entries))
         stats["peak"].append(torch.cuda.max_memory_allocated(dev) if cuda
                              else None)
         return res
@@ -1429,7 +1440,6 @@ def _tp_runs(part, dev, timed, say, world, cfg, moe_kw):
     from repro_torch.sharding import Partitioner
     from repro_torch.train.trainer import Trainer
     mesh14 = make_mesh((1, world), ("data", "model"), device_type=dev.type)
-    timed.name_axes(mesh14, f"(1x{world})")
     part14 = Partitioner(mesh14, "train")
     tp = dict(act_shard=True)
     runs = (("tp", dataclasses.replace(cfg, **tp), part),
@@ -1493,7 +1503,6 @@ def train_rank(rank, world, tmp, timeout_s, device, cfg_kw, moe_kw):
     try:     # a rank that raises fails the spawn, which ends the others
         mesh = make_mesh(TRAIN16_MESH, ("data", "model"),
                          device_type=dev.type)
-        timed.name_axes(mesh)
         part = Partitioner(mesh, "train")
         tr = Trainer(cfg, _phase16_train_config(ckpt), mesh=mesh,
                      partitioner=part, device=dev)
@@ -1838,7 +1847,9 @@ def _tp_compare(ranks, want, moe_want, failures, world, tag):
 
 def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
     """Phase 16, sharded training on a ``TRAIN16_MESH`` mesh of gloo
-    ranks sharing the card (see the module's note)."""
+    ranks sharing the card (see the module's note); the ranks' results
+    (phase 19 reads rank 0's tensor-parallel run), None when they
+    failed."""
     import torch
     from repro_torch.train.trainer import Trainer
     cfg_kw = dict(cfg_kw or {})
@@ -1877,7 +1888,7 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
                            (SHARD_TIMEOUT_S, device, cfg_kw, moe_kw))
         if err:
             failures.append(f"train16 ranks: {err}")
-            return
+            return None
         ranks = []
         for r in range(world):
             with open(tmp / f"train{r}.json") as f:
@@ -1958,6 +1969,7 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
+    return ranks
 
 
 # ------------------------------------------------------ phase 17: remat
@@ -2106,6 +2118,189 @@ def twins_phase(dev, failures, tag):
     if not ok:
         failures.append(f"twins launch counts {counts}")
     log(f"phase 18 in {time.perf_counter() - t18:.1f} s")
+
+
+# ----------------------------------------------------- phase 19: dry run
+
+
+def _dryrun_parts(cfg_kw):
+    """Phase 19 (b) and (c): ``(name, config, mesh shape, axes,
+    microbatches)`` of phase 16 (g)'s tensor-parallel cell and of phase
+    10's one-device step (``cfg_kw`` narrows both in a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SparsityConfig
+    tp = dataclasses.replace(_phase16_cfg(cfg_kw), act_shard=True)
+    one = dataclasses.replace(get_config(SERVE_ARCH), **dict(dict(
+        sparsity=SparsityConfig(**TRAIN_SPARSITY)), **cfg_kw))
+    return (("b", tp, TRAIN16_MESH, ("data", "model"), TRAIN16_MICRO),
+            ("c", one, (1,), ("model",), 1))
+
+
+def dryrun_small(out: str, cfg_kw_json: str) -> None:
+    """Phase 19 (b) and (c) in a process of their own (the dry run's fake
+    process group needs one): each step's cost and memory as JSON in
+    ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    res = {}
+    for name, cfg, mesh, axes, micro in _dryrun_parts(
+            json.loads(cfg_kw_json)):
+        r = dryrun.step_cost(cfg, mesh, axes, seq=TRAIN_SEQ,
+                             batch=TRAIN_BATCH, microbatches=micro,
+                             optimizer="adamw")
+        cost = r["cost"]
+        res[name] = {"flops": cost.flops, "bytes": cost.bytes,
+                     "moved": cost.collective_bytes_by_axis,
+                     "memory": r["memory"], "roofline": r["roofline"],
+                     "bottleneck": r["bottleneck"],
+                     "attn_shard_mode": r["attn_shard_mode"],
+                     "seconds": r["build_s"] + r["run_s"]}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+_BACKGROUND = []
+
+
+def _stop_background():
+    """Kill what :func:`start_dryruns` started and still runs."""
+    for p in _BACKGROUND:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_dryruns(tmp: Path, cfg_kw=None):
+    """Start phase 19's dry runs in the background, each a process of its
+    own on the host alone (no card): the cells of ``DRYRUN_CELLS`` through
+    ``python -m repro_torch.launch.dryrun`` and :func:`dryrun_small`.
+    Returns ``{name: (process, start time)}``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    runs = {}
+    for arch, multi in DRYRUN_CELLS:
+        runs[arch] = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", arch, "--shape", "train_4k", "--out",
+                      str(tmp / f"{arch}.json")] + (["--multi-pod"]
+                                                     if multi else [])
+    runs["bc"] = [sys.executable, "-c",
+                  f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                  f"import chip_smoke; chip_smoke.dryrun_small("
+                  f"{str(tmp / 'bc.json')!r}, "
+                  f"{json.dumps(cfg_kw or {})!r})"]
+    procs = {}
+    for name, argv in runs.items():
+        with open(tmp / f"{name}.log", "w") as f:
+            p = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=f,
+                                 stderr=subprocess.STDOUT)
+        _BACKGROUND.append(p)
+        procs[name] = (p, time.perf_counter())
+    return procs
+
+
+def _terms_ok(rl):
+    return all(np.isfinite(v) and v > 0 for v in rl.values())
+
+
+def _predicted_line(what, part, measured_peak, step_s, failures, tag):
+    """Phase 19 (b)/(c): the predicted peak beside the measured one, and
+    the roofline's lower bound, which must not exceed the step's time."""
+    mem = part["memory"]
+    peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    bound = max(part["roofline"][k] for k in ("compute_s", "memory_s",
+                                              "collective_s"))
+    ok = bound <= step_s
+    log(f"dryrun ({what}) peak a rank: predicted {peak / 2**30:.3f} GiB "
+        f"(arguments {mem['argument_size_in_bytes'] / 2**30:.3f} + "
+        f"temporaries {mem['temp_size_in_bytes'] / 2**30:.3f}, counted "
+        f"on meta tensors), measured {_gib(measured_peak)} GiB {tag}; "
+        f"roofline lower bound "
+        f"{bound * 1e3:.3f} ms ({part['bottleneck']}; compute "
+        f"{part['roofline']['compute_s'] * 1e3:.3f}, memory "
+        f"{part['roofline']['memory_s'] * 1e3:.3f}, collective "
+        f"{part['roofline']['collective_s'] * 1e3:.3f} ms, a prediction "
+        f"from launch.mesh.HW) against the fastest measured step "
+        f"{step_s * 1e3:.1f} ms {tag} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"dryrun ({what}): bound {bound} s above the "
+                        f"measured step {step_s} s")
+
+
+def dryrun_phase(procs, tmp: Path, train16, train10, failures, tag):
+    """Phase 19: collect the dry runs started after phase 10 and hold
+    them against what phases 10 and 16 measured (the module's note)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    t19 = time.perf_counter()
+    for name, (p, t0) in procs.items():
+        try:
+            p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        tail = (tmp / f"{name}.log").read_text()[-1500:]
+        log(f"dryrun {name}: exit {p.returncode}, collected "
+            f"{time.perf_counter() - t0:.1f} s after its start")
+        if p.returncode != 0:
+            failures.append(f"dryrun {name}: exit {p.returncode}: {tail}")
+    # (a) production cells
+    for arch, multi in DRYRUN_CELLS:
+        path = tmp / f"{arch}.json"
+        recs = json.loads(path.read_text()) if path.exists() else []
+        rec = recs[0] if recs else {"status": "missing"}
+        ok = rec.get("status") == "ok" and _terms_ok(rec["roofline"])
+        mesh = "2x16x16" if multi else "16x16"
+        if rec.get("status") == "ok":
+            rl = rec["roofline"]
+            log(f"dryrun (a) {arch} train_4k on {mesh}: "
+                f"{rec['build_s'] + rec['run_s']:.1f} s (build "
+                f"{rec['build_s']} + step {rec['run_s']}), "
+                f"{rec['microbatches']} microbatches, attention "
+                f"{rec['attn_shard_mode']}; a prediction from "
+                f"launch.mesh.HW: compute {rl['compute_s']:.4f} s, memory "
+                f"{rl['memory_s']:.4f} s, collective "
+                f"{rl['collective_s']:.4f} s, bottleneck "
+                f"{rec['bottleneck']}, MODEL_FLOPs/HLO "
+                f"{rec['model_flops_ratio']:.3f}, HBM "
+                f"{dryrun.hbm_gib(rec):.2f} GiB a device "
+                f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"dryrun (a) {arch} on {mesh}: "
+                            f"{rec.get('error', rec.get('status'))}")
+    path = tmp / "bc.json"
+    parts = json.loads(path.read_text()) if path.exists() else {}
+    # (b) phase 16 (g)'s tensor-parallel cell on a fake (2, 2) mesh
+    b = parts.get("b")
+    if b is None or train16 is None:
+        failures.append("dryrun (b): no dry run or no phase 16 run")
+    else:
+        run = train16[0]["tp"]["tp"]
+        same = b["moved"] == run["moved"][0]
+        log(f"dryrun (b) phase 16 (g)'s cell on a fake {TRAIN16_MESH} "
+            f"(attention {b['attn_shard_mode']}, {b['seconds']:.1f} s): "
+            f"rank 0's collective bytes a step {_bytes_line(b['moved'])}; "
+            f"measured {_bytes_line(run['moved'][0])}; equal {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"dryrun (b): bytes {b['moved']} against "
+                            f"{run['moved'][0]}")
+        peaks = [x for x in run["peak"] if x is not None]
+        _predicted_line("b", b, max(peaks) if peaks else None,
+                        min(h["step_time_s"] for h in run["history"]),
+                        failures, tag)
+    # (c) phase 10's one-device step
+    c = parts.get("c")
+    if c is None or train10 is None:
+        failures.append("dryrun (c): no dry run or no phase 10 run")
+    else:
+        log(f"dryrun (c) phase 10's one-device step ({c['seconds']:.1f} "
+            f"s): {c['flops']:.4e} product FLOPs, {c['bytes']:.4e} bytes")
+        _predicted_line("c", c, train10["peak"], min(train10["step_s"]),
+                        failures, tag)
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 19 in {time.perf_counter() - t19:.1f} s (the dry runs "
+        f"started after phase 10)")
 
 
 def _launcher_cfg_argv(cfg_kw):
@@ -3592,6 +3787,8 @@ def main() -> int:
         log(f"  train kernel {us / 1e3:.2f} ms x{n:.0f}: {name[:100]}")
     if not all(np.isfinite(losses)):
         failures.append(f"train: losses {losses}")
+    train10 = {"peak": max(peaks),
+               "step_s": [h["step_time_s"] for h in tr.history]}
     del tr, state, params, opt_state, holder, kern
     gc.collect()
     torch.cuda.empty_cache()
@@ -3642,6 +3839,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 10 in {time.perf_counter() - t0:.1f} s")
+    # phase 19's dry runs run on the host, each a process of its own,
+    # while the card runs phases 11-18
+    dry_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    dry_procs = start_dryruns(dry_tmp)
 
     # ---- shared by phases 11 and 12: a family's model at published width
     # and depth through generate and serve
@@ -5113,7 +5314,7 @@ def main() -> int:
     # ---- 16. sharded training
     gc.collect()
     torch.cuda.empty_cache()
-    sharded_train_phase(dev, failures, tag)
+    train16 = sharded_train_phase(dev, failures, tag)
 
     # ---- 17. remat none / full / dots
     gc.collect()
@@ -5125,6 +5326,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     twins_phase(dev, failures, tag)
 
+    # ---- 19. the dry run against phases 10 and 16
+    dryrun_phase(dry_procs, dry_tmp, train16, train10, failures, tag)
 
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:
@@ -5148,3 +5351,5 @@ if __name__ == "__main__":
     except Exception:
         traceback.print_exc()
         sys.exit(1)
+    finally:
+        _stop_background()

@@ -3,6 +3,9 @@
 ``get_config(arch)`` returns the exact published config; ``get_smoke(arch)``
 the reduced same-family smoke config.  ``base.py`` and the arch modules are
 copies of the JAX package's (they use only ``dataclasses``).
+``input_specs(cfg, shape)`` returns ``meta`` tensors standing for every
+model input of a cell — the reference's shapes and dtypes, nothing
+allocated (the dry run's inputs, ``launch/dryrun.py``).
 ``concrete_inputs`` materializes small real batches as torch tensors, from
 the same numpy draws as the reference's, so both packages see the same
 tokens for a seed.
@@ -15,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import SHAPES, ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core.formats import resolve_device
 
 ARCH_IDS = {
@@ -31,7 +34,7 @@ ARCH_IDS = {
     "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
-__all__ = ["ARCH_IDS", "SHAPES", "get_config", "get_smoke",
+__all__ = ["ARCH_IDS", "SHAPES", "get_config", "get_smoke", "input_specs",
            "concrete_inputs"]
 
 
@@ -47,6 +50,38 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke(arch: str) -> ModelConfig:
     return _module(arch).smoke()
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig | str
+                ) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors for every model input of one (arch × shape) cell,
+    of the reference's shapes, int32 tokens and labels and float32
+    frontend stubs.
+
+    * train/prefill: the full token batch (+ frontend stubs).
+    * decode/long_decode: the one-token step input.
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(dtype, *dims):
+        return torch.empty(dims, dtype=dtype, device="meta")
+    i32, f32 = torch.int32, torch.float32
+    if shape.kind not in ("train", "prefill"):
+        return {"tokens": spec(i32, b, 1)}
+    specs = {}
+    text = s
+    if cfg.family == "vlm":
+        text = s - cfg.frontend_tokens
+        specs["patch_embeds"] = spec(f32, b, cfg.frontend_tokens,
+                                     cfg.d_frontend)
+    elif cfg.family == "audio":
+        specs["frames"] = spec(f32, b, s, cfg.d_frontend)
+    specs["tokens"] = spec(i32, b, text)
+    if shape.kind == "train":
+        specs["labels"] = spec(i32, b, text)
+    return specs
 
 
 def concrete_inputs(cfg: ModelConfig, *, batch: int, seq: int,

@@ -1286,7 +1286,10 @@ def _sharded_run(plan: ShardedRgCSRPlan, x, mesh, axis: str, kind: str,
     work = None
     if plan.has_exchange:
         # only the remote x entries move, while K1/K2 read the own slice
+        from repro_torch.sharding.layout import record_collective
         work, recv = _exchange(view, x, group)
+        record_collective("all-to-all", axis, plan.n_shards,
+                          recv.numel() * recv.element_size())
     if kind == "spmv":
         y = rgcsr_spmv(view.plan, x)
     else:
@@ -1335,6 +1338,9 @@ def gather_sharded_rows(plan: ShardedRgCSRPlan, y, *, mesh, axis: str):
     block = y.new_zeros((plan.rows_per_shard,) + tuple(y.shape[1:]))
     block[: y.shape[0]] = y
     parts = [torch.empty_like(block) for _ in range(plan.n_shards)]
+    from repro_torch.sharding.layout import record_collective
+    record_collective("all-gather", axis, plan.n_shards,
+                      plan.n_shards * block.numel() * block.element_size())
     dist.all_gather(parts, block, group=group)
     return torch.cat(parts)[: plan.n_rows]
 

@@ -31,6 +31,7 @@ class HW:
     (``core.analyze.H100_SXM`` and NVIDIA's data sheet), under the
     reference's names; the reference holds a TPU v5e's here."""
     PEAK_FLOPS = 989e12                         # bf16 FLOP/s, dense
+    PEAK_FLOPS_FP32 = 67e12      # fp32 FLOP/s outside the tensor cores
     HBM_BW = H100_SXM.mem_bandwidth_gbs * 1e9   # bytes/s
     ICI_BW = 450e9               # NVLink bytes/s per card, each way
     HBM_BYTES = 80 * 10 ** 9

@@ -69,14 +69,25 @@ def auto_microbatches(cfg, global_batch: int, seq: int, n_data_shards: int,
                       budget_bytes: float = 2.0e9) -> int:
     """A microbatch count that keeps each shard's residual-stream
     activations (``B/µ · S · d_model · 2 B · n_layers``) within the budget,
-    clamped to divide the shard's batch evenly."""
+    clamped to divide the shard's batch evenly: the smallest divisor of
+    the shard's batch at or above the budget's count, the whole shard
+    batch (one sequence a microbatch) when the count exceeds it.  (The
+    reference's loop never ends there: qwen1.5-32b's and deepseek-v3's
+    ``train_4k`` cells ask for 22 and 29 microbatches of 16 sequences.)"""
     b_dev = max(1, global_batch // n_data_shards)
     per_layer = seq * cfg.d_model * 2
     total = b_dev * per_layer * cfg.n_layers
     mb = max(1, int(-(-total // budget_bytes)))
-    while b_dev % mb:
+    while mb < b_dev and b_dev % mb:
         mb += 1
     return min(mb, b_dev)
+
+
+def _host_batch(batch) -> Dict[str, torch.Tensor]:
+    """The global batch as host tensors (meta tensors, the dry run's, stay
+    on meta: they hold no values to move)."""
+    return {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
+            else v if v.is_meta else v.cpu() for k, v in batch.items()}
 
 
 def _on_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -323,8 +334,7 @@ def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
                                for p in params.values()):
             raise ValueError("every floating parameter must take gradients "
                              "(model.requires_grad_(True))")
-        batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
-                 else v.cpu() for k, v in batch.items()}
+        batch = _host_batch(batch)
         parts = [{k: v.chunk(microbatches)[i] for k, v in batch.items()}
                  for i in range(microbatches)]
         shardings = partitioner.batch_shardings(parts[0])
@@ -336,7 +346,9 @@ def _sharded_train_step(model, opt_cfg, opt_update, microbatches: int,
         same = [i for i in range(mesh.ndim) if i not in batch_dims and (
             binding is None or i != binding.view.mesh_dim)]
         repeats = math.prod(mesh.size(i) for i in same)
-        dev = rows.device()
+        # the rank's device; a meta batch (the dry run) stays on meta
+        dev = batch["tokens"].device if batch["tokens"].is_meta \
+            else rows.device()
 
         def place(mb):
             return {k: layout.local_chunk(v, mesh, shardings[k]
@@ -376,8 +388,7 @@ def routing_stats(model, batch, partitioner=None) -> Dict[str, torch.Tensor]:
     routes its rows, as the sharded step does (tensor-parallel where the
     step is), and the terms are the whole batch's (collective: every rank
     calls)."""
-    batch = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v)
-             else v.cpu() for k, v in batch.items()}
+    batch = _host_batch(batch)
     with torch.no_grad():
         if partitioner is None:
             return model.forward({k: v.to(model.device) for k, v in

@@ -72,7 +72,8 @@ from repro_torch.models.attention import _NEG
 from repro_torch.models.layers import (Dense, Embed, RMSNorm, dense_spec,
                                        embed_spec, rmsnorm_spec,
                                        rope_positions)
-from repro_torch.models.spec import count_params, init_from_spec
+from repro_torch.models.spec import count_params, init_from_spec, \
+    meta_from_spec
 from repro_torch.sharding import layout
 
 __all__ = ["LanguageModel", "model_spec", "init_params", "params_from_numpy",
@@ -135,7 +136,8 @@ class LanguageModel(nn.Module):
     ``params``: a parameter tree (see the module's note), e.g. from
     :func:`params_from_numpy`; its tensors are used as they are, on their
     device.  Without one, parameters are drawn from ``init`` with a
-    generator seeded ``seed`` on ``device``.
+    generator seeded ``seed`` on ``device``; on ``"meta"`` they are shapes
+    alone, nothing drawn (the dry run, ``launch/dryrun.py``).
     """
 
     def __init__(self, cfg, params=None, *, device="cuda", seed: int = 0):
@@ -143,8 +145,13 @@ class LanguageModel(nn.Module):
         self.cfg = cfg
         self.compute_dtype = getattr(torch, cfg.dtype)
         if params is None:
-            gen = torch.Generator(device=resolve_device(device))
-            params = init_params(cfg, gen.manual_seed(seed))
+            dev = resolve_device(device)
+            if dev.type == "meta":
+                params = meta_from_spec(model_spec(cfg),
+                                        getattr(torch, cfg.param_dtype))
+            else:
+                gen = torch.Generator(device=dev)
+                params = init_params(cfg, gen.manual_seed(seed))
         self.embed = Embed(params["embed"])
         self.final_norm = RMSNorm(params["final_norm"])
         self.layers = nn.ModuleList(
@@ -286,11 +293,15 @@ class LanguageModel(nn.Module):
         """The labelled positions of ``batch`` that each CE term divides
         by: ``{"ce"}``, and ``"mtp"`` with MTP (floats, at least 1)."""
         labels = torch.as_tensor(batch["labels"])
-        out = {"ce": max(float((_ce_labels(self.cfg, labels) >= 0).sum()),
-                         1.0)}
+        # the step's one host read; the dry run's meta labels have no
+        # values: every text position counts, as the data stream labels
+        # them all (a vlm's patch positions never are)
+        meta = labels.is_meta
+        parts = {"ce": labels if meta else _ce_labels(self.cfg, labels)}
         if self.cfg.mtp_depth:
-            out["mtp"] = max(float((labels[:, 1:] >= 0).sum()), 1.0)
-        return out
+            parts["mtp"] = labels[:, 1:]
+        return {k: max(float(t.numel() if meta else (t >= 0).sum()), 1.0)
+                for k, t in parts.items()}
 
     def _mtp_loss(self, h, batch, total=None):
         """DeepSeek-V3 multi-token prediction (depth 1): predict token

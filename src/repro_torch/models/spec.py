@@ -19,8 +19,8 @@ from typing import Any, Callable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["P", "init_from_spec", "count_params", "param_bytes",
-           "spec_leaves", "map_spec"]
+__all__ = ["P", "init_from_spec", "meta_from_spec", "count_params",
+           "param_bytes", "spec_leaves", "map_spec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +93,14 @@ def init_from_spec(spec, generator: torch.Generator, dtype=torch.float32,
     with torch.no_grad():
         return map_spec(lambda p: _init_one(generator, p, dtype, device),
                         spec)
+
+
+def meta_from_spec(spec, dtype=torch.float32):
+    """The tree of a spec as ``meta`` tensors: shapes and dtypes only,
+    nothing drawn and nothing allocated (the dry run's parameters)."""
+    return map_spec(lambda p: torch.empty(tuple(p.shape),
+                                          dtype=p.dtype or dtype,
+                                          device="meta"), spec)
 
 
 def count_params(spec) -> int:

@@ -46,19 +46,96 @@ are never DTensors):
 * :func:`split_dim`  — this rank's slice forward, ``all_gather`` backward;
 * :func:`all_reduce_max` — an elementwise maximum over the group (no
   gradient).
+
+Every collective of these functions is recorded, one :class:`Collective`
+per call, into each :func:`collective_log` open around it (a no-op when
+none is): the dry run's cost model (``launch/hlo_cost.py``) and the card's
+byte counts read the same records.  :func:`record_collective` records a
+collective made elsewhere (the row-sharded SpMV's exchange).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import contextlib
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["local_chunk", "distribute", "from_local", "gather",
+__all__ = ["Collective", "collective_log", "record_collective",
+           "local_chunk", "distribute", "from_local", "gather",
            "gather_at_use", "gather_local_at_use", "gather_rows",
            "reduce_to_local", "all_reduce_over", "relayout", "is_dtensor",
            "sharded_mesh_dims", "replicas", "select", "copy_in",
            "reduce_out", "gather_dim", "split_dim", "all_reduce_max"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective call: ``kind`` (the reference's HLO name:
+    ``all-gather``, ``reduce-scatter``, ``all-reduce``, ``all-to-all``),
+    ``axis`` (the mesh dim's name), ``size`` (its group's rank count) and
+    ``bytes``: the whole tensor it moves on this rank — an all-gather's
+    result, a reduce-scatter's operand, an all-reduce's tensor, an
+    all-to-all's received buffer."""
+    kind: str
+    axis: str
+    size: int
+    bytes: int
+
+
+_LOGS: List[List[Collective]] = []
+
+
+@contextlib.contextmanager
+def collective_log() -> Iterator[List[Collective]]:
+    """Every collective called inside the block, in call order, appended
+    to the yielded list (each of several nested logs gets every call)."""
+    log: List[Collective] = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        del _LOGS[next(i for i, x in enumerate(_LOGS) if x is log)]
+
+
+def record_collective(kind: str, axis: str, size: int, nbytes: int):
+    """Record one collective into the open logs (none open: nothing)."""
+    if _LOGS:
+        entry = Collective(kind, axis, int(size), int(nbytes))
+        for log in _LOGS:
+            log.append(entry)
+
+
+def _axis_name(mesh, i: int) -> str:
+    names = mesh.mesh_dim_names
+    return names[i] if names else str(i)
+
+
+def _all_gather(buf: torch.Tensor, t: torch.Tensor, mesh, i: int):
+    """``t`` of every rank of mesh dim ``i``'s group into ``buf``."""
+    record_collective("all-gather", _axis_name(mesh, i), mesh.size(i),
+                      buf.numel() * buf.element_size())
+    dist.all_gather_into_tensor(buf, t, group=mesh.get_group(i))
+
+
+def _reduce_scatter(out: torch.Tensor, pieces: torch.Tensor, mesh, i: int):
+    """The sum over mesh dim ``i``'s group of ``pieces``, this rank's
+    piece into ``out``."""
+    record_collective("reduce-scatter", _axis_name(mesh, i), mesh.size(i),
+                      pieces.numel() * pieces.element_size())
+    dist.reduce_scatter_tensor(out, pieces, group=mesh.get_group(i))
+
+
+def _all_reduce_(t: torch.Tensor, mesh, i: int, op=None):
+    """``t`` reduced in place over mesh dim ``i``'s group (a sum, or
+    ``op``)."""
+    record_collective("all-reduce", _axis_name(mesh, i), mesh.size(i),
+                      t.numel() * t.element_size())
+    if op is None:
+        dist.all_reduce(t, group=mesh.get_group(i))
+    else:
+        dist.all_reduce(t, op=op, group=mesh.get_group(i))
 
 
 def is_dtensor(t) -> bool:
@@ -151,8 +228,7 @@ def _gather_local(local: torch.Tensor, mesh, placements,
         if n == 1 or (mesh_dims is not None and i not in mesh_dims):
             continue
         buf = t.new_empty((n * t.numel(),))
-        dist.all_gather_into_tensor(buf, t.reshape(-1),
-                                    group=mesh.get_group(i))
+        _all_gather(buf, t.reshape(-1), mesh, i)
         t = torch.cat(buf.view((n,) + tuple(t.shape)).unbind(0), dim=d)
     return t
 
@@ -191,23 +267,21 @@ def reduce_to_local(full: torch.Tensor, mesh, placements,
         if mesh.size(i) == 1 or (mesh_dims is not None
                                  and i not in mesh_dims):
             continue                  # a rank's sum over itself
-        group = mesh.get_group(i)
         if i in sharded:
             d, n = sharded[i], mesh.size(i)
             pieces = torch.stack(t.chunk(n, dim=d))       # (n, ...) in order
             out = t.new_empty(pieces.shape[1:])
-            dist.reduce_scatter_tensor(out.view(-1), pieces.view(-1),
-                                       group=group)
+            _reduce_scatter(out.view(-1), pieces.view(-1), mesh, i)
             t = out
         else:
-            dist.all_reduce(t, group=group)
+            _all_reduce_(t, mesh, i)
     return t
 
 
 def all_reduce_over(t: torch.Tensor, mesh, mesh_dims: Sequence[int]):
     """``t`` summed in place over the groups of ``mesh_dims``."""
     for i in mesh_dims:
-        dist.all_reduce(t, group=mesh.get_group(i))
+        _all_reduce_(t, mesh, i)
     return t
 
 
@@ -252,94 +326,92 @@ def gather_local_at_use(local: torch.Tensor, mesh, placements,
 # ----------------------------------------------------- region operators
 
 
-def _group(mesh, mesh_dim: int):
-    return mesh.get_group(mesh_dim), mesh.size(mesh_dim)
-
-
 def _rank(mesh, mesh_dim: int) -> int:
     return _coordinate(mesh)[mesh_dim]
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, mesh, i: int) -> torch.Tensor:
     out = t.contiguous().clone()
-    dist.all_reduce(out, group=group)
+    _all_reduce_(out, mesh, i)
     return out
 
 
-def _all_gather_dim(t: torch.Tensor, d: int, group, n: int) -> torch.Tensor:
+def _all_gather_dim(t: torch.Tensor, d: int, mesh, i: int) -> torch.Tensor:
+    n = mesh.size(i)
     t = t.contiguous()
     buf = t.new_empty((n * t.numel(),))
-    dist.all_gather_into_tensor(buf, t.reshape(-1), group=group)
+    _all_gather(buf, t.reshape(-1), mesh, i)
     return torch.cat(buf.view((n,) + tuple(t.shape)).unbind(0), dim=d)
 
 
-def _reduce_scatter_dim(t: torch.Tensor, d: int, group, n: int
+def _reduce_scatter_dim(t: torch.Tensor, d: int, mesh, i: int
                         ) -> torch.Tensor:
-    pieces = torch.stack(t.chunk(n, dim=d))
+    pieces = torch.stack(t.chunk(mesh.size(i), dim=d))
     out = t.new_empty(pieces.shape[1:])
-    dist.reduce_scatter_tensor(out.view(-1), pieces.view(-1), group=group)
+    _reduce_scatter(out.view(-1), pieces.view(-1), mesh, i)
     return out
 
 
 class _CopyIn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, mesh, mesh_dim):
+        ctx.meta = (mesh, mesh_dim)
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.group), None
+        return _all_reduce(grad, *ctx.meta), None, None
 
 
 class _ReduceOut(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _all_reduce(x, group)
+    def forward(ctx, x, mesh, mesh_dim):
+        return _all_reduce(x, mesh, mesh_dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
 class _GatherDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, d, group, n, rank, summed):
-        ctx.meta = (d, group, n, rank, summed)
-        return _all_gather_dim(x, d, group, n)
+    def forward(ctx, x, d, mesh, mesh_dim, rank, summed):
+        ctx.meta = (d, mesh, mesh_dim, rank, summed)
+        return _all_gather_dim(x, d, mesh, mesh_dim)
 
     @staticmethod
     def backward(ctx, grad):
-        d, group, n, rank, summed = ctx.meta
+        d, mesh, mesh_dim, rank, summed = ctx.meta
         if summed:
-            out = _reduce_scatter_dim(grad, d, group, n)
+            out = _reduce_scatter_dim(grad, d, mesh, mesh_dim)
         else:
-            out = grad.chunk(n, dim=d)[rank].contiguous()
+            out = grad.chunk(mesh.size(mesh_dim), dim=d)[rank].contiguous()
         return out, None, None, None, None, None
 
 
 class _SplitDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, d, group, n, rank):
-        ctx.meta = (d, group, n)
-        return x.chunk(n, dim=d)[rank].contiguous()
+    def forward(ctx, x, d, mesh, mesh_dim, rank):
+        ctx.meta = (d, mesh, mesh_dim)
+        return x.chunk(mesh.size(mesh_dim), dim=d)[rank].contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        d, group, n = ctx.meta
-        return _all_gather_dim(grad, d, group, n), None, None, None, None
+        d, mesh, mesh_dim = ctx.meta
+        return _all_gather_dim(grad, d, mesh, mesh_dim), None, None, None, \
+            None
 
 
 def copy_in(x: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``mesh_dim``'s group (the
     ranks each hold part of it)."""
-    return _CopyIn.apply(x, mesh.get_group(mesh_dim))
+    return _CopyIn.apply(x, mesh, mesh_dim)
 
 
 def reduce_out(x: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
     """The sum of ``x`` over ``mesh_dim``'s group; its gradient passed to
     every rank as it is."""
-    return _ReduceOut.apply(x, mesh.get_group(mesh_dim))
+    return _ReduceOut.apply(x, mesh, mesh_dim)
 
 
 def gather_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int,
@@ -351,27 +423,26 @@ def gather_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int,
     (``grad="sum"``: each rank's is a part)."""
     if grad not in ("slice", "sum"):
         raise ValueError(f"gather_dim grad {grad!r}: 'slice' or 'sum'")
-    group, n = _group(mesh, mesh_dim)
-    return _GatherDim.apply(x, d % x.dim(), group, n, _rank(mesh, mesh_dim),
-                            grad == "sum")
+    return _GatherDim.apply(x, d % x.dim(), mesh, mesh_dim,
+                            _rank(mesh, mesh_dim), grad == "sum")
 
 
 def split_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int) -> torch.Tensor:
     """This rank's slice of ``x`` along tensor dim ``d`` (``x`` the same on
     every rank of ``mesh_dim``'s group); the backward all-gathers."""
-    group, n = _group(mesh, mesh_dim)
+    n = mesh.size(mesh_dim)
     if x.shape[d] % n:
         raise ValueError(f"dim {d} of a {tuple(x.shape)} tensor does not "
                          f"split into {n}")
-    return _SplitDim.apply(x, d % x.dim(), group, n, _rank(mesh, mesh_dim))
+    return _SplitDim.apply(x, d % x.dim(), mesh, mesh_dim,
+                           _rank(mesh, mesh_dim))
 
 
 def all_reduce_max(t: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
     """The elementwise maximum of ``t`` over ``mesh_dim``'s group, without
     gradient."""
     out = t.detach().contiguous().clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX,
-                    group=mesh.get_group(mesh_dim))
+    _all_reduce_(out, mesh, mesh_dim, op=dist.ReduceOp.MAX)
     return out
 
 

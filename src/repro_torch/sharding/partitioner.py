@@ -199,15 +199,15 @@ class NamedSharding:
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device(self.mesh.device_type)
 
-    def distribute(self, full):
+    def distribute(self, full, device=None):
         """``full`` (a tensor or a numpy array, the same whole value on
-        every rank) as a DTensor laid out by this sharding on
-        :meth:`device`: each rank keeps only its slice, and nothing is
-        communicated."""
+        every rank) as a DTensor laid out by this sharding on ``device``
+        (default :meth:`device`; ``"meta"`` for the dry run's shapes): each
+        rank keeps only its slice, and nothing is communicated."""
         t = full if torch.is_tensor(full) else torch.from_numpy(
             np.array(full))
         return layout.distribute(t, self.mesh, self.placements(),
-                                 device=self.device())
+                                 device=device or self.device())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

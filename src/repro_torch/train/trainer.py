@@ -52,7 +52,7 @@ from repro_torch.train.optimizer import OptimizerConfig
 
 log = logging.getLogger("repro_torch.trainer")
 
-__all__ = ["TrainConfig", "Trainer"]
+__all__ = ["TrainConfig", "Trainer", "distribute_model", "lay_out_opt"]
 
 
 @dataclasses.dataclass
@@ -173,29 +173,13 @@ class Trainer:
         """Replace each of the model's tensors (the same whole value on
         every rank) by a DTensor of its sharding: rank ``r`` keeps its
         slices only."""
-        for name, t in self.model.tensors().items():
-            path, _, attr = name.replace("/", ".").rpartition(".")
-            mod = self.model.get_submodule(path)
-            dt = self._p_sh[name].distribute(t.detach())
-            if attr in mod._parameters:
-                mod._parameters[attr] = nn.Parameter(
-                    dt, requires_grad=t.requires_grad)
-            else:
-                mod._buffers[attr] = dt
+        distribute_model(self.model, self._p_sh)
 
     def _lay_out_opt(self, opt_state):
-        """The optimizer state on the partitioner's ``opt_shardings`` (the
-        step counter stays a plain tensor)."""
+        """The optimizer state on the partitioner's ``opt_shardings``."""
         if self.mesh is None:
             return opt_state
-        out = {"step": opt_state["step"]}
-        for name, tree in opt_state.items():
-            if name == "step":
-                continue
-            sh = _flat(self._o_sh[name])
-            out[name] = _unflat({k: layout.relayout(v, sh[k].placements())
-                                 for k, v in _flat(tree).items()}, tree)
-        return out
+        return lay_out_opt(opt_state, self._o_sh)
 
     def _batch(self, step: int):
         return make_batch(self.data_cfg, step)
@@ -361,6 +345,37 @@ class Trainer:
             self._save(step - 1, state)
             self.ckpt.wait()
         return state, step
+
+
+def distribute_model(model, shardings: Dict[str, NamedSharding],
+                     device=None):
+    """Replace each of ``model``'s tensors (the same whole value on every
+    rank) by a DTensor of its sharding (``shardings`` keyed as
+    ``model.tensors()``) on ``device`` (default: the sharding's): each
+    rank keeps its slices only, and nothing is communicated."""
+    for name, t in model.tensors().items():
+        path, _, attr = name.replace("/", ".").rpartition(".")
+        mod = model.get_submodule(path)
+        dt = shardings[name].distribute(t.detach(), device=device)
+        if attr in mod._parameters:
+            mod._parameters[attr] = nn.Parameter(
+                dt, requires_grad=t.requires_grad)
+        else:
+            mod._buffers[attr] = dt
+
+
+def lay_out_opt(opt_state, opt_shardings):
+    """``opt_state`` (of DTensor parameters) on ``opt_shardings``
+    (``Partitioner.opt_shardings``'s tree); the step counter stays a
+    plain tensor."""
+    out = {"step": opt_state["step"]}
+    for name, tree in opt_state.items():
+        if name == "step":
+            continue
+        sh = _flat(opt_shardings[name])
+        out[name] = _unflat({k: layout.relayout(v, sh[k].placements())
+                             for k, v in _flat(tree).items()}, tree)
+    return out
 
 
 def _attention_on(cfg, mesh):

@@ -581,3 +581,49 @@ def tp_ranks(rank, world, device="cpu", cases=None):
                          if k.startswith("params/")} if rank == 0 else None
         out[case] = res
     return out
+
+
+# --------------------------------------------------------------- dry run
+
+# the dry run's (2, 2) check: case → (arch, RgCSR FFN); micro=2, AdamW
+DRYRUN_CASES = {"granite-3-2b": ("granite-3-2b", True),
+                "granite-moe-1b-a400m": ("granite-moe-1b-a400m", False)}
+DRYRUN_MICRO = 2
+
+
+def dryrun_cfg(case):
+    """A ``DRYRUN_CASES`` case's smoke config, tensor-parallel."""
+    arch, sparse = DRYRUN_CASES[case]
+    return dataclasses.replace(sharded_cfg(arch, sparse), act_shard=True)
+
+
+def collective_summary(cost):
+    """``{"<kind> <axis>": (calls, bytes)}`` of an ``HloCost``'s log."""
+    out = {}
+    for r in cost.collectives:
+        n, b = out.get(f"{r.kind} {r.axis}", (0, 0))
+        out[f"{r.kind} {r.axis}"] = (n + 1, b + r.bytes)
+    return out
+
+
+def dryrun_ranks(rank, world, device="cpu"):
+    """One tensor-parallel train step of every ``DRYRUN_CASES`` case on a
+    (2, 2) mesh of real ranks (``Trainer(mesh=)``), counted by
+    ``launch.hlo_cost.analyze_hlo``: each case's product FLOPs, FLOPs by
+    dtype and collectives by kind and axis on this rank."""
+    from repro_torch.launch.hlo_cost import analyze_hlo
+    from repro_torch.sharding import Partitioner
+    from repro_torch.train.trainer import Trainer
+    mesh = make_mesh((2, 2), ("data", "model"), device_type=device)
+    part = Partitioner(mesh, "train")
+    out = {}
+    for case in DRYRUN_CASES:
+        tr = Trainer(dryrun_cfg(case), train_config("adamw",
+                                                    micro=DRYRUN_MICRO),
+                     mesh=mesh, partitioner=part, device=device)
+        params, opt = tr.init_state(SEQ, BATCH)
+        cost = analyze_hlo(lambda: tr.train_step(params, opt, tr._batch(0)),
+                           world)
+        out[case] = {"flops": cost.flops, "by_dtype": cost.flops_by_dtype,
+                     "collectives": collective_summary(cost)}
+    return out

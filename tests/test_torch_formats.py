@@ -196,7 +196,11 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "launch/steps.py", "launch/train.py", "models/moe.py",
                    "models/recurrent.py", "sharding/__init__.py",
                    "sharding/partitioner.py", "launch/mesh.py",
-                   "models/shardlib.py", "sharding/layout.py"):
+                   "models/shardlib.py", "sharding/layout.py",
+                   "configs/__init__.py", "launch/dryrun.py",
+                   "launch/hlo_cost.py", "launch/hlo_stats.py",
+                   "launch/roofline.py", "launch/hillclimb.py",
+                   "launch/report.py"):
         assert f"src/repro_torch/{module}" in scanned, module
     for path in files:
         bad = {r for r in _imported_roots(path)

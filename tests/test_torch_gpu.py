@@ -17,6 +17,8 @@ at each piece size.
 import copy
 import dataclasses
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,6 +44,7 @@ from repro_torch.serve import Engine, Request, Router, RouterConfig, \
     ServeConfig
 from repro_torch.train.fault import FaultConfig, FaultInjector
 
+REPO = Path(__file__).resolve().parents[1]
 # the launcher's module (the package's ``rgcsr_spmm`` attribute is the
 # ``ops`` wrapper)
 k2_module = importlib.import_module("repro_torch.kernels.rgcsr_spmm")
@@ -1011,3 +1014,27 @@ def _batch_of(cfg):
     from repro_torch.train.data import DataConfig, make_batch
     return make_batch(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
                                  global_batch=BATCH, seed=0), 0)
+
+
+@pytest.mark.gpu
+def test_the_dry_run_predicts_the_card_s_step(cuda):
+    """granite-3-2b's smoke config, one device, 8 × 256 tokens in 2
+    microbatches, AdamW (``scripts/torch_dryrun_check.py``): the dry run's
+    product FLOPs (``launch.dryrun``, on meta tensors) equal
+    ``FlopCounterMode``'s count of the real step on the card, its
+    arguments are the card's to the byte, and arguments plus temporaries
+    fall within 15 % of the step's ``max_memory_allocated`` — counted
+    above what the card held besides the arguments before the step (the
+    cuBLAS workspace and the warm-up step's leftovers are not the
+    step's)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_dryrun_check", REPO / "scripts" / "torch_dryrun_check.py")
+    check = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(check)
+    got = check.measure(cuda)
+    assert got["flops"][0] == got["flops"][1] > 0
+    assert got["arguments"][0] == got["arguments"][1]
+    predicted = got["arguments"][0] + got["temporaries"][0]
+    measured = got["arguments"][1] + got["temporaries"][1]
+    assert abs(predicted - measured) <= 0.15 * measured, (predicted,
+                                                          measured)
