@@ -5,7 +5,11 @@ Run from the root of a checkout, on a machine with an NVIDIA H100::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero and prints no result line):
+Phases (any failure exits non-zero and prints no result line; each
+prints ``phase <n> <name> start:`` and ``... end:`` lines, flushed, with
+the seconds into the run and the card's free and total memory, and a run
+that raises ends with ``chip_smoke: stopped in phase ...``, the phase and
+the card's memory):
 
 1. print the card (``nvidia-smi``) and build the three CUDA kernels from
    ``src/repro_torch/kernels/csrc/`` — one ``nvcc`` per source, all at once;
@@ -115,14 +119,14 @@ Phases (any failure exits non-zero and prints no result line):
    AdamW, 4 steps of 4 × 128 tokens, every loss finite; per step the host
    ms (ending in a synchronize), tokens/s and peak memory; one more step
    under ``torch.profiler``: the card's busy time, its idle share and the
-   top kernels.  (c) The fault drill at full width, depth cut to 4 layers,
+   top kernels.  (c) The fault drill at full width, depth cut to 2 layers,
    5 steps: checkpoints every 2 steps, a fault at step 3, just after the
    first checkpoint's asynchronous write; every loss within 5e-2 of
    an uninterrupted run from the same seed (``index_add_`` on CUDA is not
    bitwise repeatable), the last checkpoint restored into a new
    ``Trainer`` with parameters and moments bitwise equal;
 11. mla: minicpm3-4b at its published width, depth cut from 62 to
-   ``MLA_LAYERS`` = 8 layers (for the time limit; d_model
+   ``MLA_LAYERS`` = 4 layers (for the time limit; d_model
    2,560, 40 heads; MLA with q_lora 768, kv_lora 256, nope 64, rope 32,
    v 64; d_ff 6,400, vocab 73,448) with the RgCSR FFN (density 0.25,
    G = 128, ``impl="kernel"``: ``w_out`` is 20 groups of 1,600 slot rows),
@@ -148,7 +152,7 @@ Phases (any failure exits non-zero and prints no result line):
    significant bits, and batch composition changes the rounding); grep
    ``^mla``;
 12. moe: granite-moe-1b-a400m at its published width, its serving depth
-   cut from 24 to ``MOE_LAYERS`` = 12 (for the time limit; its three
+   cut from 24 to ``MOE_LAYERS`` = 6 (for the time limit; its three
    AdamW steps run all 24) (d_model 1,024, 16/8 heads of 64, 32 experts top-8 of 512,
    einsum dispatch; the reference sparsifies no MoE FFN, so no K1–K3
    runs).  (a) float32: ``generate`` with phase 11's shapes through the
@@ -168,7 +172,7 @@ Phases (any failure exits non-zero and prints no result line):
    within 1e-4 of the port's CPU run; grep ``^moe``;
 13. recurrent: (a) recurrentgemma-9b at its published width, depth cut
    from 38 layers (two ``rec`` then 12 × (``attn_local``, ``rec``,
-   ``rec``)) to ``RG_LAYERS`` = 8 (the two, then 2 periods, for the
+   ``rec``)) to ``RG_LAYERS`` = 5 (the two, then 1 period, for the
    time limit);
    d_model 4,096, MQA with 16 heads of 256, window 2,048, GeGLU d_ff
    12,288, vocab 256,000) with the RgCSR FFN (``w_out`` is 32 groups of
@@ -186,7 +190,7 @@ Phases (any failure exits non-zero and prints no result line):
    bit; K2 on layer 0's kept plan against its plain version at d ∈ {1,
    4, 8, 512} (fp32, bf16, and fp32 with the split forced at 8-row
    pieces) and timed at d = 4, 8, 512.  (b) mamba2-780m at its published
-   width, depth cut from 48 SSD layers to ``MAMBA_LAYERS`` = 24 (for the
+   width, depth cut from 48 SSD layers to ``MAMBA_LAYERS`` = 12 (for the
    time limit; d_model 1,536, 48 heads of 64, d_state 128, chunk
    256; no FFN, so no K1–K3): at 2 layers of full width the card's fp32
    prefill and decode logits within 1e-4 · (1 + max|logit|) of the port's
@@ -219,15 +223,15 @@ Phases (any failure exits non-zero and prints no result line):
    the prefill's and a decode step's times for a caller and on the card
    (``torch.profiler``) with K2's share; three AdamW steps of 4 × 128
    frames and tokens through ``launch/train.py --sparse-ffn``.  (b)
-   pixtral-12b (40 layers, cut to ``VLM_LAYERS`` = 10; d_model 5,120,
+   pixtral-12b (40 layers, cut to ``VLM_LAYERS`` = 5; d_model 5,120,
    32/8 heads of 128, SwiGLU d_ff
    14,336, vocab 131,072, ``frontend_proj`` 1,024 → 5,120; ``w_out`` 40
    groups of 3,584 slot rows), 2 requests of 1,024 patches and 64 tokens,
    ``max_seq`` 1,120: its memory plan reckoned from the spec and logged
    before anything is allocated; the float32 check against the
    dense-equivalent ``w_out`` at full depth when the reckoned peak stays
-   under 72 GiB, else at 8 layers; in bfloat16 K2 at exactly 10 × 32 =
-   320, times and K2's share as in (a); peak memory.  K2 on layer 0's
+   under 72 GiB, else at 4 layers; in bfloat16 K2 at exactly 5 × 32 =
+   160, times and K2's share as in (a); peak memory.  K2 on layer 0's
    kept plan against its plain version (fp32, bf16, and fp32 with the
    split forced at 8-row pieces) at seamless's d ∈ {1, 4, 64, 2,048} and
    pixtral's d ∈ {1, 2, 2,176}, then timed at the widths the main paths
@@ -271,7 +275,7 @@ Phases (any failure exits non-zero and prints no result line):
 16. train16: sharded training, no kernel on its path (the RgCSR FFN
    trains through the segment sum, as the reference's does).
    granite-3-2b at full width (d_model 2,048, vocab 49,155), depth cut
-   to ``TRAIN16_LAYERS`` = 4, fp32, three AdamW steps of 4 × 128 tokens
+   to ``TRAIN16_LAYERS`` = 2, fp32, three AdamW steps of 4 × 128 tokens
    with ``micro=2``: first on one device here, then on a ``(2, 2)``
    ``("data", "model")`` mesh of 4 ranks spawned on cuda:0 over gloo
    (``Trainer(mesh=, partitioner=)``; lines ``train16 rN:`` are rank
@@ -282,11 +286,11 @@ Phases (any failure exits non-zero and prints no result line):
    the same ranks and onto a ``(2,)`` mesh of 2 new ranks, every slice
    bitwise; (d) per step the host seconds, the collectives' wall share
    and tokens/s (gloo host-staged on one card: no multi-card figure);
-   (e) ``launch/train.py --mesh 2x2 --sparse-ffn --layers 4`` on 4
+   (e) ``launch/train.py --mesh 2x2 --sparse-ffn --layers 2`` on 4
    processes of its own (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
    ``--backend gloo``) to its ``done:`` line; (f) in the same ranks,
    granite-moe-1b-a400m at full width (d_model 1,024, 32 experts top-8 of
-   512, vocab 49,155), depth cut to ``TRAIN16_MOE_LAYERS`` = 4, fp32, the
+   512, vocab 49,155), depth cut to ``TRAIN16_MOE_LAYERS`` = 2, fp32, the
    same three AdamW steps: each rank routes its rows with the whole
    microbatch's capacity, positions and aux terms (its per-expert counts
    all-gathered as int32); losses, ``ce``, ``load_balance`` and
@@ -305,7 +309,31 @@ Phases (any failure exits non-zero and prints no result line):
    unless the (2, 2) tensor-parallel peak is below gather-at-use's on
    every rank; per step the collectives' bytes by kind (all-gather,
    reduce-scatter, all-reduce; by mesh axis), host seconds and tokens/s;
-   (e)'s launcher now runs tensor-parallel; grep ``^train16``;
+   (e)'s launcher now runs tensor-parallel; grep ``^train16``; (h) a
+   spawn of its own after those: the recurrent mixers tensor-parallel
+   (Mamba-2's SSD heads, RG-LRU's channels split over ``model``) on the
+   same mesh, fp32, AdamW, the same three steps, each run's memory
+   released before the next: mamba2-780m at full width (d_model 1,536,
+   48 SSD heads of 64), depth cut to ``TRAIN16H_MAMBA_LAYERS``, its
+   losses and ``grad_norm`` within ``TRAIN16_TOL`` relative of one device
+   (run in this process first) and its peak below gather-at-use's (run in
+   the same ranks) on every rank; recurrentgemma-9b at full width
+   (d_model 4,096, vocab 256,000), depth cut to ``TRAIN16H_RG_LAYERS``
+   (``rec``, ``rec``) with the RgCSR FFN, tensor-parallel only (one
+   device and gather-at-use do not fit four ranks on one card), its
+   losses finite; after the steps each rank holds layer 0's mixer of
+   both models, split, against itself whole (its leaves gathered for the
+   check alone) on a full-width (4, 128, d_model) input: the output and
+   the gradients of the input and every leaf within
+   ``TRAIN16H_UNIT_TOL`` of the whole's largest value; for the
+   tensor-parallel runs each rank's peak within the dry run's prediction
+   (``launch/dryrun.py::step_cost`` on a fake (2, 2) rank 0, run on the
+   host after phase 10) + ``TRAIN16H_PEAK_SLACK``, rank 0's collective
+   bytes by kind and mesh axis equal to the fake rank 0's, and no
+   parameter all-gathered over ``model`` (a spy on the step's parameter
+   gathers); before the spawn the card's free memory against four ranks'
+   largest predicted peak plus a CUDA context each, the phase failing
+   (never skipping) where they do not fit; grep ``^train16 (h)``;
 17. remat: phase 16's granite-3-2b on one device, 4 × 256 tokens a
    batch, from the same seed under each of ``remat`` ``none``, ``full``
    and ``dots`` (the matrix products' outputs kept, the rest
@@ -317,7 +345,7 @@ Phases (any failure exits non-zero and prints no result line):
    second, warm step's host ms; grep ``^remat``;
 18. twins: ``examples/torch_quickstart.py``, ``torch_spmv_suite.py``
    (without ``--full``), ``torch_serve_lm.py`` and ``torch_train_lm.py
-   --steps 40`` dense then ``--sparse``, each through its ``main(argv)``
+   --steps 20`` dense then ``--sparse``, each through its ``main(argv)``
    with ``--device cuda`` in this process, their own asserts holding
    (the kernel against the CSR oracle, every request done, the loss
    falling); the launch counters, set to 0 just before and read just
@@ -330,7 +358,7 @@ Phases (any failure exits non-zero and prints no result line):
    (2, 16, 16) through ``python -m repro_torch.launch.dryrun``: each
    record ``ok`` with finite, positive roofline terms (predictions from
    ``launch.mesh.HW``'s H100 figures), its seconds and HBM GiB a device.
-   (b) Phase 16 (g)'s tensor-parallel cell (granite-3-2b, 4 layers, (2,
+   (b) Phase 16 (g)'s tensor-parallel cell (granite-3-2b, 2 layers, (2,
    2), ``micro=2``, 4 × 128 tokens) on a fake (2, 2) mesh: rank 0's
    collective bytes by kind and mesh axis equal to what phase 16 (g)'s
    rank 0 measured in this run, exactly (both read the sharding layer's
@@ -373,6 +401,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 DEVICE = "cuda"
+# torch.profiler sessions tried before a run without device kernels fails
+PROFILER_SESSIONS = 3
 SEED = 0
 D_SPMM = 64
 FP32_TOL, BF16_TOL, MAIN_TOL = 1e-5, 3e-2, 1e-4
@@ -396,8 +426,9 @@ LOGIT_TOL, MARGIN_TOL = 1e-4, 1e-3
 # at full width, depth cut to DRILL_LAYERS
 TRAIN_SPARSITY = dict(SERVE_SPARSITY, impl="ref")
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_T = 4, 128, 4, 64
-# (steps cut from 7 with the fault from step 5, for phase 16's time)
-DRILL_LAYERS, DRILL_STEPS, DRILL_FAULT, DRILL_CKPT = 4, 5, 3, 2
+# (steps cut from 7 with the fault from step 5, and depth, for the time
+# limit)
+DRILL_LAYERS, DRILL_STEPS, DRILL_FAULT, DRILL_CKPT = 2, 5, 3, 2
 REPLAY_TOL = 5e-2
 # phase 11: minicpm3-4b (MLA) with the RgCSR FFN; phase 12: granite-moe
 # and deepseek-v3's smoke config.  Sessions: FAM_MIX = (requests, new
@@ -406,7 +437,7 @@ MLA_ARCH, MOE_ARCH, DEEPSEEK_ARCH = ("minicpm3-4b", "granite-moe-1b-a400m",
                                      "deepseek-v3-671b")
 # minicpm3-4b's depth, cut from 62 so that the script keeps its time limit
 # with phases 15 and 16; granite-moe-1b-a400m's serving depth from 24
-MLA_LAYERS, MOE_LAYERS = 8, 12
+MLA_LAYERS, MOE_LAYERS = 4, 6
 FAM_MIX, FAM_LENS, FAM_SLOTS, FAM_MAX_SEQ = (16, 64), (64, 128, 192, 256), \
     8, 512
 FAM_K2_WIDTHS = (SERVE_BATCH, FAM_SLOTS, SERVE_BATCH * SERVE_PROMPT)
@@ -419,9 +450,9 @@ MOE_CPU_LAYERS, MOE_TRAIN_STEPS = 2, 3
 # also with the split forced at REC_PIECE_ROWS
 REC_RG_ARCH, REC_MAMBA_ARCH = "recurrentgemma-9b", "mamba2-780m"
 # recurrentgemma-9b's depth, cut from 38 (rec, rec + 12 × (attn_local, rec,
-# rec)) to the prefix and 2 periods, and mamba2-780m's from 48, for the
+# rec)) to the prefix and 1 period, and mamba2-780m's from 48, for the
 # time limit
-RG_LAYERS, MAMBA_LAYERS = 8, 24
+RG_LAYERS, MAMBA_LAYERS = 5, 12
 REC_LONG, REC_STEPS, REC_CPU_LAYERS, REC_TRAIN_STEPS = 300, 8, 2, 3
 REC_K2_WIDTHS = (1,) + FAM_K2_WIDTHS
 REC_PIECE_ROWS = 8
@@ -436,27 +467,40 @@ ENC_ARCH, VLM_ARCH = "seamless-m4t-medium", "pixtral-12b"
 ENC_BATCH, ENC_FRAMES, ENC_PROMPT, ENC_MAX_SEQ = 4, 512, 16, 64
 ENC_STEPS, ENC_CPU_LAYERS, ENC_TRAIN_STEPS = 8, 2, 3
 VLM_BATCH, VLM_PROMPT = 2, 64
-VLM_PEAK_GIB, VLM_ACT_BYTES, VLM_CUT_LAYERS = 72, 4 * 2**30, 8
+VLM_PEAK_GIB, VLM_ACT_BYTES, VLM_CUT_LAYERS = 72, 4 * 2**30, 4
 # pixtral-12b's depth, cut from 40 so that the script keeps its time limit
 # with phase 16
-VLM_LAYERS = 10
+VLM_LAYERS = 5
 # phase 15: SHARD_WORLD ranks share the card over gloo; a rank's collective
 # gives up after SHARD_TIMEOUT_S, the phase after SHARD_DEADLINE_S
 SHARD_WORLD, SHARD_TIMEOUT_S, SHARD_DEADLINE_S = 4, 240, 360
 # phase 16: sharded training of granite-3-2b at full width, its depth cut
 # to TRAIN16_LAYERS, on a TRAIN16_MESH (data, model) mesh of gloo ranks
 # sharing the card; losses within TRAIN16_TOL relative of one device
-TRAIN16_MESH, TRAIN16_LAYERS, TRAIN16_STEPS, TRAIN16_MICRO = (2, 2), 4, 3, 2
+TRAIN16_MESH, TRAIN16_LAYERS, TRAIN16_STEPS, TRAIN16_MICRO = (2, 2), 2, 3, 2
 TRAIN16_TOL, TRAIN16_DEADLINE_S = 1e-4, 540
 # phase 16 also trains granite-moe-1b-a400m at full width, its depth cut to
 # TRAIN16_MOE_LAYERS, in the same ranks: losses and aux terms within
 # TRAIN16_MOE_TOL relative of one device
-TRAIN16_MOE_LAYERS, TRAIN16_MOE_TOL = 4, 1e-5
+TRAIN16_MOE_LAYERS, TRAIN16_MOE_TOL = 2, 1e-5
+# phase 16 (h): the recurrent mixers tensor-parallel on TRAIN16_MESH, a
+# spawn of its own ended after TRAIN16H_DEADLINE_S: mamba2-780m at full
+# width, depth cut to TRAIN16H_MAMBA_LAYERS (against one device within
+# TRAIN16_TOL, and gather-at-use), recurrentgemma-9b at full width, depth
+# cut to TRAIN16H_RG_LAYERS (its pattern's prefix, rec and rec); each
+# layer-0 mixer split against whole within TRAIN16H_UNIT_TOL, each rank's
+# peak within the dry run's prediction + TRAIN16H_PEAK_SLACK
+TRAIN16H_MAMBA_LAYERS, TRAIN16H_RG_LAYERS, TRAIN16H_DEADLINE_S = 8, 2, 240
+TRAIN16H_UNIT_TOL, TRAIN16H_PEAK_SLACK = 1e-5, 0.10
+# (h)'s Adam eps, as the tensor-parallel parity tests run it: at 1e-8 an
+# element whose gradient is rounding noise (~1e-7) takes a first update of
+# ~lr whose sign follows that noise, and later steps part from one device
+TRAIN16H_EPS = 1e-5
 # phase 17: one train step of phase 16's granite-3-2b on one device under
 # each remat, TRAIN17_BATCH x TRAIN17_SEQ tokens, after a warm step
 TRAIN17_BATCH, TRAIN17_SEQ, TRAIN17_TOL = 4, 256, 1e-6
 # phase 18: the four example twins, in process: (example, arguments)
-TWIN_TRAIN_STEPS = 40
+TWIN_TRAIN_STEPS = 20
 TWIN_RUNS = (("torch_quickstart", ()), ("torch_spmv_suite", ()),
              ("torch_serve_lm", ()),
              ("torch_train_lm", ("--steps", str(TWIN_TRAIN_STEPS))),
@@ -481,6 +525,48 @@ KERNEL_META = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_PHASE = {"name": None, "start": 0.0, "run": None}
+
+
+def card_memory() -> str:
+    """The card's free and total memory (``torch.cuda.mem_get_info``)."""
+    try:
+        import torch
+        free, total = torch.cuda.mem_get_info()
+    except Exception as err:          # noqa: BLE001 — a line, not a check
+        return f"card memory unknown ({type(err).__name__})"
+    return f"card {free / 2**30:.2f} GiB free of {total / 2**30:.2f}"
+
+
+def phase(name=None) -> None:
+    """End the running phase with its end line and start ``name`` (None:
+    no other) with its start line, each flushed with the seconds since the
+    run's first phase and the card's free memory: a run that stops names
+    the phase it stopped in (:func:`stopped`)."""
+    now = time.perf_counter()
+    if _PHASE["run"] is None:
+        _PHASE["run"] = now
+    run = now - _PHASE["run"]
+    if _PHASE["name"] is not None:
+        log(f"phase {_PHASE['name']} end: {now - _PHASE['start']:.1f} s, "
+            f"{run:.1f} s into the run; {card_memory()}")
+    _PHASE.update(name=name, start=now)
+    if name is not None:
+        log(f"phase {name} start: {run:.1f} s into the run; "
+            f"{card_memory()}")
+
+
+def stopped() -> str:
+    """Where the run stopped: the running phase, its seconds and the
+    card's free memory."""
+    if _PHASE["name"] is None:
+        return "before any phase started"
+    now = time.perf_counter()
+    return (f"in phase {_PHASE['name']}, {now - _PHASE['start']:.1f} s "
+            f"into it and {now - _PHASE['run']:.1f} s into the run; "
+            f"{card_memory()}")
 
 
 def card_line() -> str:
@@ -594,28 +680,34 @@ def tree_to(tree, device):
 
 def device_kernels(fn, calls: int):
     """``torch.profiler`` over ``calls`` calls of ``fn`` (after one
-    warmup): per kernel name, launches and device µs per call."""
+    warmup): per kernel name, launches and device µs per call.  A session
+    that records no device kernel at all (the card's CUPTI does so now
+    and then) is run again, up to ``PROFILER_SESSIONS`` in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue                       # host-side ops and API calls
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        out[ev.key] = (ev.count / calls, us / calls)
-    if not out:
-        raise RuntimeError("torch.profiler recorded no device kernel")
-    return out
+    for _ in range(PROFILER_SESSIONS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue                       # host-side ops and API calls
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            out[ev.key] = (ev.count / calls, us / calls)
+        if out:
+            return out
+        log(f"torch.profiler recorded no device kernel in a session of "
+            f"{calls} calls; profiling again")
+    raise RuntimeError(f"torch.profiler recorded no device kernel in "
+                       f"{PROFILER_SESSIONS} sessions")
 
 
 def live_cuda(top: int = 4) -> str:
@@ -1269,13 +1361,14 @@ def _phase16_cfg(cfg_kw):
         sparsity=SparsityConfig(**TRAIN_SPARSITY)), **cfg_kw))
 
 
-def _phase16_train_config(ckpt_dir=None):
+def _phase16_train_config(ckpt_dir=None, **opt_kw):
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import TrainConfig
     return TrainConfig(steps=TRAIN16_STEPS, microbatches=TRAIN16_MICRO,
                        log_every=100, ckpt_dir=ckpt_dir, ckpt_every=100,
                        seed=SEED, opt=OptimizerConfig(
-                           warmup_steps=2, decay_steps=TRAIN16_STEPS))
+                           warmup_steps=2, decay_steps=TRAIN16_STEPS,
+                           **opt_kw))
 
 
 _TIMED = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce")
@@ -1972,6 +2065,401 @@ def sharded_train_phase(dev, failures, tag, cfg_kw=None, moe_kw=None):
     return ranks
 
 
+# ------------------------- phase 16 (h): the recurrent mixers split
+
+
+def _recurrent_cfgs(mamba_kw, rec_kw):
+    """Phase 16 (h)'s two models at full width in float32 (``*_kw``
+    overrides, a CPU rehearsal's narrow models): mamba2-780m cut to
+    ``TRAIN16H_MAMBA_LAYERS`` and recurrentgemma-9b to the first
+    ``TRAIN16H_RG_LAYERS`` layers of its pattern (``rec``, ``rec``) with
+    the RgCSR FFN through the segment sum."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SparsityConfig
+    fp32 = dict(dtype="float32", kv_cache_dtype="float32")
+    mamba = dataclasses.replace(get_config(REC_MAMBA_ARCH), **dict(dict(
+        n_layers=TRAIN16H_MAMBA_LAYERS, **fp32), **(mamba_kw or {})))
+    rg = dataclasses.replace(get_config(REC_RG_ARCH), **dict(dict(
+        n_layers=TRAIN16H_RG_LAYERS,
+        sparsity=SparsityConfig(**TRAIN_SPARSITY), **fp32),
+        **(rec_kw or {})))
+    return mamba, rg
+
+
+def _recurrent_runs(mamba_kw, rec_kw):
+    """``(name, config)`` of phase 16 (h)'s runs, in the order the ranks
+    take them."""
+    mamba, rg = _recurrent_cfgs(mamba_kw, rec_kw)
+    return (("rg tp", dataclasses.replace(rg, act_shard=True)),
+            ("mamba2 tp", dataclasses.replace(mamba, act_shard=True)),
+            ("mamba2 gather-at-use", mamba))
+
+
+def dryrun_recurrent(out: str, mamba_kw_json: str, rec_kw_json: str):
+    """Phase 16 (h)'s runs on rank 0 of a fake ``TRAIN16_MESH``, in a
+    process of its own (the dry run's fake process group needs one): each
+    run's predicted arguments and temporaries and its collective bytes by
+    kind and mesh axis, as JSON in ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    res = {}
+    for name, cfg in _recurrent_runs(json.loads(mamba_kw_json),
+                                     json.loads(rec_kw_json)):
+        r = dryrun.step_cost(cfg, TRAIN16_MESH, ("data", "model"),
+                             seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                             microbatches=TRAIN16_MICRO, optimizer="adamw")
+        mem = r["memory"]
+        res[name] = {"args": mem["argument_size_in_bytes"],
+                     "temps": mem["temp_size_in_bytes"],
+                     "moved": r["cost"].collective_bytes_by_axis,
+                     "seconds": r["build_s"] + r["run_s"]}
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+@contextlib.contextmanager
+def _spy_model_gathers(model_ranks):
+    """Counts, while open, the all-gathers on the ``model`` group (the
+    group of ``model_ranks``): ``param`` — the elements gathered inside
+    the tensor-parallel step's parameter gathers
+    (``launch.steps._Binding.gather``), ``calls`` — every all-gather on
+    that group (the activations' too)."""
+    import torch.distributed as dist
+    from repro_torch.launch import steps
+    from repro_torch.sharding import layout
+    seen = {"param": 0, "calls": 0}
+    inside = [False]
+    gather, dist_mod = steps._Binding.gather, layout.dist
+    model_ranks = list(model_ranks)
+
+    def counted(binding, name):
+        inside[0] = True
+        try:
+            return gather(binding, name)
+        finally:
+            inside[0] = False
+
+    class Dist:
+        def __getattr__(self, name):
+            fn = getattr(dist_mod, name)
+            if name != "all_gather_into_tensor":
+                return fn
+
+            def all_gather(out, t, group=None, **kw):
+                if dist.get_process_group_ranks(group) == model_ranks:
+                    seen["calls"] += 1
+                    if inside[0]:
+                        seen["param"] += t.numel()
+                return fn(out, t, group=group, **kw)
+            return all_gather
+    steps._Binding.gather, layout.dist = counted, Dist()
+    try:
+        yield seen
+    finally:
+        steps._Binding.gather, layout.dist = gather, dist_mod
+
+
+def recurrent_rank(rank, world, tmp, timeout_s, device, mamba_kw, rec_kw):
+    """Phase 16 (h) on rank ``rank`` of ``world`` ranks sharing the card
+    over gloo, spawned by :func:`recurrent_tp_phase`: each run of
+    :func:`_recurrent_runs` in turn, its memory released before the
+    next; writes its results to ``tmp/rec<rank>.json``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import mixer_gaps
+    from repro_torch.sharding import Partitioner, layout
+    from repro_torch.train.trainer import Trainer
+
+    def say(msg):     # one write per line: the ranks share stdout
+        os.write(1, f"train16 (h) r{rank}: {msg}\n".encode())
+
+    dev = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(tmp) / "store16h"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    timed = _TimedDist(dist, sync)
+    layout.dist = timed
+    out = {}
+    t0 = time.perf_counter()
+    try:     # a rank that raises fails the spawn, which ends the others
+        mesh = make_mesh(TRAIN16_MESH, ("data", "model"),
+                         device_type=dev.type)
+        part = Partitioner(mesh, "train")
+        model_ranks = dist.get_process_group_ranks(mesh.get_group(
+            mesh.mesh_dim_names.index("model")))
+        for name, cfg in _recurrent_runs(mamba_kw, rec_kw):
+            tr = Trainer(cfg, _phase16_train_config(eps=TRAIN16H_EPS),
+                         mesh=mesh, partitioner=part, device=dev)
+            state = tr.init_state(TRAIN_SEQ, TRAIN_BATCH)
+            stats = _count_collectives(tr, timed, dev)
+            t1 = time.perf_counter()
+            with _spy_model_gathers(model_ranks) as spy:
+                tr.run(state)
+            _say_steps(say, f"{name} ", tr.history, stats["comm_s"])
+            say(f"{name}: {len(tr.history)} steps in "
+                f"{time.perf_counter() - t1:.1f} s; peak per step "
+                f"{stats['peak']} B; step 0's collective bytes "
+                f"{stats['moved'][0]}; all-gathers over model: "
+                f"{spy['calls']} calls, {spy['param']} parameter elements")
+            res = {"history": tr.history, "spy": spy, **stats}
+            if cfg.act_shard:
+                # layer 0's mixer split against itself whole, at the step's
+                # full-width shape, outside the step
+                gen = torch.Generator().manual_seed(SEED)
+                x, up = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, cfg.d_model,
+                                     generator=gen).to(dev)
+                         for _ in range(2))
+                t1 = time.perf_counter()
+                res["unit"] = mixer_gaps(tr.model, part, "layers/0", x, up)
+                say(f"{name}: layer 0's mixer split against whole on "
+                    f"{tuple(x.shape)} in {time.perf_counter() - t1:.1f} s:"
+                    f" {res['unit']}")
+                del x, up
+            out[name] = res
+            del tr, state
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        out["phase_s"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(Path(tmp) / f"rec{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def _await_dryrun(procs, tmp: Path, name: str):
+    """The JSON that dry run ``name`` of :func:`start_dryruns` wrote, once
+    it ended (None when it failed or timed out)."""
+    p, t0 = procs[name]
+    try:
+        p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S
+                           - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+    path = tmp / f"{name}.json"
+    if p.returncode != 0 or not path.exists():
+        log(f"train16 (h) dry run {name}: exit {p.returncode}: "
+            f"{(tmp / f'{name}.log').read_text()[-1500:]}")
+        return None
+    return json.loads(path.read_text())
+
+
+def _memory_plan(dev, pred, world, failures, tag):
+    """Before the spawn: the card's free memory against ``world`` ranks'
+    largest predicted peak plus a CUDA context each (this process's
+    memory outside PyTorch's allocator); True when they fit."""
+    import torch
+    peaks = {k: v["args"] + v["temps"] for k, v in pred.items()}
+    worst = max(peaks.values())
+    text = ", ".join(f"{k} {v / 2**30:.3f}" for k, v in peaks.items())
+    if dev.type != "cuda":
+        log(f"train16 (h) memory plan: predicted peaks a rank, GiB: {text};"
+            f" no card")
+        return True
+    free, total = torch.cuda.mem_get_info(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    context = max(total - free - reserved, 0)
+    need = world * (worst + context)
+    ok = need <= free
+    log(f"train16 (h) memory plan: the card {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} (this process: {reserved / 2**30:.2f} GiB "
+        f"reserved by PyTorch, {context / 2**30:.2f} GiB beside it, taken "
+        f"as each rank's CUDA context); predicted peaks a rank, GiB: "
+        f"{text}; {world} ranks x ({worst / 2**30:.3f} + "
+        f"{context / 2**30:.3f}) = {need / 2**30:.2f} GiB "
+        f"{'fit' if ok else 'do not fit'} {tag} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"train16 (h): {world} ranks need {need / 2**30:.2f}"
+                        f" GiB, the card has {free / 2**30:.2f} free")
+    return ok
+
+
+def _recurrent_compare(ranks, want, pred, failures, world, tag):
+    """Phase 16 (h)'s checks on the ranks' results (the module's note)."""
+    rel = lambda g, w: abs(g - w) / max(abs(w), 1e-30)      # noqa: E731
+
+    def fail(ok, what):
+        if not ok:
+            failures.append(f"train16 (h) {what}")
+        return "ok" if ok else "FAIL"
+    # mamba2 tensor-parallel against one device
+    gaps = collections.defaultdict(float)
+    for res in ranks:
+        for g, w in zip(res["mamba2 tp"]["history"], want, strict=True):
+            for k in ("loss", "grad_norm"):
+                gaps[k] = max(gaps[k], rel(g[k], w[k]))
+    ok = all(v <= TRAIN16_TOL for v in gaps.values())
+    log(f"train16 (h) {REC_MAMBA_ARCH} tensor-parallel on {world} ranks "
+        f"against one device: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                            gaps.items())
+        + f" relative (tol {TRAIN16_TOL:g}) {tag} "
+        + fail(ok, f"mamba2 against one device: {dict(gaps)}"))
+    losses = [h["loss"] for h in ranks[0]["rg tp"]["history"]]
+    ok = all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+             for res in ranks for h in res["rg tp"]["history"])
+    log(f"train16 (h) {REC_RG_ARCH} tensor-parallel losses "
+        f"{[round(x, 6) for x in losses]}, finite on every rank "
+        + fail(ok, f"recurrentgemma losses {losses}"))
+    # each mixer split against whole at full width, both against the
+    # float64 whole: the float64 split the same function, the float32
+    # split within the tolerance of the float32 whole's own rounding
+    for name in ("rg tp", "mamba2 tp"):
+        units = [res[name]["unit"] for res in ranks]
+        worst = {k: {lab: max(u[k][lab] for u in units)
+                     for lab in ("exact", "split", "whole")}
+                 for k in units[0]}
+        ok = all(v["exact"] <= TRAIN16H_UNIT_TOL
+                 and v["split"] <= v["whole"] + TRAIN16H_UNIT_TOL
+                 for v in worst.values())
+        log(f"train16 (h) {name} layer 0's mixer split against whole on "
+            f"({TRAIN_BATCH}, {TRAIN_SEQ}, d_model), the largest over the "
+            f"ranks of |a - b| / max|b|, b the float64 whole, a the float64 "
+            f"split / the float32 split / the float32 whole: "
+            + ", ".join(f"{k} {v['exact']:.1e} / {v['split']:.2e} / "
+                        f"{v['whole']:.2e}" for k, v in worst.items())
+            + f"; float64 within {TRAIN16H_UNIT_TOL:g}, float32 within "
+            f"{TRAIN16H_UNIT_TOL:g} of the whole's own {tag} "
+            + fail(ok, f"{name} unit gaps {worst}"))
+
+    def peak(steps):        # a run's largest step peak (None off the card)
+        return None if None in steps else max(steps)
+    peaks = {name: [peak(res[name]["peak"]) for res in ranks]
+             for name in pred}
+    on_card = peaks["rg tp"][0] is not None
+    lower = on_card and all(t < g for t, g in zip(
+        peaks["mamba2 tp"], peaks["mamba2 gather-at-use"]))
+    log(f"train16 (h) per rank max_memory_allocated over a step, GiB: "
+        + "; ".join(f"{k} {[_gib(x) for x in v]}" for k, v in peaks.items())
+        + f"; {REC_MAMBA_ARCH} tensor-parallel below gather-at-use on every "
+        f"rank {lower if on_card else 'n/a (no card)'} {tag} "
+        + fail(lower or not on_card, f"mamba2 tensor-parallel peak "
+               f"{peaks['mamba2 tp']} not below gather-at-use "
+               f"{peaks['mamba2 gather-at-use']}"))
+    for name, p in pred.items():
+        want_b = p["args"] + p["temps"]
+        ratio = [None if x is None else x / want_b for x in peaks[name]]
+        ok = not on_card or all(r <= 1 + TRAIN16H_PEAK_SLACK for r in ratio)
+        log(f"train16 (h) {name} peak a rank against the dry run's "
+            f"{want_b / 2**30:.3f} GiB (arguments {p['args'] / 2**30:.3f} "
+            f"+ temporaries {p['temps'] / 2**30:.3f}, on meta tensors): "
+            f"measured/predicted "
+            f"{[None if r is None else round(r, 4) for r in ratio]} "
+            f"(at most {1 + TRAIN16H_PEAK_SLACK:g}) {tag} "
+            + fail(ok, f"{name} peaks {peaks[name]} above the dry run's "
+                   f"{want_b} + {TRAIN16H_PEAK_SLACK:.0%}"))
+    for name in ("rg tp", "mamba2 tp", "mamba2 gather-at-use"):
+        run = ranks[0][name]["moved"][0]
+        if name in ("rg tp", "mamba2 tp"):
+            same = pred[name]["moved"] == run
+            log(f"train16 (h) {name} rank 0's collective bytes a step "
+                f"{_bytes_line(run)}; a fake {TRAIN16_MESH} rank 0's "
+                f"{_bytes_line(pred[name]['moved'])}; equal {same} {tag} "
+                + fail(same, f"{name} bytes {run} against the dry run's "
+                       f"{pred[name]['moved']}"))
+        else:
+            log(f"train16 (h) {name} rank 0's collective bytes a step "
+                f"{_bytes_line(run)} {tag}")
+    for name in ("rg tp", "mamba2 tp"):
+        spied = [res[name]["spy"] for res in ranks]
+        ok = all(s["param"] == 0 for s in spied)
+        log(f"train16 (h) {name}: parameter elements all-gathered over "
+            f"model {[s['param'] for s in spied]}, all-gathers over model "
+            f"in the steps {[s['calls'] for s in spied]} (the mixers' "
+            f"activations) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"train16 (h) {name}: parameters gathered over "
+                            f"model {spied}")
+    for name in pred:
+        host = [h["step_time_s"] for h in ranks[0][name]["history"]]
+        comm = [max(res[name]["comm_s"][i] for res in ranks)
+                for i in range(len(host))]
+        log(f"train16 (h) {name} per step: host {[round(x, 3) for x in host]}"
+            f" s, collectives {[round(x, 3) for x in comm]} s "
+            f"({[f'{c / h:.0%}' for c, h in zip(comm, host)]}), "
+            f"{[round(TRAIN_SEQ * TRAIN_BATCH / h, 1) for h in host]} "
+            f"tokens/s {tag}")
+
+
+def recurrent_tp_phase(dev, failures, tag, procs, dry_tmp, mamba_kw=None,
+                       rec_kw=None):
+    """Phase 16 (h), the recurrent mixers tensor-parallel on a
+    ``TRAIN16_MESH`` mesh of gloo ranks sharing the card, a spawn of its
+    own after phase 16's (see the module's note); ``procs``/``dry_tmp``:
+    :func:`start_dryruns`'s, whose ``h`` run predicts the ranks'
+    memory and collectives."""
+    import torch
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.train.trainer import Trainer
+    th = time.perf_counter()
+    device = dev.type
+    world = int(np.prod(TRAIN16_MESH))
+    mamba, rg = _recurrent_cfgs(mamba_kw, rec_kw)
+    log(f"train16 (h): {REC_MAMBA_ARCH} d_model {mamba.d_model}, "
+        f"{mamba.n_layers} layers, and {REC_RG_ARCH} d_model {rg.d_model}, "
+        f"layers {layer_kinds(rg)} with the RgCSR FFN through the segment "
+        f"sum (depths cut from their published ones), fp32, AdamW, "
+        f"{TRAIN16_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens with "
+        f"micro={TRAIN16_MICRO}, on a {TRAIN16_MESH} (data, model) mesh of "
+        f"{world} gloo ranks sharing {tag}; {os.cpu_count()} host cores "
+        f"(phase 19's dry runs may share them)")
+    t1 = time.perf_counter()
+    single = Trainer(mamba, _phase16_train_config(eps=TRAIN16H_EPS),
+                     device=dev)
+    single.run(single.init_state(TRAIN_SEQ, TRAIN_BATCH))
+    want = single.history
+    log(f"train16 (h) {REC_MAMBA_ARCH} one device: losses "
+        f"{[round(h['loss'], 6) for h in want]}, grad_norm "
+        f"{[round(h['grad_norm'], 6) for h in want]}, host s per step "
+        f"{[round(h['step_time_s'], 3) for h in want]} in "
+        f"{time.perf_counter() - t1:.1f} s")
+    del single
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    pred = _await_dryrun(procs, dry_tmp, "h")
+    if pred is None:
+        failures.append("train16 (h): no dry run")
+        return
+    log(f"train16 (h) dry run of the runs on a fake {TRAIN16_MESH} rank 0 "
+        f"in {sum(v['seconds'] for v in pred.values()):.1f} s")
+    if not _memory_plan(dev, pred, world, failures, tag):
+        return
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train16h_"))
+    # the ranks' allocator grows its segments in place: four full-width
+    # ranks share one card
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t1 = time.perf_counter()
+        err = _spawn_ranks(recurrent_rank, world, tmp, TRAIN16H_DEADLINE_S,
+                           (SHARD_TIMEOUT_S, device, mamba_kw, rec_kw))
+        log(f"train16 (h) the ranks in {time.perf_counter() - t1:.1f} s")
+        if err:
+            failures.append(f"train16 (h) ranks: {err}")
+            return
+        ranks = []
+        for r in range(world):
+            with open(tmp / f"rec{r}.json") as f:
+                ranks.append(json.load(f))
+        _recurrent_compare(ranks, want, pred, failures, world, tag)
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"phase 16 (h) in {time.perf_counter() - th:.1f} s")
+
+
 # ------------------------------------------------------ phase 17: remat
 
 
@@ -2170,11 +2658,12 @@ def _stop_background():
             p.wait()
 
 
-def start_dryruns(tmp: Path, cfg_kw=None):
+def start_dryruns(tmp: Path, cfg_kw=None, mamba_kw=None, rec_kw=None):
     """Start phase 19's dry runs in the background, each a process of its
     own on the host alone (no card): the cells of ``DRYRUN_CELLS`` through
-    ``python -m repro_torch.launch.dryrun`` and :func:`dryrun_small`.
-    Returns ``{name: (process, start time)}``."""
+    ``python -m repro_torch.launch.dryrun``, :func:`dryrun_small` and
+    phase 16 (h)'s :func:`dryrun_recurrent` (``h``).  Returns ``{name:
+    (process, start time)}``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     runs = {}
@@ -2188,6 +2677,11 @@ def start_dryruns(tmp: Path, cfg_kw=None):
                   f"import chip_smoke; chip_smoke.dryrun_small("
                   f"{str(tmp / 'bc.json')!r}, "
                   f"{json.dumps(cfg_kw or {})!r})"]
+    runs["h"] = [sys.executable, "-c",
+                 f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                 f"import chip_smoke; chip_smoke.dryrun_recurrent("
+                 f"{str(tmp / 'h.json')!r}, {json.dumps(mamba_kw or {})!r}, "
+                 f"{json.dumps(rec_kw or {})!r})"]
     procs = {}
     for name, argv in runs.items():
         with open(tmp / f"{name}.log", "w") as f:
@@ -2360,6 +2854,7 @@ def main() -> int:
     dev = torch.device(DEVICE)
     failures = []
 
+    phase("1 card and build")
     # ---- 1. card and build
     smi = card_line()
     log(f"card: {smi}")
@@ -2374,6 +2869,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    phase("2 matrices")
     # ---- 2. matrices
     t0 = time.perf_counter()
     fem_csr = fem2d_csr(2048, 2048)
@@ -2408,6 +2904,7 @@ def main() -> int:
     raj_coo = COO(values=raj_hyb.coo_values, rows=raj_hyb.coo_rows,
                   columns=raj_hyb.coo_columns, shape=raj_hyb.shape)
 
+    phase("3 kernels against their plain versions")
     # ---- 3. each kernel against its plain version, on the card
     t0 = time.perf_counter()
 
@@ -2566,6 +3063,7 @@ def main() -> int:
     del w_params, w_plan
     log(f"phase 3 in {time.perf_counter() - t0:.1f} s")
 
+    phase("4 main path")
     # ---- 4. the main path
     t0 = time.perf_counter()
     PLAN_CACHE.clear()
@@ -2616,6 +3114,7 @@ def main() -> int:
     if stats["misses"] != 2 or stats["hits"] != 4:
         failures.append(f"plan cache {stats}: want 2 misses then 4 hits")
 
+    phase("5 times")
     # ---- 5. times at the main path's shapes
     t0 = time.perf_counter()
     entries = []
@@ -2757,6 +3256,7 @@ def main() -> int:
               lambda: ops.rgcsr_spmm(p, xmr), 20)
     log(f"phase 5 in {time.perf_counter() - t0:.1f} s")
 
+    phase("6 serve")
     # ---- 6. serve granite-3-2b with the RgCSR FFN through K2
     t0 = time.perf_counter()
     tag = f"[{smi}]"
@@ -2990,6 +3490,7 @@ def main() -> int:
     log(f"serve peak device memory {peak / 2**30:.2f} GiB ({held_before / 2**30:.2f} GiB held by the earlier phases) "
         f"{tag}; phase 6 in {time.perf_counter() - t0:.1f} s")
 
+    phase("7 session")
     # ---- 7. serve sessions: continuous batching on paged caches, the
     # fused decode loop a CUDA graph, K2 in every prefill and graph replay
     t0 = time.perf_counter()
@@ -3246,6 +3747,7 @@ def main() -> int:
     log(f"session peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"{tag}; phase 7 in {time.perf_counter() - t0:.1f} s")
 
+    phase("8 router")
     # ---- 8. the router: two replicas of one model behind Router — the
     # failover drill in fp32, a bf16 fleet, the launcher's drills
     t0 = time.perf_counter()
@@ -3561,6 +4063,7 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {tag}; "
         f"phase 8 in {time.perf_counter() - t0:.1f} s")
 
+    phase("9 tune")
     # ---- 9. the autotuner on the card: K1 and K2 timed by torch.profiler
     # across every candidate plan, the default candidate sets
     t0 = time.perf_counter()
@@ -3667,6 +4170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 9 in {time.perf_counter() - t0:.1f} s")
 
+    phase("10 train")
     # ---- 10. training: the segment sum's backward at granite's w_out
     # shape, launch/train.py on full granite-3-2b, the fault drill
     t0 = time.perf_counter()
@@ -4084,6 +4588,7 @@ def main() -> int:
         if not all(ok_):
             failures.append(f"{what}: streams against generate")
 
+    phase("11 mla")
     # ---- 11. MLA: minicpm3-4b at its published width and depth, the
     # RgCSR FFN through K2 — generate, then sessions on paged MLA caches
     t0 = time.perf_counter()
@@ -4259,6 +4764,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("12 moe")
     # ---- 12. MoE: granite-moe-1b-a400m at its published width and depth
     # (no K1–K3: its experts are dense stacked products, and the reference
     # sparsifies no MoE FFN), then deepseek-v3-671b at its smoke size
@@ -4458,6 +4964,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 12 in {time.perf_counter() - t0:.1f} s")
 
+    phase("13 recurrent")
     # ---- 13. the recurrent families at published width and depth:
     # recurrentgemma-9b (RG-LRU + local attention, the RgCSR FFN through
     # K2) and mamba2-780m (Mamba-2 SSD; no FFN, so no K1–K3)
@@ -4873,6 +5380,7 @@ def main() -> int:
     log(f"recurrent mamba2 in {time.perf_counter() - t0:.1f} s")
     log(f"phase 13 in {time.perf_counter() - t13:.1f} s")
 
+    phase("14 encdec")
     # ---- 14. the encoder-decoder family and the vision frontend at
     # published width and depth, the RgCSR FFN through K2: seamless-m4t-
     # medium (its encoder's FFNs too) and pixtral-12b, served as the
@@ -5308,27 +5816,39 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 14 in {time.perf_counter() - t14:.1f} s")
 
+    phase("15 shard")
     # ---- 15. row-sharded SpMV/SpMM
     sharded_phase(dev, mats, x, xm, entries, failures, tag)
 
     # ---- 16. sharded training
     gc.collect()
     torch.cuda.empty_cache()
+    phase("16 train16")
     train16 = sharded_train_phase(dev, failures, tag)
 
+    # ---- 16 (h). the recurrent mixers tensor-parallel, a spawn of its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("16 (h) recurrent mixers tensor-parallel")
+    recurrent_tp_phase(dev, failures, tag, dry_procs, dry_tmp)
+
+    phase("17 remat")
     # ---- 17. remat none / full / dots
     gc.collect()
     torch.cuda.empty_cache()
     remat_phase(dev, failures, tag)
 
+    phase("18 twins")
     # ---- 18. the example twins
     gc.collect()
     torch.cuda.empty_cache()
     twins_phase(dev, failures, tag)
 
+    phase("19 dryrun")
     # ---- 19. the dry run against phases 10 and 16
     dryrun_phase(dry_procs, dry_tmp, train16, train10, failures, tag)
 
+    phase()
     for kernel in KERNEL_META:
         if counts[kernel] <= 0:
             failures.append(f"{kernel} was not launched on the main path")
@@ -5348,8 +5868,13 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         sys.exit(main())
-    except Exception:
-        traceback.print_exc()
-        sys.exit(1)
+    except BaseException as err:
+        if not isinstance(err, SystemExit):
+            traceback.print_exc()
+            where = f"chip_smoke: stopped {stopped()}"
+            log(where)
+            print(where, file=sys.stderr, flush=True)
+            sys.exit(1)
+        raise
     finally:
         _stop_background()

@@ -9,7 +9,8 @@ mesh axis's group, ends the rank with a segmentation fault on PyTorch
 DTensor containers passed.  The cases ``region_*`` run the port's
 tensor-parallel region operators (``sharding/layout.py``: ``copy_in``,
 ``reduce_out``, ``gather_dim`` along a non-leading dim with either
-backward, ``split_dim``, ``all_reduce_max``), forward and backward, on
+backward, ``split_dim``, ``reduce_scatter_dim``, ``all_reduce_max``),
+forward and backward, on
 the ``model`` group, each checked against its sum.  On the CPU every case
 passes::
 
@@ -146,6 +147,11 @@ def rank_fn(rank, world, store):
                                             torch.full((2, 2), 2.0,
                                                        device=dev)], 1),
         x=wide))
+    halves = torch.cat([torch.full((2, 2), 1.0, device=dev),
+                        torch.full((2, 2), 2.0, device=dev)], 1)
+    tryit("region_reduce_scatter_dim1", lambda: region(
+        lambda x: layout.reduce_scatter_dim(x, 1, mesh, 1), ones,
+        (2 * wide + 10)[:, 2 * r:2 * r + 2], halves, x=wide + 10 * r))
     def max_case():
         got = layout.all_reduce_max(base, mesh, 1)
         if not torch.equal(got, torch.maximum(base, other)):

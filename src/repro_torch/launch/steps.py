@@ -42,9 +42,12 @@ operators.  The gradient rule is per leaf: a leaf split over ``model``
 reaches its shard summed over the batch dims alone, with no division by
 the ``model`` ranks; so does a leaf replicated along ``model`` (every
 ``model`` rank computes the same gradient for it); a leaf a split unit
-uses whole (``seq`` attention, ``repeat``'s k and v) is summed over every
-mesh dim; a gather-at-use sublayer's cut leaf (the recurrent mixers)
-takes this rank's slice of its own whole gradient.
+uses whole or in part (``seq`` attention, ``repeat``'s k and v where
+``model`` leaves them whole, the Mamba-2 mixer's per-head leaves and
+norm scale, of which a rank reads its heads) is summed over every mesh
+dim; a cut leaf of a unit that computes whole (an FFN or MoE layer whose
+dims ``model`` does not divide) takes this rank's slice of its own whole
+gradient.
 """
 from __future__ import annotations
 
@@ -62,7 +65,7 @@ from repro_torch.train.optimizer import OptimizerConfig, global_norm, \
     make_optimizer
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
-           "auto_microbatches", "routing_stats"]
+           "auto_microbatches", "routing_stats", "mixer_gaps"]
 
 
 def auto_microbatches(cfg, global_batch: int, seq: int, n_data_shards: int,
@@ -411,6 +414,73 @@ def routing_stats(model, batch, partitioner=None) -> Dict[str, torch.Tensor]:
         layout.all_reduce_over(terms, mesh,
                                layout.sharded_mesh_dims(rows).get(0, []))
     return dict(aux, load_balance=terms[0], router_z=terms[1])
+
+
+def mixer_gaps(model, partitioner, prefix: str, x, grad_out
+               ) -> Dict[str, Dict[str, float]]:
+    """The recurrent mixer of block ``prefix`` (its ``ssm`` mixer or its
+    ``rec`` block) split, as the tensor-parallel step binds it, against
+    the same mixer whole, on this rank (collective: every rank of the
+    mesh calls it).  ``model``'s tensors are DTensors on
+    ``partitioner``'s mesh; the mixer's leaves are gathered whole for
+    this check alone.  Each run takes ``x`` (``(B, L, d)``, the same on
+    every rank) and its backward ``grad_out``, split and whole, in
+    float64 and in float32.  For the output, the gradient of ``x`` and
+    each leaf's gradient (a cut leaf's: this rank's slice; a whole one's
+    summed over the ``model`` ranks first, each computing its part), the
+    largest ``|a − b|`` over the largest ``|b|`` with ``b`` the float64
+    whole: ``exact`` of the float64 split (the same function, exactly),
+    ``split`` and ``whole`` of the float32 runs (their rounding: Mamba-2's
+    SSD takes differences of long cumulative sums of ``dt·a``, which
+    float32 resolves to ~1e-5 of their size at full width)."""
+    from repro_torch.models import recurrent as rec_mod
+    binding = _tensor_parallel(model, partitioner)
+    if binding is None:
+        raise ValueError("mixer_gaps needs a tensor-parallel model: "
+                         "cfg.act_shard on a mesh with a model axis")
+    view = binding.view
+    block = dict(model.blocks())[prefix]
+    name, apply = ("mixer", rec_mod.mamba2_apply) if hasattr(block, "mixer") \
+        else ("rec", rec_mod.rglru_apply)
+    unit = getattr(block, name)
+    tensors = model.tensors()
+    keys = [k for k in tensors if k.startswith(f"{prefix}/{name}/")]
+    whole = {k: layout.gather(tensors[k]) for k in keys}
+    split = shardlib.TensorParallel(view, binding.modes,
+                                    lambda module: contextlib.nullcontext())
+
+    def run(tp, dtype):
+        leaves = {k: (t if tp is None or view.cuts.get(k) is None
+                      else t.chunk(view.size, view.cuts[k])[view.rank])
+                  .detach().to(dtype).requires_grad_(True)
+                  for k, t in whole.items()}
+        xg = x.detach().to(dtype).requires_grad_(True)
+        with _bound(model, leaves), shardlib.tensor_parallel(tp):
+            y = apply(unit, model.cfg, xg)
+        y.backward(grad_out.to(dtype))
+        out = {"output": y.detach(), "x": xg.grad}
+        for k, t in leaves.items():
+            if tp is not None and view.cuts.get(k) is None:
+                layout.all_reduce_over(t.grad, view.mesh, [view.mesh_dim])
+            out[k[len(prefix) + 1:]] = t.grad
+        return out
+    truth = run(None, torch.float64)
+    runs = {"exact": run(split, torch.float64),
+            "split": run(split, torch.float32),
+            "whole": run(None, torch.float32)}
+    out = {}
+    for k, want in truth.items():
+        cut = view.cuts.get(f"{prefix}/{k}")
+        if cut is not None:
+            want = want.chunk(view.size, cut)[view.rank]
+        scale = want.abs().max().clamp_min(1e-300)
+        out[k] = {}
+        for label, got in runs.items():
+            g = got[k]
+            if label == "whole" and cut is not None:
+                g = g.chunk(view.size, cut)[view.rank]
+            out[k][label] = float((g.double() - want).abs().max() / scale)
+    return out
 
 
 def make_prefill_step(model, s_max: int, shape_kind: str = "prefill"):

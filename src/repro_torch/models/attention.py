@@ -62,7 +62,9 @@ mode; no cache): the input is copied in over ``model`` and
   and ``Hkv/n`` kv heads (contiguous, so each query head keeps its kv
   head), and ``o`` is row-parallel (a reduce-out);
 * ``repeat`` — q is this rank's ``Hq/n`` heads, k and v are whole (every
-  kv head) and each local query head takes its own kv head (the repeat,
+  kv head: where ``model`` cuts their weights, the products with the
+  rank's columns are gathered, their gradient reduce-scattered) and each
+  local query head takes its own kv head (the repeat,
   sliced); ``o`` row-parallel;
 * ``seq``    — the four weights are whole: the rank computes its slice of
   the query sequence against every key, and the output is gathered along
@@ -483,8 +485,13 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
         q_src = x[:, first:first + s]
         q_pos = None if positions is None else positions[:, first:first + s]
     q = layer.q(q_src).reshape(b, s, -1, dh)
-    k = layer.k(kv_src).reshape(b, t, -1, dh)
-    v = layer.v(kv_src).reshape(b, t, -1, dh)
+    k, v = layer.k(kv_src), layer.v(kv_src)
+    if tp is not None and tp[1] == "repeat" and k.shape[-1] < hkv * dh:
+        # k and v bound to this rank's columns: every rank reads the whole
+        k, v = (layout.gather_dim(u, -1, tp[0].mesh, tp[0].mesh_dim,
+                                  grad="sum") for u in (k, v))
+    k = k.reshape(b, t, -1, dh)
+    v = v.reshape(b, t, -1, dh)
     if mode != "cross":
         q = rope(q, q_pos, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)

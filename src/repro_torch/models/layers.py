@@ -20,10 +20,11 @@ Tensor-parallel forms (``models.shardlib``; the step binds each module's
 ``model`` slice): :meth:`Dense.column` is the product with this rank's
 columns of a replicated input (copied in), :meth:`Dense.row` the product
 of this rank's slice of the input with its rows, summed over the group (a
-reduce-out); :meth:`Embed.lookup` with ``view`` looks up only the
-vocabulary rows this rank holds and sums the ranks' lookups, and
-:meth:`Embed.logits` on the bound slice gives this rank's vocabulary
-columns.
+reduce-out); :meth:`RMSNorm.split` normalizes a dim the ranks split,
+its sum of squares summed over them; :meth:`Embed.lookup` with ``view``
+looks up only the vocabulary rows this rank holds and sums the ranks'
+lookups, and :meth:`Embed.logits` on the bound slice gives this rank's
+vocabulary columns.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ from repro_torch.models.spec import P
 from repro_torch.sharding import layout
 
 __all__ = [
-    "rmsnorm_spec", "rmsnorm", "layernorm_spec", "layernorm",
+    "at_least_f32", "rmsnorm_spec", "rmsnorm", "layernorm_spec",
+    "layernorm",
     "dense_spec", "dense", "embed_spec", "embed_lookup", "embed_logits",
     "rope", "rope_positions", "make_causal_mask", "make_window_mask",
     "ParamModule", "RMSNorm", "Dense", "Embed",
@@ -51,11 +53,17 @@ def rmsnorm_spec(d: int):
     return {"scale": P((d,), ("norm",), init="ones")}
 
 
+def at_least_f32(t):
+    """``t`` in float32, where norms and recurrences compute; float64 kept
+    as it is (an exact reference run of the same code)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def rmsnorm(scale, x, eps: float = 1e-6):
-    x32 = x.float()
+    x32 = at_least_f32(x)
     var = x32.square().mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(x.dtype)
+    return (y * at_least_f32(scale)).to(x.dtype)
 
 
 def layernorm_spec(d: int):
@@ -207,6 +215,19 @@ class ParamModule(nn.Module):
 class RMSNorm(ParamModule):
     def forward(self, x):
         return rmsnorm(self.scale, x)
+
+    def split(self, x, view, part: slice, width: int, eps: float = 1e-6):
+        """The norm of a dim of ``width`` that ``view``'s ranks split:
+        ``x`` is this rank's ``part`` of it (the scale bound whole).  The
+        sum of squares crosses the ranks both ways: its forward sums the
+        ranks' shares, and its backward sums the ranks' gradients of the
+        whole sum (each rank's output reads every share)."""
+        x32 = at_least_f32(x)
+        ss = layout.reduce_out(x32.square().sum(-1, keepdim=True),
+                               view.mesh, view.mesh_dim)
+        ss = layout.copy_in(ss, view.mesh, view.mesh_dim)
+        y = x32 * torch.rsqrt(ss / width + eps)
+        return (y * at_least_f32(self.scale)[part]).to(x.dtype)
 
 
 class Dense(ParamModule):

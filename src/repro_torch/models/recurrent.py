@@ -27,7 +27,31 @@ The modules (:class:`Mamba2`, :class:`RGLRU`) hold one layer's parameters
 in the tree's names (``in_proj``, ``conv``, ``dt_bias``, ...); the
 functions do the arithmetic.  Weights are used in the compute dtype
 through :meth:`~repro_torch.models.layers.ParamModule.cast`; the 1-D
-recurrence parameters are read in float32.
+recurrence parameters are read in float32 (float64 inputs stay float64:
+an exact reference run of the same code).
+
+Tensor-parallel training (``models.shardlib.unit`` gives a mixer the
+mode ``split``; the step binds each cut leaf's ``model`` slice, and the
+replicated ``dt_bias``, ``a_log``, ``d_skip`` and ``out_norm`` scale
+whole, of which a rank reads its heads' part):
+
+* Mamba-2 splits its SSD heads: rank ``r`` of ``n`` runs heads
+  ``[r·H/n, (r+1)·H/n)``.  Its ``in_proj`` columns (a contiguous cut of
+  z | x | B | C | dt) line up with neither its heads nor its conv
+  channels, so their column-parallel product is gathered whole over
+  ``model``; the rank convolves its own ``conv_ch`` slice of xBC, and
+  the conv's output is gathered again (both gathers reduce-scatter their
+  gradient: each rank reads its own columns of the whole).  The rank
+  then takes its heads' z, x and dt and the whole B and C; the gated
+  norm sums its squares over the ranks (``d_inner`` is split), and
+  ``out_proj`` is row-parallel.
+* RG-LRU splits its ``d_rnn`` channels: ``gate_proj``, ``x_proj``, the
+  conv, ``lam`` and ``out_proj``'s rows are cut alike, so the conv, the
+  gates' elementwise work and the scan run on the rank's channels.
+  ``rg_w`` and ``in_w`` hold the rank's rows of every column: their
+  products are partial sums over every channel, reduce-scattered to the
+  rank's channels together, in one collective (its backward
+  all-gathers).
 """
 from __future__ import annotations
 
@@ -36,10 +60,13 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import shardlib
 from repro_torch.models.layers import (Dense, ParamModule, RMSNorm,
-                                       dense_spec, rmsnorm_spec)
+                                       at_least_f32, dense_spec,
+                                       rmsnorm_spec)
 from repro_torch.models.shardlib import constrain
 from repro_torch.models.spec import P
+from repro_torch.sharding import layout
 
 __all__ = [
     "mamba2_spec", "mamba2_apply", "init_mamba2_state", "mamba2_decode",
@@ -198,16 +225,30 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
     return y, h_prev
 
 
-def _mamba_gates(layer: "Mamba2", cfg, dt_raw):
-    dt = F.softplus(dt_raw.float() + layer.dt_bias.float())
-    a = -torch.exp(layer.a_log.float())
+def _mamba_gates(layer: "Mamba2", cfg, dt_raw, heads=slice(None)):
+    dt = F.softplus(at_least_f32(dt_raw)
+                    + at_least_f32(layer.dt_bias)[heads])
+    a = -torch.exp(at_least_f32(layer.a_log)[heads])
     return dt, a
+
+
+def _parallel(layer, return_state: bool):
+    """``(view, mode)`` of a mixer computing tensor-parallel, or None."""
+    tp = shardlib.unit(layer)
+    if tp is not None and return_state:
+        raise ValueError("a tensor-parallel mixer trains: it returns no "
+                         "state")
+    return tp
 
 
 def mamba2_apply(layer: "Mamba2", cfg, x, *, return_state: bool = False):
     """Full-sequence Mamba-2 mixer.  x: (B, L, d) -> (B, L, d); with
     ``return_state`` also the end-of-sequence state (conv tail + SSM
-    state) for the decode steps."""
+    state) for the decode steps.  Tensor-parallel on this rank's heads
+    (the module's note)."""
+    tp = _parallel(layer, return_state)
+    if tp is not None:
+        return _mamba2_split(layer, cfg, x, tp[0])
     bsz, l, _ = x.shape
     d_inner, n_heads, d_xbc = _mamba_dims(cfg)
     ssm = cfg.ssm
@@ -228,9 +269,10 @@ def mamba2_apply(layer: "Mamba2", cfg, x, *, return_state: bool = False):
         xs = constrain(cfg, xs, "batch", None, "model", None)
     dt, a = _mamba_gates(layer, cfg, dt_raw)
 
-    xs32 = xs.float()
-    y, h_last = _ssd_chunked(xs32, dt, a, b.float(), c.float(), ssm.chunk)
-    y = y + layer.d_skip.float()[None, None, :, None] * xs32
+    xs32 = at_least_f32(xs)
+    y, h_last = _ssd_chunked(xs32, dt, a, at_least_f32(b),
+                             at_least_f32(c), ssm.chunk)
+    y = y + at_least_f32(layer.d_skip)[None, None, :, None] * xs32
     y = y.reshape(bsz, l, d_inner).to(x.dtype)
     y = layer.out_norm(y * F.silu(z))
     out = layer.out_proj(y)
@@ -238,6 +280,46 @@ def mamba2_apply(layer: "Mamba2", cfg, x, *, return_state: bool = False):
         tail = _conv_tail(xbc_raw, ssm.d_conv - 1, getattr(torch, cfg.dtype))
         return out, {"conv": tail, "ssm": h_last}
     return out
+
+
+def _mamba2_split(layer: "Mamba2", cfg, x, view):
+    """:func:`mamba2_apply` on ``view``'s rank's heads (the module's
+    note): ``x`` replicated along ``model``, the output the whole
+    ``(B, L, d)`` on every rank."""
+    bsz, l, _ = x.shape
+    d_inner, n_heads, d_xbc = _mamba_dims(cfg)
+    ssm = cfg.ssm
+    n_bc = ssm.n_groups * ssm.d_state
+    mesh, md, n, r = view.mesh, view.mesh_dim, view.size, view.rank
+    heads = slice(r * n_heads // n, (r + 1) * n_heads // n)
+    cols = slice(heads.start * ssm.head_dim, heads.stop * ssm.head_dim)
+    ch = d_xbc // n
+
+    zxbcdt = layout.gather_dim(layer.in_proj.column(x, view), -1, mesh, md,
+                               grad="sum")
+    z = zxbcdt[..., cols]
+    xbc_raw = zxbcdt[..., d_inner + r * ch: d_inner + (r + 1) * ch]
+    dt_raw = zxbcdt[..., d_inner + d_xbc:][..., heads]
+
+    xbc = F.silu(_causal_conv(*layer.conv.weights(x.dtype), xbc_raw))
+    xbc = layout.gather_dim(xbc, -1, mesh, md, grad="sum")
+    xs = xbc[..., cols].reshape(bsz, l, -1, ssm.head_dim)
+    b = xbc[..., d_inner: d_inner + n_bc].reshape(bsz, l, ssm.n_groups,
+                                                   ssm.d_state)
+    c = xbc[..., d_inner + n_bc:].reshape(bsz, l, ssm.n_groups, ssm.d_state)
+    if ssm.n_groups > 1:        # each of the rank's heads with its group
+        rep = n_heads // ssm.n_groups
+        b = b.repeat_interleave(rep, dim=2)[:, :, heads]
+        c = c.repeat_interleave(rep, dim=2)[:, :, heads]
+    dt, a = _mamba_gates(layer, cfg, dt_raw, heads)
+
+    xs32 = at_least_f32(xs)
+    y, _ = _ssd_chunked(xs32, dt, a, at_least_f32(b), at_least_f32(c),
+                        ssm.chunk)
+    y = y + at_least_f32(layer.d_skip)[heads][None, None, :, None] * xs32
+    y = y.reshape(bsz, l, -1).to(x.dtype)
+    y = layer.out_norm.split(y * F.silu(z), view, cols, d_inner)
+    return layer.out_proj.row(y, view)
 
 
 def init_mamba2_state(cfg, batch: int,
@@ -277,11 +359,12 @@ def mamba2_decode(layer: "Mamba2", cfg, state, x_t):
     dt, a = _mamba_gates(layer, cfg, dt_raw)                  # (B,H), (H,)
     da = torch.exp(dt * a)
 
-    xs32 = xs.float()
+    xs32 = at_least_f32(xs)
     h = da[..., None, None] * state["ssm"] \
-        + (dt[..., None] * xs32)[..., None] * b.float()[:, :, None, :]
-    y = torch.einsum("bhn,bhpn->bhp", c.float(), h)
-    y = y + layer.d_skip.float()[None, :, None] * xs32
+        + (dt[..., None] * xs32)[..., None] \
+        * at_least_f32(b)[:, :, None, :]
+    y = torch.einsum("bhn,bhpn->bhp", at_least_f32(c), h)
+    y = y + at_least_f32(layer.d_skip)[None, :, None] * xs32
     y = y.reshape(bsz, d_inner).to(x_t.dtype)
     y = layer.out_norm(y * F.silu(z))
     return layer.out_proj(y), {"conv": conv_state, "ssm": h}
@@ -345,17 +428,24 @@ def _rglru_scan(a, b, h0: Optional[torch.Tensor] = None):
     return b
 
 
-def _rglru_gates(layer: "RGLRU", u):
-    """(a, the gated input) in float32 from the conv output ``u``."""
-    r = torch.sigmoid(layer.rg_w(u).float())
-    i = torch.sigmoid(layer.in_w(u).float())
-    a = torch.exp(-_RGLRU_C * F.softplus(layer.lam.float()) * r)
-    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-6)) * (i * u.float())
+def _rglru_gates(layer: "RGLRU", u, pre=None):
+    """(a, the gated input) in float32 from the conv output ``u``;
+    ``pre``: the two gates' pre-activations stacked, when given."""
+    rg, inp = (layer.rg_w(u), layer.in_w(u)) if pre is None else pre
+    r = torch.sigmoid(at_least_f32(rg))
+    i = torch.sigmoid(at_least_f32(inp))
+    a = torch.exp(-_RGLRU_C * F.softplus(at_least_f32(layer.lam)) * r)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-6)) \
+        * (i * at_least_f32(u))
     return a, gated
 
 
 def rglru_apply(layer: "RGLRU", cfg, x, *, return_state: bool = False):
-    """Griffin recurrent block over the full sequence.  x: (B, L, d)."""
+    """Griffin recurrent block over the full sequence.  x: (B, L, d).
+    Tensor-parallel on this rank's channels (the module's note)."""
+    tp = _parallel(layer, return_state)
+    if tp is not None:
+        return _rglru_split(layer, x, tp[0])
     gate = _gelu(layer.gate_proj(x))
     u_raw = layer.x_proj(x)
     u = _causal_conv(*layer.conv.weights(x.dtype), u_raw)
@@ -366,6 +456,22 @@ def rglru_apply(layer: "RGLRU", cfg, x, *, return_state: bool = False):
         tail = _conv_tail(u_raw, _RGLRU_CONV - 1, getattr(torch, cfg.dtype))
         return out, {"conv": tail, "h": h[:, -1, :]}
     return out
+
+
+def _rglru_split(layer: "RGLRU", x, view):
+    """:func:`rglru_apply` on ``view``'s rank's ``d_rnn / n`` channels
+    (the module's note): ``x`` replicated along ``model``, the output the
+    whole ``(B, L, d)`` on every rank."""
+    mesh, md = view.mesh, view.mesh_dim
+    x = layout.copy_in(x, mesh, md)
+    gate = _gelu(layer.gate_proj(x))
+    u = _causal_conv(*layer.conv.weights(x.dtype), layer.x_proj(x))
+    pre = layout.reduce_scatter_dim(torch.stack([layer.rg_w(u),
+                                                 layer.in_w(u)]), -1,
+                                    mesh, md)
+    a, gated = _rglru_gates(layer, u, pre)
+    h = _rglru_scan(a, gated)
+    return layer.out_proj.row(h.to(x.dtype) * gate, view)
 
 
 def init_rglru_state(cfg, batch: int,

@@ -33,14 +33,15 @@ the backward, in the same order on every rank.
 
 **Tensor-parallel training** (``models.shardlib``): the residual stream
 is replicated along ``model``; each unit copies its input in where it
-splits (``attention``, ``ffn``, ``moe``).  :func:`block_apply` gathers
-the block's parameters over the batch mesh dims when the block runs
-(``shardlib.gathered``), so under remat the gather sits inside the
-recomputed region and ``full`` keeps no gathered weight between the
-forward and the backward.  :func:`block_tp_plan` gives each unit of a
-block its mode and each leaf its gather; the sublayers of
-:data:`GATHERED_OVER_MODEL` keep gather-at-use over ``model`` (their
-compute repeats on every ``model`` rank).
+splits (``attention``, ``ffn``, ``moe``, the ``ssm`` mixer and the
+``rec`` block).  :func:`block_apply` gathers the block's parameters over
+the batch mesh dims when the block runs (``shardlib.gathered``), so
+under remat the gather sits inside the recomputed region and ``full``
+keeps no gathered weight between the forward and the backward.
+:func:`block_tp_plan` gives each unit of a block its mode and each leaf
+its gather.  A recurrent mixer always splits: where the partitioner's
+cuts do not fit its split (a count that ``model`` does not divide) the
+plan raises.
 """
 from __future__ import annotations
 
@@ -60,8 +61,7 @@ from repro_torch.models.layers import RMSNorm, rmsnorm_spec
 from repro_torch.models.moe import MoE, moe_apply, moe_spec
 
 __all__ = ["layer_kinds", "block_spec", "block_apply", "stack_spec",
-           "stack_apply", "init_block_cache", "Block", "block_tp_plan",
-           "GATHERED_OVER_MODEL"]
+           "stack_apply", "init_block_cache", "Block", "block_tp_plan"]
 
 _KINDS = ("attn", "attn_local", "moe", "ssm", "rec", "enc_attn", "dec_attn")
 
@@ -228,18 +228,6 @@ def _block_apply(block: Block, cfg, kind: str, x, positions, *, mode: str,
 
 
 # ----------------------------------------------------- tensor parallel
-# The sublayers that keep gather-at-use over ``model`` in tensor-parallel
-# training: each rank gathers their leaves whole and repeats their compute
-# on its rows (a cut leaf's gradient is this rank's slice of its own).
-# The block's norms and FFN are tensor-parallel as in any block.
-GATHERED_OVER_MODEL = {
-    "mixer": "ssm (Mamba-2): in_proj's columns concatenate z, x, B, C and "
-             "dt; the reference's cut of them gives a rank slices of all "
-             "five, which the SSD scan over heads would need rearranged",
-    "rec": "rec (RG-LRU): the conv, gates and scan run on d_rnn channels "
-           "that rg_w and in_w mix (mlp x mlp2); a split scan needs the "
-           "gates' rows and columns cut alike",
-}
 
 
 def _expect(view, leaves: Dict[str, Optional[int]], what: str):
@@ -274,8 +262,10 @@ def _attn_plan(layer, prefix, view, mode, modes, classes):
             want[f"{prefix}/{name}/kernel"] = None
     _expect(view, want, f"{prefix} attention in mode {mode!r}")
     for k in names:
+        # repeat's k and v: whole where model leaves them whole, else the
+        # rank's columns (their products gathered over model)
         whole = isinstance(layer, attn_mod.GQA) and mode == "repeat" \
-            and k.split("/")[-2] in ("k", "v")
+            and k.split("/")[-2] in ("k", "v") and view.cuts.get(k) is None
         classes[k] = "whole" if whole else "split"
 
 
@@ -311,6 +301,37 @@ def _moe_plan(layer: MoE, prefix, view, modes, classes):
         _ffn_plan(layer.shared, f"{prefix}/shared", view, modes, classes)
 
 
+def _mixer_plan(layer, prefix, view, modes, classes):
+    """Mode ``split`` for a Mamba-2 mixer or an RG-LRU block
+    (``models.recurrent``): ``model`` must cut each leaf as the rules
+    place it (``mlp`` and ``conv_ch`` over ``model``; ``ssm_heads``,
+    ``mlp2`` and ``norm`` whole) and divide Mamba-2's SSD heads, else
+    this raises.  The cut leaves are ``split``; the whole ones that a
+    rank reads in part (Mamba-2's per-head leaves, its norm's scale)
+    ``whole``."""
+    if isinstance(layer, rec_mod.Mamba2):
+        cut = {"in_proj/kernel": 1, "conv/w": 1, "conv/b": 0,
+               "out_proj/kernel": 0}
+        whole = ("dt_bias", "a_log", "d_skip", "out_norm/scale")
+        what = "ssm (Mamba-2) mixer"
+        heads = layer.dt_bias.shape[0]
+        if heads % view.size:
+            raise ValueError(f"{prefix}: {heads} SSD heads do not divide "
+                             f"over a model axis of {view.size}")
+    else:
+        cut = {"gate_proj/kernel": 1, "x_proj/kernel": 1, "conv/w": 1,
+               "conv/b": 0, "rg_w/kernel": 0, "in_w/kernel": 0, "lam": 0,
+               "out_proj/kernel": 0}
+        whole = ()
+        what = "rec (RG-LRU) block"
+    want = dict(cut, **dict.fromkeys(whole))
+    _expect(view, {f"{prefix}/{k}": d for k, d in want.items()},
+            f"{prefix} {what} on a model axis of {view.size}")
+    modes[id(layer)] = "split"
+    for keys, cls in ((cut, "split"), (whole, "whole")):
+        classes.update({f"{prefix}/{k}": cls for k in keys})
+
+
 def block_tp_plan(block: Block, view, prefix: str, attn_mode: str,
                   modes: Dict[int, str], classes: Dict[str, str]):
     """Fill ``modes`` (``id(unit)`` → mode) and ``classes`` (leaf key →
@@ -322,6 +343,10 @@ def block_tp_plan(block: Block, view, prefix: str, attn_mode: str,
         if hasattr(block, name):
             _attn_plan(getattr(block, name), f"{prefix}/{name}", view,
                        attn_mode, modes, classes)
+    for name in ("mixer", "rec"):
+        if hasattr(block, name):
+            _mixer_plan(getattr(block, name), f"{prefix}/{name}", view,
+                        modes, classes)
     if hasattr(block, "ffn"):
         if isinstance(block.ffn, MoE):
             _moe_plan(block.ffn, f"{prefix}/ffn", view, modes, classes)

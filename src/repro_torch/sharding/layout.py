@@ -44,6 +44,10 @@ are never DTensors):
   backward takes this rank's slice (replicated compute reads the whole)
   or, with ``grad="sum"``, reduce-scatters (split compute reads it);
 * :func:`split_dim`  — this rank's slice forward, ``all_gather`` backward;
+* :func:`reduce_scatter_dim` — the sum over the group, this rank's slice
+  along a tensor dim forward (``reduce_scatter``), ``all_gather``
+  backward: each rank's partial sums of a whole, which split compute
+  then reads in slices;
 * :func:`all_reduce_max` — an elementwise maximum over the group (no
   gradient).
 
@@ -67,7 +71,8 @@ __all__ = ["Collective", "collective_log", "record_collective",
            "gather_at_use", "gather_local_at_use", "gather_rows",
            "reduce_to_local", "all_reduce_over", "relayout", "is_dtensor",
            "sharded_mesh_dims", "replicas", "select", "copy_in",
-           "reduce_out", "gather_dim", "split_dim", "all_reduce_max"]
+           "reduce_out", "gather_dim", "split_dim", "reduce_scatter_dim",
+           "all_reduce_max"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -402,6 +407,18 @@ class _SplitDim(torch.autograd.Function):
             None
 
 
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, d, mesh, mesh_dim):
+        ctx.meta = (d, mesh, mesh_dim)
+        return _reduce_scatter_dim(x, d, mesh, mesh_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d, mesh, mesh_dim = ctx.meta
+        return _all_gather_dim(grad, d, mesh, mesh_dim), None, None, None
+
+
 def copy_in(x: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``mesh_dim``'s group (the
     ranks each hold part of it)."""
@@ -436,6 +453,18 @@ def split_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int) -> torch.Tensor:
                          f"split into {n}")
     return _SplitDim.apply(x, d % x.dim(), mesh, mesh_dim,
                            _rank(mesh, mesh_dim))
+
+
+def reduce_scatter_dim(x: torch.Tensor, d: int, mesh, mesh_dim: int
+                       ) -> torch.Tensor:
+    """This rank's slice along tensor dim ``d`` of the sum of ``x`` over
+    ``mesh_dim``'s group (each rank's ``x`` a partial sum of the whole);
+    the backward all-gathers the slices' gradients."""
+    n = mesh.size(mesh_dim)
+    if x.shape[d] % n:
+        raise ValueError(f"dim {d} of a {tuple(x.shape)} tensor does not "
+                         f"split into {n}")
+    return _ReduceScatterDim.apply(x, d % x.dim(), mesh, mesh_dim)
 
 
 def all_reduce_max(t: torch.Tensor, mesh, mesh_dim: int) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.configs import get_smoke
 from repro_torch.core.formats import ShardedRgCSR
 from repro_torch.core.spmv import spmm, spmv
 from repro_torch.kernels import (autotune, launch_counts, ops,
@@ -161,7 +162,6 @@ def warm(rank, world, mats):
     ranks, then again on a ``("data", "model")`` mesh of (2, world/2),
     under the reference's deterministic cost model."""
     from _torch_parity import autotune_cost
-    from repro_torch.configs import get_smoke
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.sharding import Partitioner
     autotune.time_us = lambda run, plan, cfg, **kw: (run(plan, cfg),
@@ -188,7 +188,6 @@ def warm(rank, world, mats):
 def sharded_cfg(arch="granite-3-2b", sparse=True):
     """``arch``'s smoke config in fp32, with the launchers' RgCSR FFN
     (``--sparse-ffn``, the segment sum) when ``sparse``."""
-    from repro_torch.configs import get_smoke
     from repro_torch.configs.base import SparsityConfig
     cfg = dataclasses.replace(get_smoke(arch), dtype="float32",
                               kv_cache_dtype="float32")
@@ -403,6 +402,8 @@ def restore_ranks(rank, world, ref_dir, port_dir, mesh_shape, axes):
 # ------------------------------------------------- tensor-parallel training
 
 
+# mamba2's SSD heads in the TP cases: d_inner 128 in heads of 16
+MAMBA2_SSM = dataclasses.replace(get_smoke("mamba2-780m").ssm, head_dim=16)
 # case → (arch, RgCSR FFN, mesh shape, optimizer, config overrides): every
 # case trains with act_shard on, each rank computing its model slice; the
 # attention mode each resolves is "heads" or TP_MODES's.  Adam's eps is
@@ -433,15 +434,29 @@ TP_CASES = {
                                    "adamw", {"n_heads": 6}),
     "deepseek-v3-671b": ("deepseek-v3-671b", False, (2, 2), "adafactor",
                          {}),
-    "mamba2-780m": ("mamba2-780m", False, (2, 2), "adamw", {}),
+    # 8 SSD heads of 16 (d_inner 128): four a rank on (2, 2); on (1, 4)
+    # two a rank, and chunks of 8 so that SEQ spans two of them (the state
+    # that crosses a chunk boundary is the rank's heads' alone)
+    "mamba2-780m": ("mamba2-780m", False, (2, 2), "adamw",
+                    {"ssm": MAMBA2_SSM}),
+    "mamba2-780m/1x4": ("mamba2-780m", False, (1, 4), "adamw",
+                        {"ssm": dataclasses.replace(MAMBA2_SSM, chunk=8)}),
     "recurrentgemma-9b": ("recurrentgemma-9b", True, (2, 2), "adamw", {}),
 }
-# (mamba2's smoke config has one head: "seq", which no layer of it reads)
+# (mamba2's smoke config has one attention head: "seq", which no layer of
+# it reads)
 TP_MODES = {"granite-3-2b/1x4": "repeat", "granite-3-2b/6heads": "seq",
             "minicpm3-4b/6heads": "seq", "seamless-m4t-medium/6heads": "seq",
-            "recurrentgemma-9b": "repeat", "mamba2-780m": "seq"}
+            "recurrentgemma-9b": "repeat", "mamba2-780m": "seq",
+            "mamba2-780m/1x4": "seq"}
 # the cases whose parameter gathers the spy holds to the placements
-TP_SPIED = ("granite-3-2b", "granite-3-2b/rgcsr", "granite-moe-1b-a400m")
+TP_SPIED = ("granite-3-2b", "granite-3-2b/rgcsr", "granite-3-2b/1x4",
+            "granite-moe-1b-a400m", "mamba2-780m", "mamba2-780m/1x4",
+            "recurrentgemma-9b")
+# each recurrent mixer split against itself whole (launch.steps.mixer_gaps)
+# on layer 0: (TP_CASES case, mesh shape)
+MIXER_CASES = (("mamba2-780m", (2, 2)), ("mamba2-780m/1x4", (1, 4)),
+               ("recurrentgemma-9b", (2, 2)), ("recurrentgemma-9b", (1, 4)))
 TP_EPS = 1e-5
 TP_STEPS, TP_MICRO = 3, 2
 
@@ -508,7 +523,8 @@ def region_checks(mesh, mesh_dim):
     """Each of ``layout``'s region operators over ``mesh_dim``, forward and
     backward, on inputs and upstream gradients that name the rank ``r``:
     x = arange(6).reshape(2, 3) + 10 r, upstream 1 + r (or, for the
-    gathers, arange over the output + 100 r)."""
+    gathers, arange over the output + 100 r; for the reduce-scatter x =
+    arange(4 n).reshape(2, 2 n) + 10 r, upstream arange(4) + 100 r)."""
     from repro_torch.sharding import layout
     r, n = mesh.get_coordinate()[mesh_dim], mesh.size(mesh_dim)
     out = {}
@@ -531,6 +547,9 @@ def region_checks(mesh, mesh_dim):
     run("split", lambda x: layout.split_dim(x, 1, mesh, mesh_dim),
         torch.arange(4.0 * n).reshape(2, 2 * n),
         lambda y: torch.full_like(y, 1.0 + r))
+    run("reduce_scatter", lambda x: layout.reduce_scatter_dim(
+        x, 1, mesh, mesh_dim), torch.arange(4.0 * n).reshape(2, 2 * n)
+        + 10 * r, lambda y: torch.arange(4.0).reshape(2, 2) + 100 * r)
     out["max"] = layout.all_reduce_max(base, mesh, mesh_dim).numpy()
     return {"rank": r, "n": n, "ops": out}
 
@@ -580,14 +599,42 @@ def tp_ranks(rank, world, device="cpu", cases=None):
         res["params"] = {k: v for k, v in whole.items()
                          if k.startswith("params/")} if rank == 0 else None
         out[case] = res
+    out["mixers"] = mixer_checks(meshes, device)
+    return out
+
+
+def mixer_checks(meshes, device="cpu"):
+    """Each ``MIXER_CASES`` mixer split against itself whole on its mesh
+    (``meshes``: shape → (mesh, partitioner)): ``launch.steps.mixer_gaps``
+    of layer 0 on an input and upstream gradient drawn from seed 0, the
+    same on every rank."""
+    from repro_torch.launch.steps import mixer_gaps
+    from repro_torch.sharding import Partitioner
+    out = {}
+    for case, shape in MIXER_CASES:
+        if shape not in meshes:
+            mesh = make_mesh(shape, ("data", "model"),
+                             device_type=torch.device(device).type)
+            meshes[shape] = (mesh, Partitioner(mesh, "train"))
+        mesh, part = meshes[shape]
+        tr = tp_trainer(case, device, mesh=mesh, partitioner=part)
+        tr.init_state(seq_len=SEQ, global_batch=BATCH)
+        gen = torch.Generator().manual_seed(0)
+        d = tr.model_cfg.d_model
+        x, up = (torch.randn(2, SEQ, d, generator=gen).to(device)
+                 for _ in range(2))
+        out[case, shape] = mixer_gaps(tr.model, part, "layers/0", x, up)
     return out
 
 
 # --------------------------------------------------------------- dry run
 
 # the dry run's (2, 2) check: case → (arch, RgCSR FFN); micro=2, AdamW
+# (the recurrent ones are chip_smoke.py phase 16 (h)'s two models)
 DRYRUN_CASES = {"granite-3-2b": ("granite-3-2b", True),
-                "granite-moe-1b-a400m": ("granite-moe-1b-a400m", False)}
+                "granite-moe-1b-a400m": ("granite-moe-1b-a400m", False),
+                "mamba2-780m": ("mamba2-780m", False),
+                "recurrentgemma-9b": ("recurrentgemma-9b", True)}
 DRYRUN_MICRO = 2
 
 

@@ -12,8 +12,9 @@ a jitted smoke train step under remat ``none`` and ``full``), the
 counter against ``FlopCounterMode`` and ``MemTracker``.  Then the core
 check: rank 0 of a fake (2, 2) mesh against rank 0 of four spawned gloo
 ranks (``tests/_torch_dist.py``, ``dryrun_ranks``), the same
-tensor-parallel step: FLOPs and collective calls and bytes by kind and
-mesh axis equal exactly.  Last, one production cell in a subprocess.
+tensor-parallel step of granite-3-2b, granite-moe, mamba2-780m and
+recurrentgemma-9b (their mixers split): FLOPs and collective calls and
+bytes by kind and mesh axis equal exactly.  Last, one production cell in a subprocess.
 """
 import ast
 import dataclasses

@@ -11,15 +11,19 @@ two kv heads), a six-head variant (``seq``), nemotron-4-15b (an untied,
 column-parallel head), granite-moe (AdamW, also under remat ``dots``),
 minicpm3-4b (MLA; six heads on (1, 4): MLA's ``seq``),
 seamless-m4t-medium (cross attention; six heads: ``seq``), deepseek-v3
-(Adafactor: MLA + MoE + MTP), and mamba2-780m and recurrentgemma-9b on
-their recurrent mixers' gather path — three steps of ``micro=2`` each,
-held within rtol = atol = 1e-5 of one device (losses, ``grad_norm``,
-parameters, and a MoE model's routing statistics after them).  A spy on the step's parameter
-gathers shows that no parameter crosses the ``model`` group and that each
-rank gathers micro × Σ numel / (the leaf's model shards) elements a step.
-In process: the port's ``resolve_attn_shard_mode`` is the reference's on
-all ten configs, an explicit mode that does not divide raises, and no
-module of the port redistributes a DTensor or imports functional
+(Adafactor: MLA + MoE + MTP), mamba2-780m on (2, 2) and (1, 4) (its SSD
+heads split) and recurrentgemma-9b (its RG-LRU channels split; its local
+attention ``repeat``) — three steps of ``micro=2`` each, held within
+rtol = atol = 1e-5 of one device (losses, ``grad_norm``, parameters, and
+a MoE model's routing statistics after them).  A spy on the step's
+parameter gathers shows that no parameter crosses the ``model`` group and
+that each rank gathers micro × Σ numel / (the leaf's model shards)
+elements a step.  In the same ranks each recurrent mixer, split, matches
+itself whole (output and every gradient) on (2, 2) and (1, 4).  In
+process: the port's ``resolve_attn_shard_mode`` is the reference's on
+all ten configs, an explicit mode that does not divide raises, so does a
+recurrent mixer whose heads or channels ``model`` does not divide, and
+no module of the port redistributes a DTensor or imports functional
 collectives.
 """
 import ast
@@ -30,8 +34,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import (BATCH, SEQ, TP_CASES, TP_MODES, TP_SPIED, TP_STEPS,
-                         routing_stats, run_ranks, tp_ranks, tp_trainer)
+from _torch_dist import (BATCH, MIXER_CASES, SEQ, TP_CASES, TP_MODES,
+                         TP_SPIED, TP_STEPS, routing_stats, run_ranks,
+                         tp_ranks, tp_trainer)
 
 from repro.configs import get_config as ref_get_config
 from repro_torch.configs import get_config, get_smoke
@@ -89,6 +94,48 @@ def test_an_explicit_mode_that_does_not_divide_raises():
             cfg, attn_shard_mode="rows"), 2)
 
 
+def _plan_on(cfg, shape):
+    """``LanguageModel.tensor_parallel_plan`` of ``cfg`` (on meta) on rank
+    0 of a duck (data, model) mesh of ``shape``, its cuts the
+    partitioner's."""
+    import types
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import Partitioner
+    from repro_torch.sharding.partitioner import (TensorParallelView,
+                                                  _flat_specs, _model_cut)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                 shape=shape)
+    model = LanguageModel(cfg, device="meta")
+    specs = _flat_specs(Partitioner(mesh, "train").param_specs(model.spec()))
+    view = TensorParallelView(
+        mesh=mesh, mesh_dim=1, size=shape[1], rank=0, group=None,
+        batch_dims=(0,), cuts={k: _model_cut(s) for k, s in specs.items()})
+    return model.tensor_parallel_plan(view)
+
+
+@pytest.mark.parametrize("arch,over,what", [
+    ("mamba2-780m", {}, None),
+    ("recurrentgemma-9b", {}, None),
+    # d_inner 96 in heads of 16
+    ("mamba2-780m", {"d_model": 48}, "6 SSD heads do not divide"),
+    ("recurrentgemma-9b", {"d_model": 66}, "rec .RG-LRU. block"),
+])
+def test_a_mixer_that_does_not_divide_raises(arch, over, what):
+    """The recurrent mixers split on a model axis of 4 where it divides
+    their SSD heads (Mamba-2) or ``d_rnn`` channels (RG-LRU), and the plan
+    raises where it does not."""
+    cfg = dataclasses.replace(get_smoke(arch), **over)
+    if what is None:
+        modes, classes = _plan_on(cfg, (1, 4))
+        assert "split" in modes.values()
+        assert classes["layers/0/" + ("mixer/in_proj/kernel"
+                                      if arch == "mamba2-780m"
+                                      else "rec/rg_w/kernel")] == "split"
+        return
+    with pytest.raises(ValueError, match=what):
+        _plan_on(cfg, (1, 4))
+
+
 def test_the_port_never_redistributes_a_dtensor():
     """No ``redistribute``, ``full_tensor`` or functional collective in any
     module of the port: its data moves through plain ``torch.distributed``
@@ -137,9 +184,10 @@ def ranks(tmp_path_factory):
 
 
 def test_region_operators(ranks):
-    """copy_in, reduce_out, gather_dim (slice and sum backward), split_dim
-    and all_reduce_max over the (2, 2) mesh's model group: each forward
-    and backward as the operator promises, on every rank."""
+    """copy_in, reduce_out, gather_dim (slice and sum backward), split_dim,
+    reduce_scatter_dim and all_reduce_max over the (2, 2) mesh's model
+    group: each forward and backward as the operator promises, on every
+    rank."""
     for res in ranks:
         reg = res["regions"]
         r, n, ops = reg["rank"], reg["n"], reg["ops"]
@@ -165,6 +213,13 @@ def test_region_operators(ranks):
         np.testing.assert_array_equal(y, x[:, 2 * r:2 * r + 2])
         np.testing.assert_array_equal(g, np.concatenate(
             [np.full((2, 2), 1.0 + k) for k in range(n)], axis=1))
+        x = lambda k: np.arange(4.0 * n).reshape(2, 2 * n) + 10 * k  # noqa
+        y, g = ops["reduce_scatter"]
+        np.testing.assert_array_equal(
+            y, sum(x(k) for k in range(n))[:, 2 * r:2 * r + 2])
+        np.testing.assert_array_equal(g, np.concatenate(
+            [np.arange(4.0).reshape(2, 2) + 100 * k for k in range(n)],
+            axis=1))
         np.testing.assert_array_equal(ops["max"], base(n - 1))
 
 
@@ -218,3 +273,20 @@ def test_each_rank_gathers_its_slices_not_wholes(ranks, case):
         got = res[case]
         assert got["on_model"] == []
         assert got["gathered"] == got["predicted"] > 0
+
+
+@pytest.mark.parametrize("case,shape", MIXER_CASES)
+def test_a_split_mixer_matches_itself_whole(ranks, case, shape):
+    """Layer 0's mixer split over ``model`` against the same mixer whole,
+    on every rank: the output, x's gradient and every leaf's gradient
+    (the rank's slice of a cut leaf's), measured against the float64
+    whole's largest value: the float64 split within 1e-12 (the same
+    function), the float32 split within 1e-5 of the float32 whole's own
+    rounding."""
+    for res in ranks:
+        gaps = res["mixers"][case, shape]
+        assert len(gaps) >= 9
+        bad = {k: v for k, v in gaps.items() if not (
+            v["exact"] <= 1e-12 and v["split"] <= v["whole"] + 1e-5)}
+        assert not bad, bad
+        assert all(v["whole"] > 0 for v in gaps.values())
