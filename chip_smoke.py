@@ -365,8 +365,38 @@ the card's memory):
    collective log); the predicted peak a rank beside the measured one;
    the roofline's lower bound not above the fastest measured step.  (c)
    The same for phase 10's one-device granite-3-2b step (peak and step
-   time from phase 10 (b)); grep ``^dryrun``;
-20. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
+   time from phase 10 (b)).  (d) Phase 20's granite-3-2b serving cell on
+   a fake (2, 2) mesh (``launch/dryrun.py::serve_cost``): its prefill's
+   and a decode step's collective bytes on rank 0, by kind and mesh
+   axis, equal to what phase 20's gloo rank 0 moved, exactly; grep
+   ``^dryrun``;
+20. serve20, serving on a mesh (``launch.steps.make_prefill_step`` /
+   ``make_decode_step`` with ``partitioner=``), in phase 16 (h)'s spawn
+   after its training runs (the same four gloo ranks sharing cuda:0 on
+   a (2, 2) ``("data", "model")`` mesh; one-device runs in this process
+   before the spawn), checked here after phase 19: granite-3-2b at full
+   width (d_model 2,048, 32 heads / 8 kv of 64, vocab 49,155), depth cut
+   to ``SERVE20_LAYERS`` = 2, the RgCSR FFN through K2 on each rank's
+   64-lane plan (``impl="kernel"``), fp32 (caches too): a prefill of
+   ``SERVE20_BATCH`` × ``SERVE20_PROMPT`` = 4 × 128 tokens and
+   ``SERVE20_STEPS`` = 8 decode steps fed the one-device greedy tokens;
+   each rank's rows of the logits within 1e-4 · (1 + max|logit|) of
+   ``make_prefill_step`` / ``make_decode_step`` on one device, its greedy
+   tokens equal under the margin rule, its cache slices (after the
+   prefill and after the last step) within 1e-4 of the matching slices
+   of the one-device caches; K2's counter, set to 0 just before and read
+   just after, at exactly layers × (1 + steps) on every rank and one
+   lane plan a layer; each rank's lane plan against K2's plain version
+   (fp32 1e-5, bf16 3e-2) at the prefill's d = 2 · 128 and a decode
+   step's d = 2.  On the same ranks mamba2-780m (2 layers) and
+   recurrentgemma-9b (``rec``, ``rec``, K2 lanes) at full width: a
+   prefill of 4 × 32 tokens and 4 decode steps with their states split
+   (``ssm`` over heads, ``conv`` over channels, ``h`` over ``d_rnn``),
+   held the same way.  Then, with the card to this process, K2 on rank
+   0's lane plan (64 of 128 lanes) of granite's ``w_out`` at both widths
+   beside its bound, its plain version and the CSR call; grep
+   ``^serve20``;
+21. a ``{"kernels": [...]}`` line, the card's name and power limit, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Every tolerance ``tol`` above is applied per output element as
@@ -490,12 +520,20 @@ TRAIN16_MOE_LAYERS, TRAIN16_MOE_TOL = 2, 1e-5
 # cut to TRAIN16H_RG_LAYERS (its pattern's prefix, rec and rec); each
 # layer-0 mixer split against whole within TRAIN16H_UNIT_TOL, each rank's
 # peak within the dry run's prediction + TRAIN16H_PEAK_SLACK
-TRAIN16H_MAMBA_LAYERS, TRAIN16H_RG_LAYERS, TRAIN16H_DEADLINE_S = 8, 2, 240
+TRAIN16H_MAMBA_LAYERS, TRAIN16H_RG_LAYERS, TRAIN16H_DEADLINE_S = 4, 2, 360
 TRAIN16H_UNIT_TOL, TRAIN16H_PEAK_SLACK = 1e-5, 0.10
 # (h)'s Adam eps, as the tensor-parallel parity tests run it: at 1e-8 an
 # element whose gradient is rounding noise (~1e-7) takes a first update of
 # ~lr whose sign follows that noise, and later steps part from one device
 TRAIN16H_EPS = 1e-5
+# phase 20: serving on TRAIN16_MESH in phase 16 (h)'s ranks: granite-3-2b
+# at full width cut to SERVE20_LAYERS with K2 on each rank's lanes, a
+# prefill of SERVE20_BATCH x SERVE20_PROMPT tokens and SERVE20_STEPS decode
+# steps; mamba2-780m (SERVE20_LAYERS) and recurrentgemma-9b (rec, rec), a
+# prefill of SERVE20_BATCH x SERVE20_REC_PROMPT and SERVE20_REC_STEPS
+# steps; logits and caches within MAIN_TOL of one device
+SERVE20_LAYERS, SERVE20_BATCH, SERVE20_PROMPT, SERVE20_STEPS = 2, 4, 128, 8
+SERVE20_REC_PROMPT, SERVE20_REC_STEPS = 32, 4
 # phase 17: one train step of phase 16's granite-3-2b on one device under
 # each remat, TRAIN17_BATCH x TRAIN17_SEQ tokens, after a warm step
 TRAIN17_BATCH, TRAIN17_SEQ, TRAIN17_TOL = 4, 256, 1e-6
@@ -2159,11 +2197,14 @@ def _spy_model_gathers(model_ranks):
         steps._Binding.gather, layout.dist = gather, dist_mod
 
 
-def recurrent_rank(rank, world, tmp, timeout_s, device, mamba_kw, rec_kw):
+def recurrent_rank(rank, world, tmp, timeout_s, device, mamba_kw, rec_kw,
+                   serve_kw=None):
     """Phase 16 (h) on rank ``rank`` of ``world`` ranks sharing the card
     over gloo, spawned by :func:`recurrent_tp_phase`: each run of
     :func:`_recurrent_runs` in turn, its memory released before the
-    next; writes its results to ``tmp/rec<rank>.json``."""
+    next, then phase 20's serving runs (:func:`serve20_rank`; ``serve_kw``
+    narrows granite in a CPU rehearsal); writes its results to
+    ``tmp/rec<rank>.json``."""
     import datetime
     sys.path.insert(0, str(ROOT / "src"))
     import torch
@@ -2229,6 +2270,8 @@ def recurrent_rank(rank, world, tmp, timeout_s, device, mamba_kw, rec_kw):
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         out["phase_s"] = time.perf_counter() - t0
+        out["serve20"] = serve20_rank(mesh, dev, Path(tmp), _serve20_runs(
+            serve_kw, mamba_kw, rec_kw), say)
     finally:
         dist.destroy_process_group()
     with open(Path(tmp) / f"rec{rank}.json", "w") as f:
@@ -2390,12 +2433,14 @@ def _recurrent_compare(ranks, want, pred, failures, world, tag):
 
 
 def recurrent_tp_phase(dev, failures, tag, procs, dry_tmp, mamba_kw=None,
-                       rec_kw=None):
+                       rec_kw=None, serve_kw=None):
     """Phase 16 (h), the recurrent mixers tensor-parallel on a
     ``TRAIN16_MESH`` mesh of gloo ranks sharing the card, a spawn of its
     own after phase 16's (see the module's note); ``procs``/``dry_tmp``:
     :func:`start_dryruns`'s, whose ``h`` run predicts the ranks'
-    memory and collectives."""
+    memory and collectives.  The same ranks then run phase 20's serving
+    (its one-device runs here first): returns ``(phase 20's one-device
+    results, each rank's phase 20 results)``, None where it failed."""
     import torch
     from repro_torch.models.transformer import layer_kinds
     from repro_torch.train.trainer import Trainer
@@ -2425,32 +2470,39 @@ def recurrent_tp_phase(dev, failures, tag, procs, dry_tmp, mamba_kw=None,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    pred = _await_dryrun(procs, dry_tmp, "h")
-    if pred is None:
-        failures.append("train16 (h): no dry run")
-        return
-    log(f"train16 (h) dry run of the runs on a fake {TRAIN16_MESH} rank 0 "
-        f"in {sum(v['seconds'] for v in pred.values()):.1f} s")
-    if not _memory_plan(dev, pred, world, failures, tag):
-        return
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train16h_"))
-    # the ranks' allocator grows its segments in place: four full-width
-    # ranks share one card
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         t1 = time.perf_counter()
+        serve_ref = serve20_reference(dev, tmp, _serve20_runs(
+            serve_kw, mamba_kw, rec_kw))
+        log(f"serve20 one-device runs in {time.perf_counter() - t1:.1f} s;"
+            f" {card_memory()}")
+        pred = _await_dryrun(procs, dry_tmp, "h")
+        if pred is None:
+            failures.append("train16 (h): no dry run")
+            return None, None
+        log(f"train16 (h) dry run of the runs on a fake {TRAIN16_MESH} "
+            f"rank 0 in {sum(v['seconds'] for v in pred.values()):.1f} s")
+        if not _memory_plan(dev, pred, world, failures, tag):
+            return None, None
+        # the ranks' allocator grows its segments in place: four
+        # full-width ranks share one card
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        t1 = time.perf_counter()
         err = _spawn_ranks(recurrent_rank, world, tmp, TRAIN16H_DEADLINE_S,
-                           (SHARD_TIMEOUT_S, device, mamba_kw, rec_kw))
+                           (SHARD_TIMEOUT_S, device, mamba_kw, rec_kw,
+                            serve_kw))
         log(f"train16 (h) the ranks in {time.perf_counter() - t1:.1f} s")
         if err:
             failures.append(f"train16 (h) ranks: {err}")
-            return
+            return None, None
         ranks = []
         for r in range(world):
             with open(tmp / f"rec{r}.json") as f:
                 ranks.append(json.load(f))
         _recurrent_compare(ranks, want, pred, failures, world, tag)
+        return serve_ref, [r["serve20"] for r in ranks]
     finally:
         if conf is None:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
@@ -2458,6 +2510,399 @@ def recurrent_tp_phase(dev, failures, tag, procs, dry_tmp, mamba_kw=None,
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
         shutil.rmtree(tmp, ignore_errors=True)
         log(f"phase 16 (h) in {time.perf_counter() - th:.1f} s")
+
+
+# ------------------------------------------- phase 20: serving on a mesh
+
+
+def _serve20_runs(cfg_kw=None, mamba_kw=None, rec_kw=None):
+    """``(name, config, prompt, steps)`` of phase 20's runs, tensor-parallel
+    in float32 (caches too): granite-3-2b at full width cut to
+    ``SERVE20_LAYERS`` with the RgCSR FFN through K2, then phase 16 (h)'s
+    two recurrent models, mamba2-780m cut to ``SERVE20_LAYERS`` and
+    recurrentgemma-9b (``rec``, ``rec``) with K2 lanes (``*_kw``: a CPU
+    rehearsal's narrow models)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SparsityConfig
+    k2 = SparsityConfig(**SERVE_SPARSITY)
+    granite = dataclasses.replace(get_config(SERVE_ARCH), **dict(dict(
+        n_layers=SERVE20_LAYERS, sparsity=k2, act_shard=True,
+        dtype="float32", kv_cache_dtype="float32"), **(cfg_kw or {})))
+    mamba, rg = _recurrent_cfgs(mamba_kw, rec_kw)
+    mamba = dataclasses.replace(mamba, n_layers=SERVE20_LAYERS,
+                                act_shard=True)
+    rg = dataclasses.replace(rg, sparsity=k2, act_shard=True)
+    return (("granite", granite, SERVE20_PROMPT, SERVE20_STEPS),
+            ("mamba2", mamba, SERVE20_REC_PROMPT, SERVE20_REC_STEPS),
+            ("recurrentgemma", rg, SERVE20_REC_PROMPT, SERVE20_REC_STEPS))
+
+
+def serve20_reference(dev, tmp: Path, runs):
+    """Phase 20's one-device runs, in this process before the spawn: each
+    run's prefill and greedy decode steps through ``make_prefill_step`` /
+    ``make_decode_step`` on one device, saved for the ranks under
+    ``tmp`` (the batch, every step's logits, the tokens fed, the caches
+    after the prefill and after the last step); returns each run's top-2
+    margins and largest logits per step and its times.  Each run's
+    memory is released before the next and at the end (16 (h)'s memory
+    plan reads the card after this)."""
+    import torch
+    out = {}
+    for name, cfg, prompt, steps in runs:
+        out[name] = _serve20_one_device(dev, tmp, name, cfg, prompt, steps)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve20_one_device(dev, tmp: Path, name, cfg, prompt, steps):
+    """One run of :func:`serve20_reference` (its tensors die with this
+    call)."""
+    import torch
+    from repro_torch.configs import concrete_inputs
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import LanguageModel
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    model = LanguageModel(cfg, device=dev, seed=SEED)
+    batch = concrete_inputs(cfg, batch=SERVE20_BATCH, seq=prompt,
+                            kind="prefill", seed=SEED, device=dev)
+    s_max = prompt + steps + 1
+    prefill = make_prefill_step(model, s_max, "prefill")
+    decode = make_decode_step(model, "decode")
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        logits, caches = prefill(batch)
+        sync()
+        t_pre = time.perf_counter() - t0
+        # the logits' real columns (the padding's are -1e30); copies of
+        # the caches, which the decode steps write in place
+        saved = {"batch": tree_to(batch, "cpu"),
+                 "logits": [logits[..., :cfg.vocab].cpu()], "tokens": [],
+                 "caches": [_copy_tree(caches)]}
+        margins, peaks, t_dec = [], [], []
+        for _ in range(steps):
+            last = logits[:, -1, :cfg.vocab].float()
+            top2 = torch.topk(last, 2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).min().item())
+            peaks.append(last.abs().max().item())
+            tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+            saved["tokens"].append(tok.cpu())
+            t0 = time.perf_counter()
+            logits, caches = decode(caches, tok)
+            sync()
+            t_dec.append(time.perf_counter() - t0)
+            saved["logits"].append(logits[..., :cfg.vocab].cpu())
+        saved["caches"].append(_copy_tree(caches))
+    torch.save(saved, tmp / f"serve20_{name}.pt")
+    log(f"serve20 {name} one device: prefill {SERVE20_BATCH} x {prompt} "
+        f"in {t_pre * 1e3:.1f} ms, {steps} decode steps "
+        f"{[round(t * 1e3, 2) for t in t_dec]} ms (host, synchronized)")
+    return {"margins": margins, "peaks": peaks, "prefill_s": t_pre,
+            "decode_s": t_dec}
+
+
+def _copy_tree(tree):
+    """A cache tree's tensors copied to the host (a copy on the host too:
+    the decode steps write the caches in place)."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_copy_tree(v) for v in tree]
+    return tree.detach().to("cpu", copy=True)
+
+
+def _flat_tensors(tree, prefix=""):
+    """A cache tree's tensors keyed by path."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat_tensors(v, f"{prefix}{k}/"))
+    return out
+
+
+def serve20_rank(mesh, dev, tmp: Path, runs, say):
+    """Phase 20 on one rank of phase 16 (h)'s spawn: each run of
+    :func:`_serve20_runs` on the mesh, fed the one-device tokens
+    (:func:`serve20_reference`'s file); per run this rank's gaps, token
+    matches, cache gaps, launch counts and lane plans, host times, the
+    prefill's and the last decode step's collective bytes by kind and
+    axis, and its lane plans against K2's plain version."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.rgcsr_spmm import (rgcsr_spmm_launch,
+                                                rgcsr_spmm_plain)
+    from repro_torch.launch import hlo_stats
+    from repro_torch.launch.steps import (_Binding, make_decode_step,
+                                          make_prefill_step,
+                                          shard_for_serving)
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.ffn import SparseLinear
+    from repro_torch.sharding import Partitioner, layout
+    from repro_torch.train.trainer import _attention_on
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    part_p, part_d = Partitioner(mesh, "prefill"), Partitioner(mesh, "decode")
+    out = {}
+    for name, cfg, prompt, steps in runs:
+        t_run = time.perf_counter()
+        ref = torch.load(tmp / f"serve20_{name}.pt")
+        cfg = _attention_on(cfg, mesh)
+        model = shard_for_serving(LanguageModel(cfg, device=dev, seed=SEED),
+                                  part_p, device=dev)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        batch = tree_to(ref["batch"], dev)
+        rows = part_p.batch_shardings(batch)["tokens"].placements()
+        s_max = prompt + steps + 1
+        prefill = make_prefill_step(model, s_max, "prefill",
+                                    partitioner=part_p)
+        decode = make_decode_step(model, "decode", partitioner=part_d)
+
+        def mine(t):
+            return layout.local_chunk(t.to(dev), mesh, rows)
+
+        def gap(got, want):         # the real columns of the vocabulary
+            want = mine(want).float()
+            got = got[..., :cfg.vocab].float()
+            return float((got - want).abs().max()
+                         / (1.0 + want.abs().max()))
+
+        def cache_gap(local, whole):
+            want = _flat_tensors(part_p.local_caches(tree_to(whole, dev)))
+            got = _flat_tensors(local)
+            assert sorted(got) == sorted(want)
+            return max(float((got[k].float() - want[k].float()).abs().max()
+                             / (1.0 + want[k].float().abs().max()))
+                       for k in got if got[k].numel())
+
+        def match(logits, want):
+            return bool(torch.equal(logits[:, -1, :cfg.vocab].argmax(-1),
+                                    mine(want[:, -1].argmax(-1))))
+        sync()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with layout.collective_log() as log_p:
+            logits, caches = prefill(batch)
+        sync()
+        res = {"prefill_s": time.perf_counter() - t0, "decode_s": [],
+               "mode": cfg.attn_shard_mode,
+               "moved_prefill": hlo_stats.moved_bytes(log_p)}
+        res["gaps"] = [gap(logits, ref["logits"][0])]
+        res["match"] = [match(logits, ref["logits"][0])]
+        res["cache_gaps"] = [cache_gap(caches, ref["caches"][0])]
+        for i, tok in enumerate(ref["tokens"]):
+            t0 = time.perf_counter()
+            with layout.collective_log() as log_d:
+                logits, caches = decode(caches, tok.to(dev))
+            sync()
+            res["decode_s"].append(time.perf_counter() - t0)
+            res["gaps"].append(gap(logits, ref["logits"][i + 1]))
+            res["match"].append(match(logits, ref["logits"][i + 1]))
+        res["moved_decode"] = hlo_stats.moved_bytes(log_d)
+        res["counts"] = launch_counts()
+        res["cache_gaps"].append(cache_gap(caches, ref["caches"][1]))
+        res["lane_plans"] = [m.plan_builds for m in model.modules()
+                             if isinstance(m, SparseLinear)]
+        res["lanes"] = {}
+        if res["lane_plans"]:
+            # layer 0's lane plans against K2's plain version, at the
+            # prefill's and a decode step's widths (not on the main path)
+            view = part_p.tensor_parallel(model.spec())
+            binding = _Binding(model, view, True)
+            rows_here = mine(batch["tokens"]).shape[0]
+            gen = torch.Generator().manual_seed(SEED)
+            with torch.no_grad(), binding.step(model.tensors()), \
+                    binding.bind(model.layers[0]):
+                lay = model.layers[0].ffn.w_out
+                for dtype, tol in ((torch.float32, FP32_TOL),
+                                   (torch.bfloat16, BF16_TOL)):
+                    plan = lay.lane_plan(dtype, view)
+                    for d in (rows_here * prompt, rows_here):
+                        x = torch.randn(lay.d_in, d, generator=gen).to(
+                            dev, dtype)
+                        got = rgcsr_spmm_launch(plan, x)
+                        args = (plan.values2d, plan.columns2d,
+                                plan.step_group)
+                        want = rgcsr_spmm_plain(*args, x,
+                                                n_groups=plan.n_groups)
+                        scale = rgcsr_spmm_plain(
+                            plan.values2d.float().abs(), plan.columns2d,
+                            plan.step_group, x.float().abs(),
+                            n_groups=plan.n_groups)
+                        diff = (got.float() - want.float()).abs()
+                        res["lanes"][f"{str(dtype)[6:]} d{d}"] = (
+                            float(diff.max()),
+                            bool((diff <= tol * (1 + scale)).all()),
+                            plan.group_size)
+        res["run_s"] = time.perf_counter() - t_run
+        say(f"serve20 {name}: attention {res['mode']}, prefill "
+            f"{res['prefill_s'] * 1e3:.1f} ms, decode steps "
+            f"{[round(t * 1e3, 1) for t in res['decode_s']]} ms (host, "
+            f"gloo on one card), largest logit gap {max(res['gaps']):.3e},"
+            f" cache gaps {res['cache_gaps']}, K2 launches "
+            f"{res['counts']['rgcsr_spmm']}, lane plans "
+            f"{res['lane_plans']}, lanes {res['lanes']}, in "
+            f"{res['run_s']:.1f} s")
+        out[name] = res
+        del model, caches, logits, prefill, decode, ref
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve20_entries(dev, granite, ranks, tag):
+    """K2 on rank 0's lane plan of granite-3-2b's ``w_out`` (its first
+    ``G/2`` lanes, a layer drawn as the model draws it), with the card to
+    this process: at the prefill's and a decode step's widths a rank,
+    fp32, beside its bound, its plain version and the PyTorch CSR product
+    of the same lanes; kernel entries for the result line."""
+    import torch
+    from repro_torch.kernels.rgcsr_spmm import (rgcsr_spmm_launch,
+                                                rgcsr_spmm_plain)
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models.spec import init_from_spec
+    n = TRAIN16_MESH[1]
+    d_in, d_out = granite.d_ff, granite.d_model
+    params = init_from_spec(ffn_mod.sparse_linear_spec(granite, d_in, d_out),
+                            torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    lanes = granite.sparsity.group_size // n
+    part = {k: (v[:, :lanes].contiguous() if k in ("values2d", "columns2d")
+                else v) for k, v in params.items()}
+    lay = ffn_mod.SparseLinear(part, granite, d_in=d_in, d_out=d_out)
+    view = type("View", (), {"size": n, "rank": 0})()
+    plan = lay.lane_plan(torch.float32, view)
+    live = int(plan.seg_slots.sum()) * 32
+    real = int(((plan.values2d != 0) | (plan.columns2d != 0)).sum())
+    rows = torch.arange(plan.values2d.shape[0], device=dev)
+    grp = plan.step_group.long().repeat_interleave(8)[rows]
+    out_row = (grp[:, None] * lanes + torch.arange(lanes, device=dev)
+               ).reshape(-1)
+    dense = torch.zeros((plan.n_rows, d_in), device=dev)
+    dense.index_put_((out_row, plan.columns2d.reshape(-1).long()),
+                     plan.values2d.reshape(-1), accumulate=True)
+    csr = dense.to_sparse_csr()
+    del dense
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count \
+        if dev.type == "cuda" else 1
+    r0 = ranks[0]["granite"]
+    entries = []
+    rng = np.random.default_rng(SEED)
+    for what, d in (("prefill", SERVE20_BATCH // TRAIN16_MESH[0]
+                     * SERVE20_PROMPT),
+                    ("decode", SERVE20_BATCH // TRAIN16_MESH[0])):
+        x = torch.from_numpy(rng.standard_normal((d_in, d)).astype(
+            np.float32)).to(dev)
+        w = plan.work_list("rgcsr_spmm", n_sm=n_sm, part_bytes=lanes * d * 4)
+        meta = plan.seg_slots.nbytes + w.items.nbytes + w.combine.nbytes
+        nbytes = live * 8 + x.nbytes + plan.n_rows * d * 4 + meta
+        b_ms, b_by = bound(nbytes, 2 * real * d)
+        run = lambda: rgcsr_spmm_launch(plan, x)        # noqa: E731
+        e = {"name": f"rgcsr_spmm@{SERVE_ARCH} w_out lanes {lanes}/"
+                     f"{granite.sparsity.group_size} d{d} fp32 (serve20 "
+                     f"{what}, rank 0 of {TRAIN16_MESH})",
+             "route": "cuda", "source": KERNEL_META["rgcsr_spmm"][0],
+             "replaces": KERNEL_META["rgcsr_spmm"][1],
+             "launches": r0["counts"]["rgcsr_spmm"],
+             "max_abs_err": r0["lanes"][f"float32 d{d}"][0],
+             "ms": card_ms(run, 20, dev, hold=True),
+             "cold_ms": card_ms(run, 20, dev, cold=True),
+             "wait_ms": card_ms(run, 20, dev),
+             "plain_ms": card_ms(lambda: rgcsr_spmm_plain(
+                 plan.values2d, plan.columns2d, plan.step_group, x,
+                 n_groups=plan.n_groups), 2, dev, hold=True),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": card_ms(lambda: csr @ x, 10, dev, hold=True),
+             "library_cold_ms": card_ms(lambda: csr @ x, 10, dev,
+                                        cold=True),
+             "live_slots": live, "real_slots": real}
+        log(f"time {e['name']}: kernel {e['ms']:.4f} ms (cold "
+            f"{e['cold_ms']:.4f}, caller waits {e['wait_ms']:.4f}), plain "
+            f"{e['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {live} "
+            f"live slots, {real} real), csr fp32 {e['library_ms']:.4f} ms "
+            f"(cold {e['library_cold_ms']:.4f}), {e['launches']} launches "
+            f"on rank 0's main path {tag}")
+        entries.append(e)
+    return entries
+
+
+def serve20_phase(dev, failures, tag, ref, ranks, runs, entries):
+    """Phase 20's checks on the ranks' results (the module's note), then
+    K2's times on rank 0's lane plan."""
+    t20 = time.perf_counter()
+    if ref is None or ranks is None:
+        failures.append("serve20: no run (phase 16 (h) failed first)")
+        return
+
+    def fail(ok, what):
+        if not ok:
+            failures.append(f"serve20 {what}")
+        return "ok" if ok else "FAIL"
+    for name, cfg, prompt, steps in runs:
+        res = [r[name] for r in ranks]
+        worst = max(max(x["gaps"]) for x in res)
+        log(f"serve20 {name} on {TRAIN16_MESH} against one device: "
+            f"attention {res[0]['mode']}, the largest gap of a rank's "
+            f"logits over the prefill and {steps} steps {worst:.3e} · (1 + "
+            f"max|logit|) (tol {MAIN_TOL:g}) {tag} "
+            + fail(worst <= MAIN_TOL, f"{name} logits {worst}"))
+        margins, peaks = ref[name]["margins"], ref[name]["peaks"]
+        close = [i for i, (m, p) in enumerate(zip(margins, peaks))
+                 if m < MARGIN_TOL * p]
+        upto = close[0] if close else steps
+        ok = all(all(x["match"][:upto + 1]) for x in res)
+        log(f"serve20 {name} greedy tokens equal on every rank up to step "
+            f"{upto} (the first top-2 margin below {MARGIN_TOL:g} · "
+            f"max|logit| in the one-device run, or the last) "
+            f"{[x['match'] for x in res]} "
+            + fail(ok, f"{name} tokens {[x['match'] for x in res]}"))
+        cg = max(max(x["cache_gaps"]) for x in res)
+        log(f"serve20 {name} cache slices after the prefill and the last "
+            f"step against the one-device caches' slices: largest gap "
+            f"{cg:.3e} (tol {MAIN_TOL:g}) "
+            + fail(cg <= MAIN_TOL, f"{name} caches {cg}"))
+        sparse = cfg.sparsity.enabled
+        want_k2 = cfg.n_layers * (1 + steps) if sparse else 0
+        k2 = [x["counts"]["rgcsr_spmm"] for x in res]
+        others = [x["counts"][k] for x in res for k in x["counts"]
+                  if k != "rgcsr_spmm"]
+        plans = [x["lane_plans"] for x in res]
+        ok = k2 == [want_k2] * len(res) and not any(others) and all(
+            p == [1] * (cfg.n_layers if sparse else 0) for p in plans)
+        log(f"serve20 {name} K2 launches a rank {k2} (want {want_k2} = "
+            f"{cfg.n_layers} layers x (1 prefill + {steps} steps)), no "
+            f"other kernel, lane plans a rank {plans} "
+            + fail(ok, f"{name} launches {k2} plans {plans}"))
+        if sparse:
+            checks = [v for x in res for v in x["lanes"].values()]
+            ok = bool(checks) and all(v[1] for v in checks)
+            log(f"serve20 {name} each rank's lane plan "
+                f"({checks[0][2] if checks else '?'} lanes) against K2's "
+                f"plain version at {sorted(res[0]['lanes'])} (fp32 "
+                f"{FP32_TOL:g}, bf16 {BF16_TOL:g}): largest |diff| "
+                f"{max((v[0] for v in checks), default=float('nan')):.3e} "
+                + fail(ok, f"{name} lane plans against plain"))
+        host_p = [x["prefill_s"] for x in res]
+        host_d = [sum(x["decode_s"]) / steps for x in res]
+        log(f"serve20 {name} host times on the mesh (gloo on one card, "
+            f"not a multi-card figure): prefill {max(host_p) * 1e3:.1f} ms,"
+            f" decode {max(host_d) * 1e3:.1f} ms a step; one device "
+            f"{ref[name]['prefill_s'] * 1e3:.1f} / "
+            f"{sum(ref[name]['decode_s']) / steps * 1e3:.1f} ms; rank 0's "
+            f"collective bytes: prefill {_bytes_line(res[0]['moved_prefill'])}"
+            f", a decode step {_bytes_line(res[0]['moved_decode'])} {tag}")
+    entries.extend(_serve20_entries(dev, runs[0][1], ranks, tag))
+    ran = max(sum(x["run_s"] for x in r.values()) for r in ranks)
+    log(f"phase 20 checks in {time.perf_counter() - t20:.1f} s (its ranks "
+        f"ran in phase 16 (h)'s spawn: {ran:.1f} s a rank)")
 
 
 # ------------------------------------------------------ phase 17: remat
@@ -2643,6 +3088,17 @@ def dryrun_small(out: str, cfg_kw_json: str) -> None:
                      "bottleneck": r["bottleneck"],
                      "attn_shard_mode": r["attn_shard_mode"],
                      "seconds": r["build_s"] + r["run_s"]}
+    # (d) phase 20's granite serving cell: its prefill and a decode step
+    granite = _serve20_runs(json.loads(cfg_kw_json) or None)[0][1]
+    for name, kind, seq in (("d prefill", "prefill", SERVE20_PROMPT),
+                            ("d decode", "decode",
+                             SERVE20_PROMPT + SERVE20_STEPS + 1)):
+        r = dryrun.serve_cost(granite, TRAIN16_MESH, ("data", "model"),
+                              shape_kind=kind, seq=seq, batch=SERVE20_BATCH)
+        res[name] = {"moved": r["cost"].collective_bytes_by_axis,
+                     "flops": r["cost"].flops,
+                     "attn_shard_mode": r["attn_shard_mode"],
+                     "seconds": r["build_s"] + r["run_s"]}
     with open(out, "w") as f:
         json.dump(res, f)
 
@@ -2720,9 +3176,11 @@ def _predicted_line(what, part, measured_peak, step_s, failures, tag):
                         f"measured step {step_s} s")
 
 
-def dryrun_phase(procs, tmp: Path, train16, train10, failures, tag):
+def dryrun_phase(procs, tmp: Path, train16, train10, failures, tag,
+                 serve20=None):
     """Phase 19: collect the dry runs started after phase 10 and hold
-    them against what phases 10 and 16 measured (the module's note)."""
+    them against what phases 10, 16 and 20 (``serve20``: its ranks'
+    results) measured (the module's note)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch import dryrun
     t19 = time.perf_counter()
@@ -2792,6 +3250,24 @@ def dryrun_phase(procs, tmp: Path, train16, train10, failures, tag):
             f"s): {c['flops']:.4e} product FLOPs, {c['bytes']:.4e} bytes")
         _predicted_line("c", c, train10["peak"], min(train10["step_s"]),
                         failures, tag)
+    # (d) phase 20's granite serving cell against its gloo rank 0
+    for what, key in (("prefill", "moved_prefill"),
+                      ("decode", "moved_decode")):
+        d = parts.get(f"d {what}")
+        if d is None or serve20 is None:
+            failures.append(f"dryrun (d) {what}: no dry run or no phase 20 "
+                            f"run")
+            continue
+        run = serve20[0]["granite"][key]
+        same = d["moved"] == run
+        log(f"dryrun (d) phase 20's {SERVE_ARCH} {what} on a fake "
+            f"{TRAIN16_MESH} (attention {d['attn_shard_mode']}, "
+            f"{d['seconds']:.1f} s): rank 0's collective bytes "
+            f"{_bytes_line(d['moved'])}; phase 20's gloo rank 0 "
+            f"{_bytes_line(run)}; equal {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"dryrun (d) {what}: bytes {d['moved']} against "
+                            f"{run}")
     shutil.rmtree(tmp, ignore_errors=True)
     log(f"phase 19 in {time.perf_counter() - t19:.1f} s (the dry runs "
         f"started after phase 10)")
@@ -5830,7 +6306,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase("16 (h) recurrent mixers tensor-parallel")
-    recurrent_tp_phase(dev, failures, tag, dry_procs, dry_tmp)
+    serve20_ref, serve20 = recurrent_tp_phase(dev, failures, tag, dry_procs,
+                                              dry_tmp)
 
     phase("17 remat")
     # ---- 17. remat none / full / dots
@@ -5846,7 +6323,13 @@ def main() -> int:
 
     phase("19 dryrun")
     # ---- 19. the dry run against phases 10 and 16
-    dryrun_phase(dry_procs, dry_tmp, train16, train10, failures, tag)
+    dryrun_phase(dry_procs, dry_tmp, train16, train10, failures, tag,
+                 serve20)
+
+    phase("20 serve on a mesh")
+    # ---- 20. serving on a mesh: the ranks ran in 16 (h)'s spawn
+    serve20_phase(dev, failures, tag, serve20_ref, serve20, _serve20_runs(),
+                  entries)
 
     phase()
     for kernel in KERNEL_META:

@@ -28,7 +28,10 @@
 //     32·CPL-wide read per warp and each Y row segment one coalesced
 //     write; the d edge is masked, so X need not be padded;
 //   * the group's rows are taken 128 at a time; warp w owns rows w, w+8,
-//     …, w+120 (four in each segment) and keeps 16·CPL fp32 accumulators;
+//     …, w+120 (four in each segment) and keeps 16·CPL fp32 accumulators.
+//     A group may be any multiple of 32 lanes (a tensor-parallel rank's
+//     lane slice, G/n): the segments past its last lane count no live
+//     slot rows, stage zeros and write nothing;
 //   * eight slot rows of values and columns are staged in shared memory per
 //     stage with cp.async (16-byte copies, one of each per thread).  A
 //     second buffer, loading the next stage while the warps consume this
@@ -102,12 +105,15 @@ rgcsr_spmm_kernel(const TV* __restrict__ values,
   const int cl = tid % (kRowBlock / 4) * 4;
 
   for (int rb = 0; rb < group_size; rb += kRowBlock) {
+    // Segments of this row block: 4, or fewer in the last block of a group
+    // that is not a multiple of 128 lanes (a rank's lane slice, G/n).
+    const int n_seg = min(kSegsPerBlock, (group_size - rb) / kSeg);
     // Slot rows with anything but padding: per segment, and n for the block.
     int live[kSegsPerBlock];
     int n = 0, v_live = 0, c_live = 0;
 #pragma unroll
     for (int i = 0; i < kSegsPerBlock; ++i) {
-      live[i] = tile[2 + rb / kSeg + i];
+      live[i] = i < n_seg ? tile[2 + rb / kSeg + i] : 0;
       n = max(n, live[i]);
       if (vl / kSeg == i) v_live = live[i];
       if (cl / kSeg == i) c_live = live[i];
@@ -187,6 +193,7 @@ rgcsr_spmm_kernel(const TV* __restrict__ values,
 
 #pragma unroll
     for (int j = 0; j < kRowsPerWarp; ++j) {
+      if (j / kRowsPerSeg >= n_seg) continue;  // past the group's lanes
       const int64_t row = rb + warp + kWarps * j;
       TV* out = dst >= 0 ? Y + (dst + row) * d : nullptr;
       float* out_part = dst < 0 && live[j / kRowsPerSeg] > 0

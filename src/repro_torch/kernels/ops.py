@@ -289,6 +289,13 @@ class RgCSRPlan:
         if piece_rows is not None and (piece_rows < r or piece_rows % r):
             raise ValueError(f"piece_rows must be a positive multiple of "
                              f"{r} (8·chunks_per_step), got {piece_rows}")
+        # K2 takes a group of whole 32-lane segments (a rank's lane slice,
+        # models.ffn.SparseLinear.lane_plan); K1 whole 128-lane blocks
+        unit = LANES if kernel == "rgcsr_spmv" else SEGMENT
+        if self.values2d.shape[1] % unit:
+            raise ValueError(f"{kernel}: group_size "
+                             f"{self.values2d.shape[1]} is not a multiple "
+                             f"of {unit}")
         if "rows" not in cache:
             self._check_kernel_arrays()
             cache["rows"] = np.diff(_host(self.group_step_ptr).astype(
@@ -306,7 +313,7 @@ class RgCSRPlan:
                 or self.columns2d.dtype != torch.int32
                 or self.group_step_ptr.dtype != torch.int32
                 or tuple(self.seg_slots.shape) != (self.n_groups, g // SEGMENT)
-                or self.seg_slots.dtype != torch.int32 or g % LANES
+                or self.seg_slots.dtype != torch.int32 or g % SEGMENT
                 or s != self.num_steps * self.rows_per_step):
             raise ValueError(
                 f"plan arrays do not match the kernels (values2d "

@@ -20,9 +20,15 @@ driver:
   3. turns the counts into the H100 roofline terms (``launch.mesh.HW``)
      and the ``model_flops_ratio``, into one JSON record per cell.
 
-Only training cells (``train_4k``) run: the port has no tensor-parallel
-prefill or decode on a mesh, so a serving shape raises
-``NotImplementedError`` (``SERVING_TODO``).  A process holds one default
+A serving cell (``prefill_32k``, ``decode_32k``, ``long_500k``) runs the
+port's tensor-parallel serving step instead (``launch.steps``'
+``make_prefill_step`` / ``make_decode_step`` with ``partitioner=``): the
+parameters laid out by the serving rules in bf16 (``cell_overrides``),
+the cache built whole as the reference builds it
+(``init_cache(global_batch, seq_len, enc_len=)``, ``enc_len`` the
+sequence at prefill and 4096 at decode for the encoder-decoder family),
+as this rank's slices, which the step takes as arguments
+(:func:`serve_cost`).  A process holds one default
 process group: the dry run creates its fake group and destroys it before
 :func:`run_cell` returns, and refuses to run beside another.
 
@@ -55,18 +61,20 @@ from repro_torch.configs import ARCH_IDS, SHAPES, get_config, input_specs
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch.hlo_cost import analyze_hlo
 from repro_torch.launch.mesh import HW, make_mesh
-from repro_torch.launch.steps import auto_microbatches, make_train_step
+from repro_torch.launch.steps import (auto_microbatches, local_zeros,
+                                      make_decode_step, make_prefill_step,
+                                      make_train_step, shard_for_serving)
 from repro_torch.models import LanguageModel
 from repro_torch.models.shardlib import resolve_attn_shard_mode
 from repro_torch.sharding import layout
-from repro_torch.sharding.partitioner import (TRAIN_RULES, Partitioner,
-                                              ShardingRules)
+from repro_torch.sharding.partitioner import (SERVE_RULES, TRAIN_RULES,
+                                              Partitioner, ShardingRules)
 from repro_torch.train.optimizer import OptimizerConfig
 from repro_torch.train.trainer import _attention_on, _flat, \
     distribute_model, lay_out_opt
 
-__all__ = ["run_cell", "step_cost", "main", "cell_overrides",
-           "PEAK_FLOPS", "SERVING_TODO"]
+__all__ = ["run_cell", "step_cost", "serve_cost", "main", "cell_overrides",
+           "PEAK_FLOPS"]
 
 # the peaks by the products' input dtype: bf16/fp16 on the tensor cores,
 # fp32 outside them (TF32 is off: the port's float32 products run in
@@ -75,11 +83,6 @@ PEAK_FLOPS = {"bfloat16": HW.PEAK_FLOPS, "float16": HW.PEAK_FLOPS,
               "float32": HW.PEAK_FLOPS_FP32}
 PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
-SERVING_TODO = ("ROADMAP queue 1, 'tensor-parallel prefill and decode on a "
-                "mesh, then the dry run's serving cells and H2': the port "
-                "serves on one card (Engine takes a mesh only to warm SpMV "
-                "plans), and a gather-at-use forward would count 16x the "
-                "reference's work per device")
 
 
 def cell_overrides(arch: str, shape_kind: str) -> Dict[str, Any]:
@@ -250,6 +253,82 @@ def step_cost(cfg, mesh_shape: Sequence[int], axes: Sequence[str], *,
     return out
 
 
+def serve_cost(cfg, mesh_shape: Sequence[int], axes: Sequence[str], *,
+               shape_kind: str, seq: int, batch: int,
+               rules: Optional[ShardingRules] = None) -> Dict[str, Any]:
+    """One serving step of ``cfg`` (a prefill of ``batch`` × ``seq``
+    tokens, or one decode step against caches of ``seq`` positions) on
+    rank 0 of a fake mesh of ``mesh_shape`` (one device: the
+    single-device step), on ``meta`` tensors.  The cache is built whole
+    as the reference builds it and taken as this rank's slices, arguments
+    of the step beside the parameters and the batch's rows.  Returns what
+    :func:`step_cost` returns."""
+    n = math.prod(mesh_shape)
+    meta = torch.device("meta")
+    t0 = time.perf_counter()
+    with fake_world(n):
+        part = None
+        if n > 1:
+            mesh = make_mesh(mesh_shape, axes, device_type="cpu")
+            part = Partitioner(mesh, shape_kind, rules)
+            cfg = _attention_on(cfg, mesh)
+        model = LanguageModel(cfg, device=meta)
+        inputs = input_specs(cfg, ShapeConfig("dryrun", seq, batch,
+                                              shape_kind))
+        prefill = shape_kind == "prefill"
+        enc_len = (seq if prefill else 4096) if cfg.enc_dec else 0
+        whole = model.init_cache(batch, seq, shape_kind=shape_kind,
+                                 enc_len=enc_len, device=meta)
+        held_batch = inputs
+        if part is not None:
+            shard_for_serving(model, part, device=meta)
+            caches = local_zeros(part, whole, meta)
+            rows = part.batch_shardings(inputs)
+            held_batch = {k: layout.local_chunk(v, mesh,
+                                                rows[k].placements())
+                          for k, v in inputs.items()}
+        else:
+            caches = whole
+        params = model.tensors()
+        if prefill:
+            step = make_prefill_step(model, seq, shape_kind,
+                                     partitioner=part)
+            run = lambda: step(inputs, caches=caches)      # noqa: E731
+        else:
+            step = make_decode_step(model, shape_kind, partitioner=part)
+            run = lambda: step(caches, inputs["tokens"])   # noqa: E731
+        cache_bytes = _local_bytes({str(i): c for i, c in enumerate(caches)})
+        args = _local_bytes(params) + cache_bytes + _local_bytes(held_batch)
+        build_s = time.perf_counter() - t0
+        out_bytes = []
+
+        def counted():
+            logits, _ = run()
+            out_bytes.append(logits.numel() * logits.element_size())
+        cost = analyze_hlo(counted, n, held=[*params.values(),
+                                             *_flat({"c": caches}).values(),
+                                             *inputs.values()])
+        out = {"n_params": model.n_params(),
+               "n_active_params": model.n_active_params(),
+               "attn_shard_mode": cfg.attn_shard_mode}
+        del model, params, caches, step, run
+    rl = roofline(cost)
+    terms = {k: rl[k] for k in ("compute_s", "memory_s", "collective_s")}
+    out.update(
+        # the caches are written in place: the step's cache outputs alias
+        # its cache arguments; its logits are new
+        memory={"argument_size_in_bytes": float(args),
+                "output_size_in_bytes": float(cache_bytes + out_bytes[0]),
+                "temp_size_in_bytes": float(cost.temp_bytes),
+                "generated_code_size_in_bytes": 0.0,
+                "alias_size_in_bytes": float(cache_bytes)},
+        cost=cost, roofline=rl,
+        bottleneck=max(terms, key=terms.get).replace("_s", ""),
+        build_s=round(build_s, 1),
+        run_s=round(time.perf_counter() - t0 - build_s, 1))
+    return out
+
+
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              cfg_overrides: Optional[Dict[str, Any]] = None,
              microbatch_override: Optional[int] = None,
@@ -258,31 +337,35 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     """Dry-run one cell; returns the §Dry-run/§Roofline record.
 
     ``rules_override``: logical-axis → mesh-axis entries merged over the
-    default training rules — the knob the hill-climb turns.  ``keep_hlo``
-    keeps the step's collective log (the port has no HLO text) under
-    ``collective_log``."""
+    default rules of the cell's kind (training's or serving's) — the knob
+    the hill-climb turns.  ``keep_hlo`` keeps the step's collective log
+    (the port has no HLO text) under ``collective_log``."""
     shape = SHAPES[shape_name]
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"{arch} × {shape_name}: the dry run covers training cells "
-            f"only; serving cells wait for {SERVING_TODO}")
+    train = shape.kind == "train"
     mesh_shape, axes = PRODUCTION_MESHES[multi_pod]
     n_devices = math.prod(mesh_shape)
     sizes = dict(zip(axes, mesh_shape))
-    micro = microbatch_override or auto_microbatches(
-        get_config(arch), shape.global_batch, shape.seq_len,
-        n_devices // sizes["model"])
+    micro = 1
+    if train:
+        micro = microbatch_override or auto_microbatches(
+            get_config(arch), shape.global_batch, shape.seq_len,
+            n_devices // sizes["model"])
     cfg, ov = _cell_config(arch, shape.kind, sizes, cfg_overrides,
                            micro_hint=micro,
                            global_batch=shape.global_batch)
     rules = None
     if rules_override:
-        rules = ShardingRules(params={**TRAIN_RULES.params,
-                                      **rules_override},
-                              batch=TRAIN_RULES.batch)
-    res = step_cost(cfg, mesh_shape, axes, seq=shape.seq_len,
-                    batch=shape.global_batch, microbatches=micro,
-                    optimizer=ov["optimizer"], rules=rules)
+        base = TRAIN_RULES if train else SERVE_RULES
+        rules = ShardingRules(params={**base.params, **rules_override},
+                              batch=base.batch)
+    if train:
+        res = step_cost(cfg, mesh_shape, axes, seq=shape.seq_len,
+                        batch=shape.global_batch, microbatches=micro,
+                        optimizer=ov["optimizer"], rules=rules)
+    else:
+        res = serve_cost(cfg, mesh_shape, axes, shape_kind=shape.kind,
+                         seq=shape.seq_len, batch=shape.global_batch,
+                         rules=rules)
     cost = res["cost"]
     record: Dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": list(mesh_shape),
@@ -291,7 +374,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "attn_shard_mode": res["attn_shard_mode"],
         "n_params": res["n_params"],
         "n_active_params": res["n_active_params"],
-        "microbatches": micro, "build_s": res["build_s"],
+        **({"microbatches": micro} if train else {}),
+        "build_s": res["build_s"],
         "run_s": res["run_s"], "memory": res["memory"],
         "cost": {
             "flops": cost.flops,                # per device, this step
@@ -313,9 +397,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     if keep_hlo:
         record["collective_log"] = [dataclasses.asdict(r)
                                     for r in cost.collectives]
-    # MODEL_FLOPS: useful work (6·N_active·D, forward and backward) over
-    # the work the step runs, per device
-    mf = 6.0 * res["n_active_params"] * shape.global_batch * shape.seq_len
+    # MODEL_FLOPS: useful work over the work the step runs, per device:
+    # 6·N_active·tokens for training (forward and backward), 2·N_active
+    # for inference (forward only; a decode step's tokens are the batch)
+    tokens = shape.global_batch * (shape.seq_len if shape.kind in
+                                   ("train", "prefill") else 1)
+    mf = (6.0 if train else 2.0) * res["n_active_params"] * tokens
     record["model_flops_global"] = mf
     record["model_flops_ratio"] = (mf / n_devices) / cost.flops \
         if cost.flops else 0.0

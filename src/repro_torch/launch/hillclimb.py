@@ -3,9 +3,12 @@
 The PyTorch counterpart of ``repro.launch.hillclimb``, over the port's
 dry run (``launch/dryrun.py``).  Three series:
   H1 granite-3-2b × train_4k      — the reference's collective-bound cell
-  H2 deepseek-v3-671b × prefill_32k — MoE dispatch; a serving cell, which
-     the port's dry run does not run yet: its iterations are recorded as
-     errors (``dryrun.SERVING_TODO``), as any failing cell is
+  H2 deepseek-v3-671b × prefill_32k — MoE dispatch; a serving cell, run
+     by the port's tensor-parallel prefill step with whole-mesh experts.
+     A prefill routes dropless, so past ``moe._DROPLESS_EINSUM_BUDGET``
+     the einsum dispatch reroutes to the scatter one and no capacity
+     applies: at 32 × 32,768 tokens the three iterations run one step, as
+     the reference's would
   H3 granite-3-2b × train_4k + RgCSR sparse FFN — the paper's technique
 
 Each iteration is one ``run_cell`` with a config/rules override; results

@@ -48,6 +48,25 @@ norm scale, of which a rank reads its heads) is summed over every mesh
 dim; a cut leaf of a unit that computes whole (an FFN or MoE layer whose
 dims ``model`` does not divide) takes this rank's slice of its own whole
 gradient.
+
+**Serving on a mesh** (``make_prefill_step`` / ``make_decode_step`` with
+``partitioner=``, a ``Partitioner`` of the serving shape kind): the
+model's tensors are DTensors laid out by its rules (``SERVE_RULES``: no
+FSDP, MoE experts over the whole mesh; :func:`shard_for_serving`), and
+the step computes tensor-parallel exactly as training does, without
+gradients: each unit on its ``model`` slice, activations as plain local
+tensors.  The caches are this rank's plain slices in the layout of
+``Partitioner.cache_shardings`` (``sharding.partitioner.LocalCache``):
+k/v cut over the batch, then kv heads or head-dim, or over the sequence
+by ``data`` for ``long_decode``; MLA's latents over ``R``; ``ssm`` over
+heads, ``conv`` over channels, ``h`` over ``d_rnn``.  Where a unit's
+activations want another layout than its cache's, it moves the data
+through ``sharding.layout``'s region operators (the models' notes), so
+the collective log counts it.  Each rank takes its rows of the global
+batch by ``batch_shardings``; the logits come back laid out by
+``logits_sharding`` (the vocabulary gathered over ``model``).  A mode or
+cut the rules do not divide raises: nothing falls back to gathering a
+parameter whole at its use.
 """
 from __future__ import annotations
 
@@ -65,7 +84,8 @@ from repro_torch.train.optimizer import OptimizerConfig, global_norm, \
     make_optimizer
 
 __all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
-           "auto_microbatches", "routing_stats", "mixer_gaps"]
+           "auto_microbatches", "routing_stats", "mixer_gaps",
+           "shard_for_serving", "local_zeros"]
 
 
 def auto_microbatches(cfg, global_batch: int, seq: int, n_data_shards: int,
@@ -209,10 +229,21 @@ class _Binding:
     microbatch (:meth:`top`); a block binds its own when it runs
     (``shardlib.gathered``)."""
 
-    def __init__(self, model, view):
+    def __init__(self, model, view, serving: bool = False):
         self.model, self.view = model, view
-        self.modes, self.classes = model.tensor_parallel_plan(view)
+        self.modes, self.classes = model.tensor_parallel_plan(view, serving)
         names = list(model.tensors())
+        if serving:
+            # serving never gathers a parameter whole at its use
+            stray = sorted(k for k in names if self.classes.get(k) is None
+                           and (view.cuts.get(k) is not None
+                                or k in view.wide))
+            if stray:
+                raise ValueError(
+                    f"serving on a mesh: no tensor-parallel unit takes the "
+                    f"cut leaves {stray} (their dims do not divide as the "
+                    f"rules place them), and nothing is gathered whole at "
+                    f"its use")
         self.members = {id(b): [k for k in names
                                 if k.startswith(prefix + "/")]
                         for prefix, b in model.blocks()}
@@ -224,6 +255,8 @@ class _Binding:
         view, t = self.view, self.leaves[name]
         mesh, pl = view.mesh, self.placements[name]
         cls = self.classes.get(name)
+        if cls == "local":          # whole-mesh experts: the rank's own
+            return t
         if cls == "whole":
             return layout.gather_local_at_use(t, mesh, pl)
         g = layout.gather_local_at_use(t, mesh, pl, view.batch_dims)
@@ -240,18 +273,21 @@ class _Binding:
         return _bound(self.model, {k: self.gather(k) for k in self.outside})
 
     @contextlib.contextmanager
-    def step(self, tensors, trained=()):
+    def step(self, tensors, trained=(), caches=None, rows=()):
         """Model code computes tensor-parallel on the slices of
         ``tensors`` (the model's DTensors, keyed as ``model.tensors()``):
         yields each one's plain local slice, a leaf that takes gradients
-        for the keys of ``trained``."""
+        for the keys of ``trained``.  Serving passes its units' cache
+        placements (``caches``) and the batch's row mesh dims (``rows``):
+        ``shardlib.TensorParallel``."""
         self.placements = {k: tuple(t.placements) for k, t in
                            tensors.items()}
         self.leaves = {k: t.to_local().detach().requires_grad_(k in trained)
                        for k, t in tensors.items()}
         try:
             with shardlib.tensor_parallel(shardlib.TensorParallel(
-                    self.view, self.modes, self.bind)):
+                    self.view, self.modes, self.bind, caches or {},
+                    tuple(rows))):
                 yield self.leaves
         finally:
             self.leaves = self.placements = None
@@ -483,15 +519,186 @@ def mixer_gaps(model, partitioner, prefix: str, x, grad_out
     return out
 
 
-def make_prefill_step(model, s_max: int, shape_kind: str = "prefill"):
-    def prefill_step(batch):
-        return model.prefill(batch, s_max, shape_kind=shape_kind)
+# ------------------------------------------------------------- serving
+
+
+def make_prefill_step(model, s_max: int, shape_kind: str = "prefill",
+                      partitioner=None):
+    """``prefill_step(batch) -> (last-position logits, caches)``:
+    ``model.prefill``.  With ``partitioner`` (a serving ``Partitioner``
+    on a mesh; the model laid out by :func:`shard_for_serving`) the step
+    runs on the mesh (the module's note): ``batch`` is the global batch,
+    the same on every rank, the logits are this rank's rows (the whole
+    vocabulary), and the caches are this rank's slices, each layer's a
+    ``LocalCache``.  ``prefill_step(batch, caches=)`` fills the given
+    fresh local caches (index 0) instead of allocating them."""
+    if partitioner is None:
+        def prefill_step(batch, caches=None):
+            return model.prefill(batch, s_max, shape_kind=shape_kind,
+                                 caches=caches)
+        return prefill_step
+    serving = _Serving(model, partitioner, shape_kind)
+
+    def prefill_step(batch, caches=None):
+        return serving.prefill(batch, s_max, caches)
     return prefill_step
 
 
-def make_decode_step(model, shape_kind: str = "decode"):
+def make_decode_step(model, shape_kind: str = "decode", partitioner=None):
     """The serving engine's decode step (``serve/device_loop``), imported
     lazily so that the launcher stays importable without the serve
-    stack."""
+    stack.  With ``partitioner`` the step runs on the mesh (the module's
+    note): ``decode_step(caches, tokens)`` takes this rank's cache slices
+    (``LocalCache``s, from the mesh prefill or
+    ``Partitioner.local_caches``) and the global ``(B, 1)`` tokens, and
+    returns this rank's rows of the logits and its new slices."""
     from repro_torch.serve.device_loop import make_decode_step as _make
-    return _make(model, shape_kind=shape_kind)
+    return _make(model, shape_kind=shape_kind, partitioner=partitioner)
+
+
+def shard_for_serving(model, partitioner, device=None):
+    """Lay ``model``'s tensors (the same whole values on every rank) out as
+    DTensors by ``partitioner``'s rules, each rank keeping its slices
+    (``device``: the sharding's by default, ``"meta"`` for the dry run);
+    returns the model."""
+    from repro_torch.train.trainer import _flat, distribute_model
+    distribute_model(model, _flat(partitioner.param_shardings(model.spec())),
+                     device=device)
+    return model
+
+
+def _cache_units(model, caches) -> Dict[int, dict]:
+    """``id(unit)`` → its cache leaves' placements, from the layers'
+    ``LocalCache``s (the attention layer's, a decoder layer's cross
+    attention's ``ck``/``cv``, a recurrent mixer's state)."""
+    from repro_torch.sharding.partitioner import LocalCache
+    out = {}
+    for block, cache in zip(model.layers, caches, strict=True):
+        if not isinstance(cache, LocalCache):
+            raise TypeError("a mesh step takes this rank's cache slices as "
+                            "LocalCache dicts (the mesh prefill's, or "
+                            "Partitioner.local_caches)")
+        if "self" in cache:
+            out[id(block.cross)] = {k: cache.placements[k]
+                                    for k in ("ck", "cv")}
+            out[id(block.attn)] = cache["self"].placements
+        else:
+            unit = next(getattr(block, n) for n in ("attn", "mixer", "rec")
+                        if hasattr(block, n))
+            out[id(unit)] = cache.placements
+    return out
+
+
+def _index_rows(cache, mesh, rows, whole=None):
+    """``cache`` with its whole ``index`` replaced by this rank's rows
+    (``whole`` None), or (``whole``: the old cache) a ``LocalCache`` of the
+    new slices with the whole index advanced as the rank's rows were."""
+    from repro_torch.sharding.partitioner import LocalCache
+    if not isinstance(cache, dict):
+        return cache
+    out = {k: _index_rows(v, mesh, rows, None if whole is None
+                          else whole[k]) for k, v in cache.items()}
+    if "index" in cache:
+        if whole is None:
+            out["index"] = layout.local_chunk(cache["index"], mesh, rows)
+        else:
+            old = whole["index"]
+            step = cache["index"][:1] - layout.local_chunk(old, mesh,
+                                                           rows)[:1]
+            out["index"] = old + step
+    pl = (cache if whole is None else whole).placements
+    return LocalCache(out, pl)
+
+
+class _Serving:
+    """One model's prefill and decode on a mesh (the module's note)."""
+
+    def __init__(self, model, partitioner, shape_kind: str):
+        if partitioner.shape_kind == "train":
+            raise ValueError("serving on a mesh takes a serving partitioner "
+                             "(shape kind prefill, decode or long_decode)")
+        if not model.cfg.act_shard:
+            raise ValueError("serving on a mesh computes tensor-parallel: "
+                             "set cfg.act_shard (no gather-at-use forward)")
+        view = partitioner.tensor_parallel(model.spec())
+        if view is None:
+            raise ValueError("serving on a mesh needs a model axis of more "
+                             "than one rank")
+        self.model, self.part, self.shape_kind = model, partitioner, \
+            shape_kind
+        self.mesh = partitioner.mesh
+        self.binding = _Binding(model, view, serving=True)
+
+    def _rows(self, n_rows: int):
+        """Placements of a ``(B, ...)`` batch leaf by ``batch_shardings``."""
+        return self.part.batch_shardings(
+            {"x": torch.empty((n_rows,), device="meta")})["x"].placements()
+
+    def _logits(self, logits):
+        """The logits laid out as ``logits_sharding`` lays them: the
+        vocabulary whole on every rank."""
+        view = self.binding.view
+        if self.binding.modes.get(id(self.model._head())) == "vocab":
+            logits = layout.gather_dim(logits, -1, view.mesh, view.mesh_dim)
+        return logits
+
+    def _run(self, caches, rows, fn):
+        """``fn`` of the caches with their index cut to this rank's rows,
+        tensor-parallel; (logits laid out, the new ``LocalCache``s)."""
+        tp = self.binding
+        row_dims = tuple(layout.sharded_mesh_dims(rows).get(0, []))
+        with torch.no_grad(), row_shard(RowShard.on_mesh(self.mesh, rows)), \
+                tp.step(self.model.tensors(),
+                        caches=_cache_units(self.model, caches),
+                        rows=row_dims), tp.top():
+            logits, new = fn([_index_rows(c, self.mesh, rows)
+                              for c in caches])
+        return self._logits(logits), [
+            _index_rows(c, self.mesh, rows, old)
+            for c, old in zip(new, caches, strict=True)]
+
+    def prefill(self, batch, s_max: int, caches=None):
+        batch = _host_batch(batch)
+        n = batch["tokens"].shape[0]
+        rows = self._rows(n)
+        dev = batch["tokens"].device if batch["tokens"].is_meta \
+            else self.part.replicated().device()
+        local = {k: layout.local_chunk(v, self.mesh, rows).to(dev)
+                 for k, v in batch.items()}
+        if caches is None:       # fresh, this rank's slices
+            enc_len = batch["frames"].shape[1] if self.model.cfg.enc_dec \
+                else 0
+            caches = local_zeros(self.part, self.model.init_cache(
+                n, s_max, shape_kind=self.shape_kind, enc_len=enc_len,
+                device="meta"), dev)
+        return self._run(caches, rows, lambda inner: self.model.prefill(
+            local, s_max, shape_kind=self.shape_kind, caches=inner))
+
+    def decode(self, caches, tokens):
+        tokens = torch.as_tensor(tokens)
+        rows = self._rows(tokens.shape[0])
+        dev = next(_cache_tensors(caches)).device
+        local = layout.local_chunk(tokens, self.mesh, rows).to(dev)
+        return self._run(caches, rows, lambda inner: self.model.decode_step(
+            inner, local, shape_kind=self.shape_kind))
+
+
+def local_zeros(partitioner, whole, device):
+    """Zeroed tensors of this rank's slices of the cache tree ``whole``
+    (whole shapes; meta tensors will do) on ``device``, each layer's a
+    ``LocalCache``: each slice its own storage."""
+    def alloc(node):
+        if isinstance(node, dict):
+            return type(node)({k: alloc(v) for k, v in node.items()},
+                              node.placements)
+        return torch.zeros(node.shape, dtype=node.dtype, device=device)
+    return [alloc(c) for c in partitioner.local_caches(whole)]
+
+
+def _cache_tensors(tree):
+    """Every tensor of a cache tree, depth first."""
+    for node in (tree.values() if isinstance(tree, dict) else tree):
+        if torch.is_tensor(node):
+            yield node
+        else:
+            yield from _cache_tensors(node)

@@ -74,6 +74,36 @@ MLA follows the same pattern: ``heads`` splits the columns of ``q_up``
 (or ``q_proj``), ``k_up`` and ``v_up`` and the rows of ``o``, while the
 latents stay replicated, copied in where they enter the split heads; its
 ``repeat`` is ``heads`` (every head has its own k and v).
+
+**Serving on a mesh** (a mode from ``shardlib.unit`` and a cache: the
+serving step's, this rank's plain slice in the layout of
+``Partitioner.cache_shardings``, read by ``shardlib.cache_layout``).  A
+prefill (a fresh cache, index 0) writes the rank's slice of the new k/v
+and attends over the in-flight k/v, rounded as the cache stores them (a
+windowed prefill reads them unrounded, as on one device); a decode step
+writes the rank's slice and reads the cache:
+
+* ``heads``  — the cache is cut over kv heads: the rank's heads are its
+  slice, read as they are;
+* ``repeat`` — k and v are computed whole; the cache (cut over head-dim
+  where ``model`` does not divide the kv heads) is gathered whole over
+  ``model`` at decode and each local query head takes its kv head;
+* ``seq``    — the prefill's query sequence is split as in training; at
+  decode the one query is not, every rank computes the whole layer on
+  the cache gathered whole;
+* a cache cut over the sequence by ``data`` (``long_decode`` at batch 1)
+  holds the rank's span of the slab or ring: the decode write lands on
+  the rank that owns the slot, and the ranks' partial softmaxes combine
+  by log-sum-exp (an ``all_reduce_max`` of the row maxima, then the
+  numerators and denominators summed).
+
+MLA's latent cache is cut over ``R`` (``ckv``, and ``krope`` where its
+width divides): the rank writes its ``R`` slice, and a decode step
+gathers the latents whole over ``model`` before the up-projections (a
+gather, not partial scores).  A decoder's cross keys and values
+(``ck``/``cv``) follow the k/v rule.  The paged pool serves on one device
+only: a paged cache on a mesh raises, as does an int8 cache whose scales
+are not cut as its values.
 """
 from __future__ import annotations
 
@@ -423,12 +453,219 @@ def _cache_write(cache, k_new, v_new, kv_dtype: str, window: Optional[int]):
 
 
 def _parallel(layer, cache):
-    """``(view, mode)`` of a layer computing tensor-parallel, or None."""
+    """``(view, mode)`` of a layer computing tensor-parallel, or None.
+    With a cache, the serving step's layout must be known, and the cache
+    dense (the module's note)."""
     tp = shardlib.unit(layer)
     if tp is not None and cache is not None:
-        raise ValueError("tensor-parallel attention trains: it takes no "
-                         "cache")
+        if "block_table" in cache:
+            raise ValueError("paged caches serve on one device: a mesh "
+                             "step takes dense caches (the reference's dry "
+                             "run never pages)")
+        if shardlib.cache_layout(layer) is None:
+            raise ValueError("tensor-parallel attention with a cache runs "
+                             "in a serving step on a mesh "
+                             "(launch.steps.make_prefill_step / "
+                             "make_decode_step with partitioner=)")
     return tp
+
+
+# ------------------------------------------------ serving on a mesh
+
+
+def _cache_cuts(placements, view):
+    """``(tensor dim that model cuts or None, mesh dims that cut the
+    sequence dim 1)`` of a cache leaf's placements."""
+    dims = layout.sharded_mesh_dims(placements)
+    cut = next((d for d, ms in dims.items() if view.mesh_dim in ms), None)
+    return cut, tuple(dims.get(1, ()))
+
+
+def _cache_part(t, dim, view):
+    """This rank's chunk along ``dim`` of ``t``, whole there (None: all)."""
+    return t if dim is None else t.chunk(view.size, dim)[view.rank]
+
+
+def _cache_whole(t, dim, view):
+    """``t`` gathered whole over ``model`` along the cut ``dim``."""
+    return t if dim is None else layout.gather_dim(t, dim, view.mesh,
+                                                   view.mesh_dim)
+
+
+def _seq_span(view, seq_dims, size_local: int):
+    """``(first global slot, global slots)`` of a sequence cut over
+    ``seq_dims``."""
+    n, i = view.piece(seq_dims)
+    return i * size_local, n * size_local
+
+
+def _split_write(cache, write, names, seq_dims, view, window, new_one):
+    """Write this call's tokens into a cache cut over the sequence:
+    ``write(temp)`` (the one-device write) on a zeroed slab of the whole
+    length for a prefill, whose rank's span is then kept; for one token,
+    only the rank that holds its slot writes it (``new_one``: the stored
+    leaves, (B, 1, ...))."""
+    index = cache["index"]
+    size_l = cache[names[0]].shape[1]
+    lo, size_g = _seq_span(view, seq_dims, size_l)
+    cache = dict(cache)
+    if new_one is None:
+        temp = {name: cache[name].new_zeros(
+            (cache[name].shape[0], size_g) + tuple(cache[name].shape[2:]))
+            for name in names}
+        temp["index"] = index
+        temp = write(temp)
+        for name in names:
+            cache[name].copy_(temp[name][:, lo:lo + size_l])
+        cache["index"] = temp["index"]
+        return cache
+    p = index.long()
+    slot = torch.remainder(p, size_g) if window \
+        else torch.clamp(p, max=size_g - 1)
+    loc = slot - lo
+    keep = (loc >= 0) & (loc < size_l)
+    loc = loc.clamp(0, size_l - 1)
+    rows = torch.arange(index.shape[0], device=index.device)
+    for name, t in new_one.items():
+        cur = cache[name][rows, loc]
+        k = keep.reshape((-1,) + (1,) * (cur.dim() - 1))
+        cache[name][rows, loc] = torch.where(k, t[:, 0].to(cur.dtype), cur)
+    cache["index"] = index + 1
+    return cache
+
+
+def _decode_mask(index, window, lo: int, size_l: int, size_g: int):
+    """The decode mask (B, 1, size_l) of the rank's slots ``[lo, lo +
+    size_l)`` of a slab or ring of ``size_g``."""
+    if window:
+        return _ring_mask(1, size_g, index)[..., lo:lo + size_l]
+    k_pos = lo + torch.arange(size_l, device=index.device)
+    mi = MaskInfo(causal=True, q_offset=index, valid_len=index + 1)
+    return mi.block(mi.q_positions(torch.zeros(1, dtype=torch.long,
+                                               device=index.device)), k_pos)
+
+
+def _attend_split(q, k, v, mask, view, seq_dims, scale=None):
+    """Attention of one query over this rank's span of the keys, the
+    ranks' partial softmaxes combined over ``seq_dims`` by log-sum-exp:
+    the row maxima's ``all_reduce_max``, then the numerators and
+    denominators summed.  q (B, 1, Hq, D); k/v (B, T_rank, Hkv, ·); mask
+    (B, 1, T_rank)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    scale = scale if scale is not None else d ** -0.5
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float()) * scale
+    logits = torch.where(mask[:, None, None], logits,
+                         logits.new_full((), _NEG))
+    top = logits.amax(-1, keepdim=True)
+    for i in seq_dims:
+        top = layout.all_reduce_max(top, view.mesh, i)
+    p = torch.exp(logits - top)
+    parts = torch.cat([torch.einsum("bhgst,bthd->bhgsd", p, v.float()),
+                       p.sum(-1, keepdim=True)], dim=-1)
+    for i in seq_dims:
+        parts = layout.reduce_out(parts, view.mesh, i)
+    out = parts[..., :-1] / parts[..., -1:]                # (B,h,g,s,dv)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, -1).to(v.dtype)
+
+
+def _own_kv_heads(k, v, q_heads: int, hq: int, hkv: int, view):
+    """Whole k/v's kv head of each of this rank's ``q_heads`` query heads
+    (``repeat``)."""
+    heads = q_heads * view.rank + torch.arange(q_heads, device=k.device)
+    kv = torch.div(heads, hq // hkv, rounding_mode="floor")
+    return k.index_select(2, kv), v.index_select(2, kv)
+
+
+def _serve_out(o: Dense, y, tp, split_q: bool):
+    """The output projection of a serving layer: row-parallel (``heads``,
+    ``repeat``), gathered along the sequence (``seq`` with its query
+    split) or whole (``seq`` at decode)."""
+    view, how = tp
+    if how != "seq":
+        return o.row(y, view)
+    y = o(y)
+    return layout.gather_dim(y, 1, view.mesh, view.mesh_dim) if split_q \
+        else y
+
+
+def _gqa_serve(layer, cfg, x, positions, cache, window, tp):
+    """:func:`gqa_apply` with a cache on a mesh (the module's note)."""
+    view, how = tp
+    pl = shardlib.cache_layout(layer)
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    cut, seq_dims = _cache_cuts(pl["k"], view)
+    if how == "heads" and cut != 2:
+        raise ValueError("attn_shard_mode 'heads' serves from a cache cut "
+                         "over kv heads")
+    if "k_scale" in pl and _cache_cuts(pl["k_scale"], view)[0] != cut:
+        raise ValueError("an int8 cache whose scales are not cut as its "
+                         "values does not serve on this mesh")
+    x = layout.copy_in(x, view.mesh, view.mesh_dim)
+    split_q = how == "seq" and s > 1
+    first, q_src, q_pos = 0, x, positions
+    if split_q:
+        sl, first = _query_part(s, view)
+        q_src, q_pos = x[:, first:first + sl], positions[:, first:first + sl]
+    q = layer.q(q_src).reshape(b, q_src.shape[1], -1, dh)
+    k, v = layer.k(x), layer.v(x)
+    if how == "repeat" and k.shape[-1] < hkv * dh:
+        k, v = (layout.gather_dim(u, -1, view.mesh, view.mesh_dim)
+                for u in (k, v))
+    k, v = k.reshape(b, s, -1, dh), v.reshape(b, s, -1, dh)
+    q = rope(q, q_pos, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    kp, vp = (k, v) if how == "heads" else \
+        (_cache_part(t, cut, view) for t in (k, v))
+    kv_dtype = cfg.kv_cache_dtype
+    names = [n for n in ("k", "v", "k_scale", "v_scale") if n in cache]
+
+    def write(c):
+        return _cache_write(c, kp, vp, kv_dtype, window)
+    if not seq_dims:
+        new_cache = write(cache)
+    else:
+        one = None
+        if s == 1:
+            ks, k_sc = _maybe_store(kp, kv_dtype)
+            vs, v_sc = _maybe_store(vp, kv_dtype)
+            one = {"k": ks, "v": vs}
+            if k_sc is not None:
+                one.update(k_scale=k_sc, v_scale=v_sc)
+        new_cache = _split_write(cache, write, names, seq_dims, view, window,
+                                 one)
+    if s > 1:
+        # a fresh cache: the in-flight k/v, as the cache holds them
+        if not window:
+            k, v = (_maybe_load(*_maybe_store(t, kv_dtype), x.dtype)
+                    for t in (k, v))
+        if how == "repeat":
+            k, v = _own_kv_heads(k, v, q.shape[2], hq, hkv, view)
+        y = attend(q, k, v, mask_info=MaskInfo(causal=True, window=window,
+                                               q_offset=first))
+    else:
+        index = cache["index"]
+        kc = _maybe_load(new_cache["k"], new_cache.get("k_scale"), x.dtype)
+        vc = _maybe_load(new_cache["v"], new_cache.get("v_scale"), x.dtype)
+        if how != "heads":
+            kc, vc = (_cache_whole(t, cut, view) for t in (kc, vc))
+        if how == "repeat":
+            kc, vc = _own_kv_heads(kc, vc, q.shape[2], hq, hkv, view)
+        size_l = kc.shape[1]
+        if seq_dims:
+            lo, size_g = _seq_span(view, seq_dims, size_l)
+            y = _attend_split(q, kc, vc, _decode_mask(index, window, lo,
+                                                      size_l, size_g),
+                              view, seq_dims)
+        elif window:
+            y = attend(q, kc, vc, _ring_mask(1, size_l, index))
+        else:
+            y = attend(q, kc, vc, mask_info=MaskInfo(
+                causal=True, q_offset=index, valid_len=index + 1))
+    y = _serve_out(layer.o, y.reshape(b, y.shape[1], -1), tp, split_q)
+    return y, new_cache
 
 
 def _query_part(s: int, view):
@@ -472,6 +709,8 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
     b, s, d = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     tp = _parallel(layer, cache)
+    if tp is not None and cache is not None:
+        return _gqa_serve(layer, cfg, x, positions, cache, window, tp)
     if tp is not None:          # every use below is split over the ranks
         view = tp[0]
         x = layout.copy_in(x, view.mesh, view.mesh_dim)
@@ -552,18 +791,47 @@ def make_cross_cache(layer: "GQA", cfg, enc_out):
     decode step projects the encoder's output again."""
     b, t, _ = enc_out.shape
     hkv, dh = cfg.n_kv_heads, cfg.head_dim
-    return (layer.k(enc_out).reshape(b, t, hkv, dh),
-            layer.v(enc_out).reshape(b, t, hkv, dh))
+    tp = shardlib.unit(layer)
+    if tp is None:
+        return (layer.k(enc_out).reshape(b, t, hkv, dh),
+                layer.v(enc_out).reshape(b, t, hkv, dh))
+    # on a mesh: this rank's slice of the ck/cv cache layout
+    view, how = tp
+    cut = _cache_cuts(shardlib.cache_layout(layer)["ck"], view)[0]
+    k, v = layer.k(enc_out), layer.v(enc_out)
+    if how == "heads":
+        if cut != 2:
+            raise ValueError("attn_shard_mode 'heads' serves from a cache "
+                             "cut over kv heads")
+        return k.reshape(b, t, -1, dh), v.reshape(b, t, -1, dh)
+    if how == "repeat" and k.shape[-1] < hkv * dh:
+        k, v = (layout.gather_dim(u, -1, view.mesh, view.mesh_dim)
+                for u in (k, v))
+    return tuple(_cache_part(u.reshape(b, t, hkv, dh), cut, view)
+                 for u in (k, v))
 
 
 def cross_attend_cached(layer: "GQA", cfg, x, ck, cv):
     """Cross-attention of ``x`` (B, S, d) against the kept keys and values
     of :func:`make_cross_cache`: every encoder position visible."""
     b, s, _ = x.shape
-    hq, dh = cfg.n_heads, cfg.head_dim
-    q = layer.q(x).reshape(b, s, hq, dh)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tp = shardlib.unit(layer)
+    if tp is None:
+        q = layer.q(x).reshape(b, s, hq, dh)
+        y = attend(q, ck, cv, mask_info=MaskInfo(causal=False))
+        return layer.o(y.reshape(b, s, hq * dh))
+    # on a mesh (this rank's ck/cv slices): the query is never split
+    view, how = tp
+    cut = _cache_cuts(shardlib.cache_layout(layer)["ck"], view)[0]
+    x = layout.copy_in(x, view.mesh, view.mesh_dim)
+    q = layer.q(x).reshape(b, s, -1, dh)
+    if how != "heads":
+        ck, cv = (_cache_whole(t, cut, view) for t in (ck, cv))
+    if how == "repeat":
+        ck, cv = _own_kv_heads(ck, cv, q.shape[2], hq, hkv, view)
     y = attend(q, ck, cv, mask_info=MaskInfo(causal=False))
-    return layer.o(y.reshape(b, s, hq * dh))
+    return _serve_out(layer.o, y.reshape(b, s, -1), tp, False)
 
 
 class GQA(nn.Module):
@@ -688,6 +956,8 @@ def mla_apply(layer: "MLA", cfg, x, positions, *, mode: str = "causal",
     m = cfg.mla
     dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     tp = _parallel(layer, cache)
+    if tp is not None and cache is not None:
+        return _mla_serve(layer, cfg, x, positions, cache, window, tp)
     # heads: the latents are replicated, copied in where they enter the
     # split heads; seq: every use of x is this rank's part
     split = tp is not None and tp[1] != "seq"
@@ -756,6 +1026,99 @@ def mla_apply(layer: "MLA", cfg, x, positions, *, mode: str = "causal",
                                         q_offset=first),
                      scale=scale)
     y = _attn_out(layer.o, out.reshape(b, s, h * dv), tp)
+    return y, new_cache
+
+
+def _mla_serve(layer, cfg, x, positions, cache, window, tp):
+    """:func:`mla_apply` with a cache on a mesh (the module's note): the
+    latents computed whole, the rank's ``R`` slice written, and gathered
+    whole over ``model`` at decode."""
+    view, how = tp
+    pl = shardlib.cache_layout(layer)
+    b, s, _ = x.shape
+    m = cfg.mla
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    cut, seq_dims = _cache_cuts(pl["ckv"], view)
+    rope_cut, _ = _cache_cuts(pl["krope"], view)
+    split = how != "seq"
+
+    def part(t):
+        return layout.copy_in(t, view.mesh, view.mesh_dim) if split else t
+    split_q = how == "seq" and s > 1
+    first, xq, q_pos = 0, x, positions
+    if how == "seq":
+        x = layout.copy_in(x, view.mesh, view.mesh_dim)
+        if split_q:
+            sl, first = _query_part(s, view)
+            xq, q_pos = x[:, first:first + sl], positions[:, first:first + sl]
+    if m.q_lora_rank:
+        q = layer.q_up(part(layer.q_norm(layer.q_down(xq))))
+    else:
+        q = layer.q_proj(part(xq))
+    q = q.reshape(b, xq.shape[1], -1, dn + dr)
+    h = q.shape[2]
+    q_cat = torch.cat([q[..., :dn], rope(q[..., dn:], q_pos, cfg.rope_theta)],
+                      dim=-1)
+    down = layer.kv_down(x)
+    ckv = layer.kv_norm(down[..., :m.kv_lora_rank])
+    k_rope = rope(down[..., m.kv_lora_rank:][:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0]
+    dt = cache["ckv"].dtype
+    new = {"ckv": _cache_part(ckv, cut, view).to(dt),
+           "krope": _cache_part(k_rope, rope_cut, view).to(dt)}
+
+    def write(c):
+        if s == 1:
+            return _mla_cache_write(c, new, window)
+        # a fresh cache (index 0): its first positions, the rest dropped
+        # as one device drops them, with no host read of the positions
+        c = dict(c)
+        n = min(s, c["ckv"].shape[1])
+        for name, t in new.items():
+            c[name][:, :n] = t[:, :n]
+        c["index"] = c["index"] + s
+        return c
+    if not seq_dims:
+        new_cache = write(cache)
+    else:
+        new_cache = _split_write(cache, write, ["ckv", "krope"], seq_dims,
+                                 view, window, new if s == 1 else None)
+    index = cache["index"]
+    if s > 1:
+        # a fresh cache: the in-flight latents, as the cache holds them —
+        # the slab's first positions alone, as one device reads them
+        # back (a prefill past a window's ring drops the rest)
+        size = cache["ckv"].shape[1] * (view.piece(seq_dims)[0]
+                                         if seq_dims else 1)
+        lat = ckv[:, :size].to(dt).to(x.dtype)
+        kr = k_rope[:, :size].to(dt).to(x.dtype)
+    else:
+        lat = _cache_whole(new_cache["ckv"], cut, view).to(x.dtype)
+        kr = _cache_whole(new_cache["krope"], rope_cut, view).to(x.dtype)
+    if split:
+        lat, kr = part(torch.cat([lat, kr], dim=-1)).split(
+            [m.kv_lora_rank, dr], dim=-1)
+    t = lat.shape[1]
+    k_nope = layer.k_up(lat).reshape(b, t, h, dn)
+    v = layer.v_up(lat).reshape(b, t, h, dv)
+    k_cat = torch.cat([k_nope, kr[:, :, None, :].expand(b, t, h, dr)],
+                      dim=-1)
+    scale = (dn + dr) ** -0.5
+    if s > 1:
+        out = attend(q_cat, k_cat, v, mask_info=MaskInfo(
+            causal=True, window=window, q_offset=first), scale=scale)
+    elif seq_dims:
+        lo, size_g = _seq_span(view, seq_dims, t)
+        out = _attend_split(q_cat, k_cat, v,
+                            _decode_mask(index, window, lo, t, size_g),
+                            view, seq_dims, scale)
+    elif window:
+        out = attend(q_cat, k_cat, v, _ring_mask(1, t, index), scale=scale)
+    else:
+        out = attend(q_cat, k_cat, v, mask_info=MaskInfo(
+            causal=True, q_offset=index, valid_len=index + 1), scale=scale)
+    y = _serve_out(layer.o, out.reshape(b, out.shape[1], h * dv), tp,
+                   split_q)
     return y, new_cache
 
 

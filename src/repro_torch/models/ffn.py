@@ -32,7 +32,11 @@ row-parallel with a reduce-out, or, stored in RgCSR, computes on its lane
 slice (:meth:`SparseLinear.lanes`): ``values2d`` and ``columns2d``
 ``[:, r·G/n : (r+1)·G/n]``, whose rows are ``group·G + lane``; its input
 is first gathered over ``model`` along ``d_ff`` and its rows gathered
-back into row order.
+back into row order.  Training takes the lanes through the segment sum
+(``impl="ref"``); serving with ``impl="kernel"`` takes them through K2 on
+a plan of the rank's lanes (:meth:`SparseLinear.lane_plan`: the same step
+table, ``group_size`` G/n), which K2's 32-lane segments need a multiple
+of 32.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_plain
 from repro_torch.models import shardlib
 from repro_torch.models.layers import Dense, ParamModule, dense_spec
 from repro_torch.models.spec import P
@@ -294,6 +299,7 @@ class SparseLinear(ParamModule):
         super().__init__(params)
         self.cfg, self.d_in, self.d_out = cfg, d_in, d_out
         self._plans = {}
+        self._lane_plans = {}
         self.plan_builds = 0
 
     def plan_for(self, dtype) -> "ops.RgCSRPlan":
@@ -312,6 +318,38 @@ class SparseLinear(ParamModule):
             d_out=self.d_out, d_in=self.d_in,
             group_size=self.cfg.sparsity.group_size)
         self._plans[dtype] = (src, version, plan)
+        self.plan_builds += 1
+        return plan
+
+    def lane_plan(self, dtype, view) -> "ops.RgCSRPlan":
+        """The K2 plan of this rank's lanes at compute dtype ``dtype``:
+        ``values2d``/``columns2d`` bound to the lane slice ``(S, G/n)``,
+        the module's step table, ``group_size`` G/n, rows ``(group, local
+        lane)``.  One per (dtype, view size, rank), built at the first
+        call and kept while the bound slice's storage and version stay
+        (``plan_builds`` counts it)."""
+        src = self.values2d
+        lanes = src.shape[1]
+        if lanes % ops.SEGMENT:
+            raise ValueError(
+                f"K2 on a rank's lanes: G/n = {lanes} lanes (G = "
+                f"{self.cfg.sparsity.group_size} over {view.size} model "
+                f"ranks) is not a multiple of K2's {ops.SEGMENT}-lane "
+                f"segment")
+        key = (dtype, view.size, view.rank)
+        stamp = (src.data_ptr(), tuple(src.shape),
+                 0 if src.is_inference() else src._version)
+        hit = self._lane_plans.get(key)
+        if hit is not None and hit[0] == stamp:
+            return hit[1]
+        n_groups = -(-self.d_out // self.cfg.sparsity.group_size)
+        plan = ops.plan_from_params(
+            {"values2d": self.cast("values2d", dtype).contiguous(),
+             "columns2d": self.columns2d.contiguous(),
+             "chunk_group": self.chunk_group,
+             "chunk_first": self.chunk_first}, dtype,
+            d_out=n_groups * lanes, d_in=self.d_in, group_size=lanes)
+        self._lane_plans[key] = (stamp, plan)
         self.plan_builds += 1
         return plan
 
@@ -338,20 +376,33 @@ class SparseLinear(ParamModule):
         every column), the segment sum gives the rank's rows ``group·G +
         lane`` in ``(group, local lane)`` order, and the ranks' rows are
         gathered and put back into row order: ``(..., d_out)`` on every
-        rank.  The segment sum only: K2 has no backward."""
-        if self.cfg.sparsity.impl_is_kernel():
+        rank.  ``impl="ref"``: the segment sum (training's: K2 has no
+        backward); ``impl="kernel"``: K2 on :meth:`lane_plan` (a meta
+        tensor — the dry run's shapes — takes K2's plain version on the
+        arrays, which needs no plan)."""
+        kernel = self.cfg.sparsity.impl_is_kernel()
+        if kernel and torch.is_grad_enabled() and self.values2d.requires_grad:
             raise NotImplementedError(
-                "tensor-parallel lanes run the segment sum: train a "
-                "SparseLinear with impl='ref'")
+                "K2 has no backward: train tensor-parallel lanes with "
+                "impl='ref'")
         mesh, md, n = view.mesh, view.mesh_dim, view.size
         x = layout.gather_dim(h, -1, mesh, md, grad="sum")
         lead = x.shape[:-1]
         xt = x.reshape(-1, self.d_in).T                   # (d_in, T)
         lanes = self.values2d.shape[1]
         n_groups = -(-self.d_out // self.cfg.sparsity.group_size)
-        y = SegmentSum.apply(self.cast("values2d", x.dtype), xt,
-                             self.columns2d, self.chunk_group,
-                             n_groups * lanes)            # (rows / n, T)
+        if kernel and x.is_meta:
+            if lanes % ops.SEGMENT:
+                self.lane_plan(x.dtype, view)             # raises
+            y = rgcsr_spmm_plain(self.cast("values2d", x.dtype),
+                                 self.columns2d, self.chunk_group,
+                                 xt.contiguous(), n_groups=n_groups)
+        elif kernel:
+            y = ops.rgcsr_spmm(self.lane_plan(x.dtype, view), xt)
+        else:
+            y = SegmentSum.apply(self.cast("values2d", x.dtype), xt,
+                                 self.columns2d, self.chunk_group,
+                                 n_groups * lanes)        # (rows / n, T)
         y = layout.gather_dim(y.T, -1, mesh, md)          # rank-major
         y = y.reshape(-1, n, n_groups, lanes).transpose(1, 2)
         return y.reshape(-1, n * n_groups * lanes)[:, :self.d_out] \

@@ -335,10 +335,11 @@ class LanguageModel(nn.Module):
             out.append(("mtp/block", self.mtp.block))
         return out
 
-    def tensor_parallel_plan(self, view):
-        """``(modes, classes)`` of tensor-parallel training on ``view``
-        (the partitioner's ``TensorParallelView``): each unit's mode by
-        ``id(module)`` and each leaf's gather by key (``split`` / ``whole``;
+    def tensor_parallel_plan(self, view, serving: bool = False):
+        """``(modes, classes)`` of tensor-parallel training (or, with
+        ``serving``, of a serving step) on ``view`` (the partitioner's
+        ``TensorParallelView``): each unit's mode by ``id(module)`` and
+        each leaf's gather by key (``split`` / ``whole`` / ``local``;
         ``models.transformer.block_tp_plan``).  The attention mode is
         ``cfg.attn_shard_mode``, ``"none"`` resolved by divisibility."""
         attn_mode = shardlib.attn_mode_for(self.cfg, view.size)
@@ -353,7 +354,7 @@ class LanguageModel(nn.Module):
             classes["lm_head/kernel"] = "split"
         for prefix, block in self.blocks():
             tfm.block_tp_plan(block, view, prefix, attn_mode, modes,
-                              classes)
+                              classes, serving)
         return modes, classes
 
     def tensors(self) -> Dict[str, torch.Tensor]:
@@ -365,32 +366,37 @@ class LanguageModel(nn.Module):
     # -------------------------------------------------------------- serving
     def init_cache(self, batch_size: int, s_max: int, *,
                    shape_kind: str = "decode", enc_len: int = 0,
-                   paging=None) -> List[Dict[str, Any]]:
+                   paging=None, device=None) -> List[Dict[str, Any]]:
         """One cache per layer: KV (dense slab, ring or pages) for
         attention, the recurrent state for ``ssm`` and ``rec``, and with
         ``enc_len`` ``{"self", "ck", "cv"}`` for ``dec_attn`` (cross keys
         and values zeros until :meth:`prefill` fills them).  ``paging``:
         optional :class:`~repro_torch.models.attention.PageGeometry` —
         full-attention layers get paged (page-pool + block-table) caches
-        instead of dense per-slot slabs."""
+        instead of dense per-slot slabs.  ``device``: the model's by
+        default (``"meta"``: the shapes alone)."""
+        dev = self.device if device is None else device
         return [tfm.init_block_cache(self.cfg, block.kind, batch_size, s_max,
-                                     shape_kind, device=self.device,
+                                     shape_kind, device=dev,
                                      paging=paging, enc_len=enc_len)
                 for block in self.layers]
 
-    def prefill(self, batch, s_max: int, *, shape_kind: str = "prefill"):
+    def prefill(self, batch, s_max: int, *, shape_kind: str = "prefill",
+                caches=None):
         """Run the prompt (after its patches, for ``vlm``) through the
-        stack, filling fresh caches; for ``enc_dec`` the frames through
-        the encoder first, and each decoder layer's cross keys and values
-        from its output.  Returns (last-position logits (B, 1, V),
-        caches)."""
+        stack, filling fresh caches (``caches``: fresh ones given, at
+        index 0 — a mesh step's local slices); for ``enc_dec`` the frames
+        through the encoder first, and each decoder layer's cross keys
+        and values from its output.  Returns (last-position logits
+        (B, 1, V), caches)."""
         enc_out, enc_len = None, 0
         if self.cfg.enc_dec:
             enc_out = self._encode(batch["frames"])
             enc_len = enc_out.shape[1]
         x = self._embed_sequence(batch)
-        caches = self.init_cache(x.shape[0], s_max, shape_kind=shape_kind,
-                                 enc_len=enc_len)
+        if caches is None:
+            caches = self.init_cache(x.shape[0], s_max,
+                                     shape_kind=shape_kind, enc_len=enc_len)
         if enc_out is not None:
             caches = self._fill_cross_caches(caches, enc_out)
         pos = rope_positions(x.shape[0], x.shape[1], device=x.device)
@@ -408,16 +414,19 @@ class LanguageModel(nn.Module):
         out = []
         for block, cache in zip(self.layers, caches, strict=True):
             if isinstance(cache, dict) and "ck" in cache:
-                ck, cv = attn_mod.make_cross_cache(block.cross, self.cfg,
-                                                   enc_out)
-                cache = {"self": cache["self"], "ck": ck, "cv": cv}
+                with shardlib.gathered(block):
+                    ck, cv = attn_mod.make_cross_cache(block.cross,
+                                                       self.cfg, enc_out)
+                cache = {"self": cache["self"], "ck": ck.to(cache["ck"].dtype),
+                         "cv": cv.to(cache["cv"].dtype)}
             out.append(cache)
         return out
 
     def decode_step(self, caches, tokens, *, shape_kind: str = "decode"):
         """One-token serve step. tokens: (B, 1). Returns (logits, caches);
         the caches' kv tensors are written in place."""
-        x = self.embed.lookup(tokens, self.compute_dtype)
+        x = self.embed.lookup(tokens, self.compute_dtype,
+                              self._vocab_view(self.embed))
         index = _cache_index(caches)               # (B,) per-slot positions
         pos = index[:, None].expand(tokens.shape).to(torch.int32)
         x, caches, _ = tfm.stack_apply(self.layers, self.cfg, x, pos,

@@ -47,6 +47,17 @@ and aux terms, :func:`row_shard`'s too — is the same on every ``model``
 rank, and so is the dispatch buffer; the combine weights are copied in.
 Each rank runs its ``E/n`` experts, combines their outputs alone, and a
 reduce-out sums the ranks' parts.  A shared expert is its own split FFN.
+
+**Whole-mesh expert parallelism** (serving on a mesh, mode
+``("mesh_experts", dims)``: the serving rules cut the experts over
+``("data", "model")``): each rank holds ``E / (data·model)`` experts and
+the router's columns for them.  Each rank gathers the batch's rows over
+the mesh dims of ``dims`` that cut the rows (``shardlib.batch_rows``),
+computes its router columns on them and gathers the logits whole, so
+routing is the whole batch's on every rank (capacity and positions as
+on one device); it runs its experts on the rows routed to them, and the
+ranks' partial outputs are summed back — reduce-scattered to each rank's
+rows over the row dims, all-reduced over the others.
 """
 from __future__ import annotations
 
@@ -159,13 +170,14 @@ def row_shard(shard: Optional[RowShard]):
         _ROW_SHARD = saved
 
 
-def _select(layer: "MoE", cfg, x_flat, view=None):
+def _select(layer: "MoE", cfg, x_flat, view=None, logits=None):
     """(router logits, scores, expert_idx (T,k), combine_w (T,k) in x's
     dtype); routing runs in float32.  With ``view`` (expert-parallel) the
     router's kernel is this rank's experts' columns, and the logits are
-    gathered over ``model``."""
+    gathered over ``model``; ``logits``: given whole."""
     m = cfg.moe
-    logits = x_flat.float() @ layer.router.kernel.float()
+    if logits is None:
+        logits = x_flat.float() @ layer.router.kernel.float()
     if view is not None:
         logits = layout.gather_dim(logits, -1, view.mesh, view.mesh_dim)
     if m.score_fn == "sigmoid":
@@ -182,11 +194,11 @@ def _select(layer: "MoE", cfg, x_flat, view=None):
     return logits, scores, idx, w.to(x_flat.dtype)
 
 
-def _routing(layer: "MoE", cfg, x_flat, view=None):
+def _routing(layer: "MoE", cfg, x_flat, view=None, logits=None):
     """Returns (expert_idx (T,k), combine_w (T,k) in x's dtype, aux).
     Routing runs in float32."""
     m = cfg.moe
-    logits, scores, idx, w = _select(layer, cfg, x_flat, view)
+    logits, scores, idx, w = _select(layer, cfg, x_flat, view, logits)
     # Switch-style load-balance aux (also a balance metric for aux-free
     # models), and the router z-loss for logit drift
     probs_mean = (scores / (scores.sum(-1, keepdim=True) + 1e-9)).mean(0)
@@ -306,17 +318,18 @@ def _dispatch_scatter(layer: "MoE", cfg, x_flat, idx, w, *, dropless=False,
 
     token_of_copy = torch.div(order, m.top_k, rounding_mode="floor")
     gathered = x_flat[token_of_copy]                              # (T*k, d)
-    buf = x_flat.new_zeros((m.n_experts * c, d))
-    buf.index_add_(0, slot, torch.where(keep[:, None], gathered,
-                                        gathered.new_zeros(())))
-    expert_in = constrain(cfg, buf.reshape(m.n_experts, c, d), "model",
-                          None, None)                              # EP
-    if experts is not None:
+    n_e = m.n_experts
+    if experts is not None:           # this rank's experts' rows alone
         lo, hi = experts
-        expert_in = expert_in[lo:hi]
+        n_e = hi - lo
         mine = (sorted_e >= lo) & (sorted_e < hi)
         keep = keep & mine
         slot = torch.where(mine, slot - lo * c, 0)
+    buf = x_flat.new_zeros((n_e * c, d))
+    buf.index_add_(0, slot, torch.where(keep[:, None], gathered,
+                                        gathered.new_zeros(())))
+    expert_in = constrain(cfg, buf.reshape(n_e, c, d), "model",
+                          None, None)                              # EP
     expert_out = ffn_apply_stacked(layer.experts, cfg, expert_in)
     out_flat = expert_out.reshape(-1, d)
 
@@ -346,6 +359,11 @@ def moe_apply(layer: "MoE", cfg, x, *, dropless: bool = False
     t = b * s
     shard = _ROW_SHARD
     tp = shardlib.unit(layer)
+    if tp is not None and isinstance(tp[1], tuple):    # whole-mesh experts
+        y, aux = _mesh_experts(layer, cfg, x_flat, tp[0], tp[1][1], dropless)
+        if layer.shared is not None:
+            y = y + gated_ffn_apply(layer.shared, cfg, x_flat)
+        return y.reshape(b, s, d), aux
     view = None if tp is None else tp[0]
     x_in = x_flat
     split = {}
@@ -361,11 +379,7 @@ def moe_apply(layer: "MoE", cfg, x, *, dropless: bool = False
             split.update(n_tokens=t * shard.n_pieces, offset=offset)
     if view is not None:
         w = layout.copy_in(w, view.mesh, view.mesh_dim)
-    use_scatter = cfg.moe.dispatch == "scatter"
-    if dropless and not use_scatter:
-        cap = _capacity(cfg, t, dropless=True)
-        use_scatter = t * cfg.moe.n_experts * cap > _DROPLESS_EINSUM_BUDGET
-    if use_scatter:
+    if _use_scatter(cfg, t, dropless):
         y = _dispatch_scatter(layer, cfg, x_in, idx, w, dropless=dropless,
                               **split)
     else:
@@ -376,6 +390,43 @@ def moe_apply(layer: "MoE", cfg, x, *, dropless: bool = False
     if layer.shared is not None:
         y = y + gated_ffn_apply(layer.shared, cfg, x_flat)
     return y.reshape(b, s, d), aux
+
+
+def _use_scatter(cfg, t: int, dropless: bool) -> bool:
+    """The dispatch of ``t`` tokens: ``cfg.moe.dispatch``, or scatter for a
+    dropless einsum past ``_DROPLESS_EINSUM_BUDGET`` (the same math)."""
+    if cfg.moe.dispatch == "scatter":
+        return True
+    if not dropless:
+        return False
+    cap = _capacity(cfg, t, dropless=True)
+    return t * cfg.moe.n_experts * cap > _DROPLESS_EINSUM_BUDGET
+
+
+def _mesh_experts(layer: "MoE", cfg, x_flat, view, dims, dropless):
+    """Whole-mesh expert parallelism (the module's note): this rank's rows
+    ``x_flat`` in, their summed expert outputs and the whole batch's aux
+    terms out."""
+    mesh = view.mesh
+    rows = [i for i in shardlib.batch_rows() if i in dims]
+    x_all = x_flat
+    for i in reversed(rows):         # minor dim first: rows in batch order
+        x_all = layout.gather_dim(x_all, 0, mesh, i)
+    logits = x_all.float() @ layer.router.kernel.float()
+    for i in reversed(dims):         # the columns' pieces in mesh order
+        logits = layout.gather_dim(logits, -1, mesh, i)
+    idx, w, aux = _routing(layer, cfg, x_all, logits=logits)
+    n, piece = view.piece(dims)
+    per = cfg.moe.n_experts // n
+    dispatch = _dispatch_scatter if _use_scatter(cfg, x_all.shape[0],
+                                                 dropless) \
+        else _dispatch_einsum
+    y = dispatch(layer, cfg, x_all, idx, w, dropless=dropless,
+                 experts=(piece * per, (piece + 1) * per))
+    for i in dims:                   # the sum of the ranks' parts
+        y = layout.reduce_scatter_dim(y, 0, mesh, i) if i in rows \
+            else layout.reduce_out(y, mesh, i)
+    return y, aux
 
 
 class MoE(nn.Module):

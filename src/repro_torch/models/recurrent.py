@@ -52,6 +52,15 @@ whole, of which a rank reads its heads' part):
   products are partial sums over every channel, reduce-scattered to the
   rank's channels together, in one collective (its backward
   all-gathers).
+
+Serving on a mesh (the same split with a state: a prefill's
+``return_state`` and the decode steps): the state is this rank's slice
+in the layout of ``Partitioner.cache_shardings`` — Mamba-2's ``conv``
+tail its ``conv_ch`` channels and ``ssm`` its heads, RG-LRU's ``conv``
+and ``h`` its ``d_rnn`` channels.  A rank convolves its own channels
+with its own tail (a decode step gathers the conv's products to the
+rank's heads, as training does) and updates its heads' or channels'
+state; the step returns the next state and never writes the given one.
 """
 from __future__ import annotations
 
@@ -232,12 +241,15 @@ def _mamba_gates(layer: "Mamba2", cfg, dt_raw, heads=slice(None)):
     return dt, a
 
 
-def _parallel(layer, return_state: bool):
-    """``(view, mode)`` of a mixer computing tensor-parallel, or None."""
+def _parallel(layer, with_state: bool):
+    """``(view, mode)`` of a mixer computing tensor-parallel, or None; one
+    that keeps a state runs in a serving step on a mesh."""
     tp = shardlib.unit(layer)
-    if tp is not None and return_state:
-        raise ValueError("a tensor-parallel mixer trains: it returns no "
-                         "state")
+    if tp is not None and with_state and shardlib.cache_layout(layer) is None:
+        raise ValueError("a tensor-parallel mixer with a state runs in a "
+                         "serving step on a mesh "
+                         "(launch.steps.make_prefill_step / make_decode_step "
+                         "with partitioner=)")
     return tp
 
 
@@ -248,7 +260,7 @@ def mamba2_apply(layer: "Mamba2", cfg, x, *, return_state: bool = False):
     (the module's note)."""
     tp = _parallel(layer, return_state)
     if tp is not None:
-        return _mamba2_split(layer, cfg, x, tp[0])
+        return _mamba2_split(layer, cfg, x, tp[0], return_state)
     bsz, l, _ = x.shape
     d_inner, n_heads, d_xbc = _mamba_dims(cfg)
     ssm = cfg.ssm
@@ -282,10 +294,12 @@ def mamba2_apply(layer: "Mamba2", cfg, x, *, return_state: bool = False):
     return out
 
 
-def _mamba2_split(layer: "Mamba2", cfg, x, view):
+def _mamba2_split(layer: "Mamba2", cfg, x, view, return_state=False):
     """:func:`mamba2_apply` on ``view``'s rank's heads (the module's
     note): ``x`` replicated along ``model``, the output the whole
-    ``(B, L, d)`` on every rank."""
+    ``(B, L, d)`` on every rank; with ``return_state`` also the rank's
+    slice of the end state (its conv channels' tail, its heads' SSM
+    state)."""
     bsz, l, _ = x.shape
     d_inner, n_heads, d_xbc = _mamba_dims(cfg)
     ssm = cfg.ssm
@@ -314,12 +328,53 @@ def _mamba2_split(layer: "Mamba2", cfg, x, view):
     dt, a = _mamba_gates(layer, cfg, dt_raw, heads)
 
     xs32 = at_least_f32(xs)
-    y, _ = _ssd_chunked(xs32, dt, a, at_least_f32(b), at_least_f32(c),
-                        ssm.chunk)
+    y, h_last = _ssd_chunked(xs32, dt, a, at_least_f32(b), at_least_f32(c),
+                             ssm.chunk)
     y = y + at_least_f32(layer.d_skip)[heads][None, None, :, None] * xs32
     y = y.reshape(bsz, l, -1).to(x.dtype)
     y = layer.out_norm.split(y * F.silu(z), view, cols, d_inner)
-    return layer.out_proj.row(y, view)
+    out = layer.out_proj.row(y, view)
+    if return_state:
+        tail = _conv_tail(xbc_raw, ssm.d_conv - 1, getattr(torch, cfg.dtype))
+        return out, {"conv": tail, "ssm": h_last}
+    return out
+
+
+def _mamba2_decode_split(layer: "Mamba2", cfg, state, x_t, view):
+    """:func:`mamba2_decode` on ``view``'s rank's heads with its slice of
+    the state (the module's note)."""
+    bsz = x_t.shape[0]
+    d_inner, n_heads, d_xbc = _mamba_dims(cfg)
+    ssm = cfg.ssm
+    n_bc = ssm.n_groups * ssm.d_state
+    mesh, md, n, r = view.mesh, view.mesh_dim, view.size, view.rank
+    heads = slice(r * n_heads // n, (r + 1) * n_heads // n)
+    cols = slice(heads.start * ssm.head_dim, heads.stop * ssm.head_dim)
+    ch = d_xbc // n
+    zxbcdt = layout.gather_dim(layer.in_proj.column(x_t, view), -1, mesh,
+                               md)
+    z = zxbcdt[..., cols]
+    xbc = zxbcdt[..., d_inner + r * ch: d_inner + (r + 1) * ch]
+    dt_raw = zxbcdt[..., d_inner + d_xbc:][..., heads]
+    xbc, conv_state = _conv_step(*layer.conv.weights(x_t.dtype),
+                                 state["conv"], xbc)
+    xbc = layout.gather_dim(F.silu(xbc), -1, mesh, md)
+    xs = xbc[..., cols].reshape(bsz, -1, ssm.head_dim)
+    rep = n_heads // ssm.n_groups
+    b = xbc[..., d_inner: d_inner + n_bc].reshape(
+        bsz, ssm.n_groups, ssm.d_state).repeat_interleave(rep, dim=1)[:, heads]
+    c = xbc[..., d_inner + n_bc:].reshape(
+        bsz, ssm.n_groups, ssm.d_state).repeat_interleave(rep, dim=1)[:, heads]
+    dt, a = _mamba_gates(layer, cfg, dt_raw, heads)
+    da = torch.exp(dt * a)
+    xs32 = at_least_f32(xs)
+    h = da[..., None, None] * state["ssm"] \
+        + (dt[..., None] * xs32)[..., None] * at_least_f32(b)[:, :, None, :]
+    y = torch.einsum("bhn,bhpn->bhp", at_least_f32(c), h)
+    y = y + at_least_f32(layer.d_skip)[heads][None, :, None] * xs32
+    y = y.reshape(bsz, -1).to(x_t.dtype)
+    y = layer.out_norm.split(y * F.silu(z), view, cols, d_inner)
+    return layer.out_proj.row(y, view), {"conv": conv_state, "ssm": h}
 
 
 def init_mamba2_state(cfg, batch: int,
@@ -336,7 +391,11 @@ def init_mamba2_state(cfg, batch: int,
 
 def mamba2_decode(layer: "Mamba2", cfg, state, x_t):
     """One-token step.  x_t: (B, d) -> (y_t, new state); O(1) in the
-    sequence.  The state is read, never written: the new one is returned."""
+    sequence.  The state is read, never written: the new one is returned.
+    On a mesh, the rank's heads (the module's note)."""
+    tp = _parallel(layer, True)
+    if tp is not None:
+        return _mamba2_decode_split(layer, cfg, state, x_t, tp[0])
     bsz = x_t.shape[0]
     d_inner, n_heads, d_xbc = _mamba_dims(cfg)
     ssm = cfg.ssm
@@ -445,7 +504,7 @@ def rglru_apply(layer: "RGLRU", cfg, x, *, return_state: bool = False):
     Tensor-parallel on this rank's channels (the module's note)."""
     tp = _parallel(layer, return_state)
     if tp is not None:
-        return _rglru_split(layer, x, tp[0])
+        return _rglru_split(layer, cfg, x, tp[0], return_state)
     gate = _gelu(layer.gate_proj(x))
     u_raw = layer.x_proj(x)
     u = _causal_conv(*layer.conv.weights(x.dtype), u_raw)
@@ -458,20 +517,26 @@ def rglru_apply(layer: "RGLRU", cfg, x, *, return_state: bool = False):
     return out
 
 
-def _rglru_split(layer: "RGLRU", x, view):
+def _rglru_split(layer: "RGLRU", cfg, x, view, return_state=False):
     """:func:`rglru_apply` on ``view``'s rank's ``d_rnn / n`` channels
     (the module's note): ``x`` replicated along ``model``, the output the
-    whole ``(B, L, d)`` on every rank."""
+    whole ``(B, L, d)`` on every rank; with ``return_state`` also the
+    rank's channels of the end state."""
     mesh, md = view.mesh, view.mesh_dim
     x = layout.copy_in(x, mesh, md)
     gate = _gelu(layer.gate_proj(x))
-    u = _causal_conv(*layer.conv.weights(x.dtype), layer.x_proj(x))
+    u_raw = layer.x_proj(x)
+    u = _causal_conv(*layer.conv.weights(x.dtype), u_raw)
     pre = layout.reduce_scatter_dim(torch.stack([layer.rg_w(u),
                                                  layer.in_w(u)]), -1,
                                     mesh, md)
     a, gated = _rglru_gates(layer, u, pre)
     h = _rglru_scan(a, gated)
-    return layer.out_proj.row(h.to(x.dtype) * gate, view)
+    out = layer.out_proj.row(h.to(x.dtype) * gate, view)
+    if return_state:
+        tail = _conv_tail(u_raw, _RGLRU_CONV - 1, getattr(torch, cfg.dtype))
+        return out, {"conv": tail, "h": h[:, -1, :]}
+    return out
 
 
 def init_rglru_state(cfg, batch: int,
@@ -485,15 +550,25 @@ def init_rglru_state(cfg, batch: int,
 
 
 def rglru_decode(layer: "RGLRU", cfg, state, x_t):
-    """One-token step.  x_t: (B, d) -> (y_t, new state)."""
+    """One-token step.  x_t: (B, d) -> (y_t, new state).  On a mesh, the
+    rank's channels (the module's note)."""
+    tp = _parallel(layer, True)
+    if tp is not None:
+        x_t = layout.copy_in(x_t, tp[0].mesh, tp[0].mesh_dim)
     gate = _gelu(layer.gate_proj(x_t))
     u = layer.x_proj(x_t)
     u, conv_state = _conv_step(*layer.conv.weights(x_t.dtype), state["conv"],
                                u)
-    a, gated = _rglru_gates(layer, u)
+    pre = None
+    if tp is not None:
+        pre = layout.reduce_scatter_dim(torch.stack([layer.rg_w(u),
+                                                     layer.in_w(u)]), -1,
+                                        tp[0].mesh, tp[0].mesh_dim)
+    a, gated = _rglru_gates(layer, u, pre)
     h = a * state["h"] + gated
-    return layer.out_proj(h.to(x_t.dtype) * gate), {"conv": conv_state,
-                                                    "h": h}
+    y = h.to(x_t.dtype) * gate
+    y = layer.out_proj(y) if tp is None else layer.out_proj.row(y, tp[0])
+    return y, {"conv": conv_state, "h": h}
 
 
 class RGLRU(ParamModule):

@@ -19,6 +19,13 @@ which segfaults with gloo on CUDA tensors on the card's PyTorch
 copy of the reference's (``repro.launch.dryrun``); :func:`attn_mode_for`
 resolves ``"none"`` by it and checks an explicit mode.
 
+**Serving on a mesh** runs the same units under :func:`tensor_parallel`
+with two more facts of the step: ``caches`` (each cached unit's cache
+leaves' placements, by ``id`` of the unit; the caches are this rank's
+plain slices in the layout of ``Partitioner.cache_shardings``, read by
+:func:`cache_layout`) and ``rows`` (the mesh dims that cut the batch's
+rows, which whole-mesh expert parallelism gathers over).
+
 The attention strategies (``cfg.attn_shard_mode``):
 
 * ``heads``  — shard the kv-head dim of q/k/v,
@@ -36,7 +43,8 @@ import torch
 
 __all__ = ["constrain", "batch_axes", "shard_attn_qkv",
            "resolve_attn_shard_mode", "attn_mode_for", "TensorParallel",
-           "tensor_parallel", "unit", "gathered"]
+           "tensor_parallel", "unit", "gathered", "cache_layout",
+           "batch_rows"]
 
 
 def resolve_attn_shard_mode(cfg, model_axis: int) -> str:
@@ -80,10 +88,15 @@ class TensorParallel:
     ``heads`` / ``repeat`` / ``seq`` for attention, ``split`` for an FFN,
     ``experts`` for a MoE layer, ``vocab`` for the embedding and an
     untied head) and ``bind`` (a module → a context in which its
-    parameters are this step's gathered slices)."""
+    parameters are this step's gathered slices).  Serving adds
+    ``caches`` (``id(unit)`` → cache leaf name → its placements) and
+    ``rows`` (the mesh dims that cut the batch's rows)."""
     view: Any
     modes: Dict[int, str]
     bind: Callable[[Any], Any]
+    caches: Dict[int, Dict[str, tuple]] = dataclasses.field(
+        default_factory=dict)
+    rows: Tuple[int, ...] = ()
 
 
 _TP: Optional[TensorParallel] = None
@@ -108,6 +121,17 @@ def unit(module) -> Optional[Tuple[Any, str]]:
         return None
     mode = _TP.modes.get(id(module))
     return None if mode is None else (_TP.view, mode)
+
+
+def cache_layout(module) -> Optional[Dict[str, tuple]]:
+    """The placements of ``module``'s cache leaves (by leaf name) when it
+    serves tensor-parallel on a mesh, else None."""
+    return None if _TP is None else _TP.caches.get(id(module))
+
+
+def batch_rows() -> Tuple[int, ...]:
+    """The mesh dims that cut the batch's rows in a serving step."""
+    return () if _TP is None else _TP.rows
 
 
 def gathered(module):

@@ -289,14 +289,25 @@ def _ffn_plan(layer: FFN, prefix, view, modes, classes):
             classes[f"{prefix}/{name}/{leaf}"] = "split"
 
 
-def _moe_plan(layer: MoE, prefix, view, modes, classes):
+def _moe_plan(layer: MoE, prefix, view, modes, classes, serving=False):
     """Mode ``experts`` when ``model`` cuts the router's columns and the
-    stacked experts' leading dim; the shared expert is an FFN."""
+    stacked experts' leading dim; ``("mesh_experts", mesh dims)`` when the
+    serving rules cut them over the whole of those mesh dims
+    (``models.moe``'s whole-mesh expert parallelism: the leaves are the
+    rank's own, ``local``).  Serving reads the router's bias whole.  The
+    shared expert is an FFN."""
     experts = {f"{prefix}/experts/{k}": 0 for k in layer.experts._parameters}
     want = dict(experts, **{f"{prefix}/router/kernel": 1})
-    if all(view.cuts.get(k) == d for k, d in want.items()):
+    wide = {view.wide.get(k, (None, None))[1] for k in want}
+    if all(view.wide.get(k, (None,))[0] == d for k, d in want.items()) \
+            and len(wide) == 1:
+        modes[id(layer)] = ("mesh_experts", wide.pop())
+        classes.update({k: "local" for k in want})
+    elif all(view.cuts.get(k) == d for k, d in want.items()):
         modes[id(layer)] = "experts"
         classes.update({k: "split" for k in want})
+    if serving and hasattr(layer.router, "bias"):
+        classes[f"{prefix}/router/bias"] = "whole"
     if layer.shared is not None:
         _ffn_plan(layer.shared, f"{prefix}/shared", view, modes, classes)
 
@@ -333,12 +344,14 @@ def _mixer_plan(layer, prefix, view, modes, classes):
 
 
 def block_tp_plan(block: Block, view, prefix: str, attn_mode: str,
-                  modes: Dict[int, str], classes: Dict[str, str]):
+                  modes: Dict[int, str], classes: Dict[str, str],
+                  serving: bool = False):
     """Fill ``modes`` (``id(unit)`` → mode) and ``classes`` (leaf key →
-    ``split`` / ``whole``; a leaf left out is gathered over the batch dims
-    and, where ``model`` cuts it, whole over ``model`` with its gradient
-    this rank's slice) for the units of ``block`` at ``prefix``
-    (``models.shardlib``)."""
+    ``split`` / ``whole`` / ``local``; a leaf left out is gathered over
+    the batch dims and, where ``model`` cuts it, whole over ``model`` with
+    its gradient this rank's slice) for the units of ``block`` at
+    ``prefix`` (``models.shardlib``); ``serving``: the plan of a serving
+    step (no gradients)."""
     for name in ("attn", "cross"):
         if hasattr(block, name):
             _attn_plan(getattr(block, name), f"{prefix}/{name}", view,
@@ -349,7 +362,8 @@ def block_tp_plan(block: Block, view, prefix: str, attn_mode: str,
                         modes, classes)
     if hasattr(block, "ffn"):
         if isinstance(block.ffn, MoE):
-            _moe_plan(block.ffn, f"{prefix}/ffn", view, modes, classes)
+            _moe_plan(block.ffn, f"{prefix}/ffn", view, modes, classes,
+                      serving)
         else:
             _ffn_plan(block.ffn, f"{prefix}/ffn", view, modes, classes)
 

@@ -100,8 +100,17 @@ def sample_tokens(logits, generator: Optional[torch.Generator],
     return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
-def make_decode_step(model, shape_kind: str = "decode"):
-    """``(caches, tokens) → (logits, caches)`` for ``model``."""
+def make_decode_step(model, shape_kind: str = "decode", partitioner=None):
+    """``(caches, tokens) → (logits, caches)`` for ``model``.  With
+    ``partitioner`` the step runs tensor-parallel on its mesh, eagerly
+    (``launch.steps``'s serving note): the engine and :class:`FusedDecode`
+    serve on one card, and gloo collectives cannot be captured in a CUDA
+    graph."""
+    if partitioner is not None:
+        from repro_torch.launch.steps import _Serving
+        serving = _Serving(model, partitioner, shape_kind)
+        return serving.decode
+
     def decode_step(caches, tokens):
         return model.decode_step(caches, tokens, shape_kind=shape_kind)
     return decode_step

@@ -17,7 +17,8 @@ minor) is cut by each mesh dim in turn, in mesh-dim order, as DTensor's
 
 * :func:`local_chunk` / :func:`distribute` — a whole tensor that every
   rank holds, laid out without communication (each rank keeps its slice).
-* :func:`gather` — the whole tensor of a DTensor (every rank).
+* :func:`gather` — the whole tensor of a DTensor (every rank);
+  :func:`gather_local` the same from a rank's plain slice.
 * :func:`gather_at_use` — the same under autograd: the backward sums the
   whole-tensor gradients of every rank and hands each its slice, as a
   DTensor of the parameter's placements (a reduce-scatter along sharded
@@ -68,6 +69,7 @@ import torch.distributed as dist
 
 __all__ = ["Collective", "collective_log", "record_collective",
            "local_chunk", "distribute", "from_local", "gather",
+           "gather_local",
            "gather_at_use", "gather_local_at_use", "gather_rows",
            "reduce_to_local", "all_reduce_over", "relayout", "is_dtensor",
            "sharded_mesh_dims", "replicas", "select", "copy_in",
@@ -246,6 +248,13 @@ def gather(dt) -> torch.Tensor:
     with torch.no_grad():
         return _gather_local(dt.to_local().detach(), dt.device_mesh,
                              dt.placements)
+
+
+def gather_local(local: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """The whole tensor from every rank's plain slice ``local`` under
+    ``placements`` (collective: every rank of the mesh calls it)."""
+    with torch.no_grad():
+        return _gather_local(local.detach(), mesh, placements)
 
 
 def gather_rows(local: torch.Tensor, mesh, placements) -> torch.Tensor:

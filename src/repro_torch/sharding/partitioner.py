@@ -32,7 +32,16 @@ resolves.
 tensor-parallel view of training: the ``model`` mesh dim, its size, this
 rank's coordinate on it and its group, the other (batch, FSDP) mesh dims,
 and for each leaf the tensor dim that ``model`` cuts (None where the
-divisibility fallback left it whole).
+divisibility fallback left it whole).  A leaf cut over ``model`` together
+with other axes (the serving rules' experts over ``("data", "model")``)
+is cut over the whole of those mesh dims: the view keeps it apart
+(``wide``), since a rank's chunk depends on every coordinate of the cut.
+
+Serving on a mesh (``launch.steps.make_prefill_step`` / ``make_decode_step``
+with ``partitioner=``) keeps its caches as plain local slices in the
+layout of :meth:`Partitioner.cache_shardings`: :meth:`Partitioner.local_caches`
+cuts a whole cache tree into this rank's slices and
+:meth:`Partitioner.whole_caches` gathers them back (a collective).
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ from repro_torch.sharding import layout
 
 __all__ = ["Partitioner", "ShardingRules", "TRAIN_RULES", "SERVE_RULES",
            "NamedSharding", "TensorParallelView", "resolve_spmv_shard_axis",
-           "mesh_signature"]
+           "mesh_signature", "LocalCache"]
 
 Spec = Tuple[Any, ...]
 
@@ -212,12 +221,15 @@ class NamedSharding:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TensorParallelView:
-    """Training's tensor-parallel view of a mesh: ``mesh_dim`` is the
-    ``model`` axis's index, ``size`` its rank count, ``rank`` this rank's
-    coordinate on it, ``group`` its process group; ``batch_dims`` the
-    other mesh dims (over which parameters are gathered and gradients
-    summed); ``cuts`` maps each leaf (keyed as ``LanguageModel.tensors()``
-    keys it) to the tensor dim that ``model`` cuts, or None."""
+    """The tensor-parallel view of a mesh (training's, and a serving
+    step's): ``mesh_dim`` is the ``model`` axis's index, ``size`` its rank
+    count, ``rank`` this rank's coordinate on it, ``group`` its process
+    group; ``batch_dims`` the other mesh dims (over which parameters are
+    gathered and gradients summed); ``cuts`` maps each leaf (keyed as
+    ``LanguageModel.tensors()`` keys it) to the tensor dim that ``model``
+    alone cuts, or None; ``wide`` each leaf cut over ``model`` and other
+    mesh dims together to ``(tensor dim, those mesh dims in order)`` (its
+    ``cuts`` entry is None)."""
     mesh: Any
     mesh_dim: int
     size: int
@@ -225,6 +237,19 @@ class TensorParallelView:
     group: Any
     batch_dims: Tuple[int, ...]
     cuts: Dict[str, Optional[int]]
+    wide: Dict[str, Tuple[int, Tuple[int, ...]]] = dataclasses.field(
+        default_factory=dict)
+
+    def piece(self, mesh_dims: Tuple[int, ...]) -> Tuple[int, int]:
+        """``(count, index)`` of this rank's chunk of a dim cut over
+        ``mesh_dims`` (major to minor), as ``layout.local_chunk`` cuts
+        it."""
+        coord = self.mesh.get_coordinate()
+        n, i = 1, 0
+        for d in mesh_dims:
+            n *= self.mesh.size(d)
+            i = i * self.mesh.size(d) + coord[d]
+        return n, i
 
 
 def _flat_specs(tree, prefix: str = "") -> Dict[str, Spec]:
@@ -239,11 +264,55 @@ def _flat_specs(tree, prefix: str = "") -> Dict[str, Spec]:
 
 
 def _model_cut(spec: Spec) -> Optional[int]:
+    """The tensor dim that ``model`` alone cuts (None: none, or a cut
+    over ``model`` with other axes, :func:`_wide_cut`)."""
     for d, entry in enumerate(spec):
-        if entry == "model" or (isinstance(entry, tuple)
-                                and "model" in entry):
+        if entry == "model" or entry == ("model",):
             return d
     return None
+
+
+def _wide_cut(spec: Spec, names: Tuple[str, ...]):
+    """``(tensor dim, mesh dims)`` of a dim cut over ``model`` together
+    with other mesh axes, else None."""
+    for d, entry in enumerate(spec):
+        if isinstance(entry, tuple) and "model" in entry and len(entry) > 1:
+            return d, tuple(names.index(a) for a in entry)
+    return None
+
+
+class LocalCache(dict):
+    """One layer's cache (or a decoder layer's nested ``self`` cache) as
+    this rank's plain slices: a dict of tensors that also carries
+    ``placements``, each leaf's DTensor placements under
+    :meth:`Partitioner.cache_shardings` (``index`` is replicated: every
+    rank holds the whole ``(B,)`` vector)."""
+
+    def __init__(self, items, placements):
+        super().__init__(items)
+        self.placements = dict(placements)
+
+
+def _map_caches(fn, tree, shardings):
+    """``fn(leaf, sharding)`` over a cache tree and its shardings; the
+    dicts of leaves come back as :class:`LocalCache`."""
+    if isinstance(tree, dict):
+        out = {k: _map_caches(fn, v, shardings[k]) for k, v in tree.items()}
+        pl = {k: sh.placements() for k, sh in shardings.items()
+              if isinstance(sh, NamedSharding)}
+        return LocalCache(out, pl)
+    if isinstance(tree, (list, tuple)):
+        return [_map_caches(fn, v, sh) for v, sh in zip(tree, shardings)]
+    return None if tree is None else fn(tree, shardings)
+
+
+def _plain(tree):
+    """A cache tree with plain dicts."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_plain(v) for v in tree]
+    return tree
 
 
 def resolve_spmv_shard_axis(mesh, shape_kind: str = "decode") -> str:
@@ -305,14 +374,15 @@ class Partitioner:
         dim = names.index("model")
         if self.mesh.size(dim) == 1:
             return None
-        cuts = {k: _model_cut(s) for k, s in
-                _flat_specs(self.param_specs(spec_tree)).items()}
+        specs = _flat_specs(self.param_specs(spec_tree))
+        wide = {k: w for k, s in specs.items()
+                if (w := _wide_cut(s, names)) is not None}
         return TensorParallelView(
             mesh=self.mesh, mesh_dim=dim, size=self.mesh.size(dim),
             rank=self.mesh.get_coordinate()[dim],
             group=self.mesh.get_group(dim),
             batch_dims=tuple(i for i in range(len(names)) if i != dim),
-            cuts=cuts)
+            cuts={k: _model_cut(s) for k, s in specs.items()}, wide=wide)
 
     # ------------------------------------------------------------ primitives
     def _dim_spec(self, dim: int, name: Optional[str], used: set):
@@ -461,6 +531,23 @@ class Partitioner:
         else:
             spec = [dim(shape[0], batch_c)] + [None] * (nd - 1)
         return tuple(prefix + spec)
+
+    def local_caches(self, cache_tree):
+        """This rank's slices of ``cache_tree`` (whole, the same on every
+        rank) in the layout of :meth:`cache_shardings`, each layer's dict
+        a :class:`LocalCache`: views, nothing communicated."""
+        return _map_caches(lambda t, sh: layout.local_chunk(
+            t, self.mesh, sh.placements()), cache_tree,
+            self.cache_shardings(cache_tree))
+
+    def whole_caches(self, local_tree, like):
+        """The whole caches from every rank's slices ``local_tree`` of a
+        tree shaped as ``like`` (whole tensors or meta ones of the whole
+        shapes): a collective, every rank calls it."""
+        whole = _map_caches(lambda t, sh: layout.gather_local(
+            t, self.mesh, sh.placements()), local_tree,
+            self.cache_shardings(like))
+        return _plain(whole)
 
     # ---------------------------------------------------------------- output
     def logits_sharding(self, batch: int):

@@ -653,11 +653,84 @@ def collective_summary(cost):
     return out
 
 
+# the dry run's serving check on (2, 2): case → (DRYRUN_CASES-like arch,
+# RgCSR FFN through K2, shape kind, batch, seq): a prefill of batch × seq
+# tokens, or one decode step against fresh caches of seq positions
+DRYRUN_SERVE_CASES = {
+    "granite-3-2b/prefill": ("granite-3-2b", True, "prefill", 4, 16),
+    "granite-3-2b/decode": ("granite-3-2b", True, "decode", 4, 16),
+    "granite-3-2b/long_decode": ("granite-3-2b", True, "long_decode", 1,
+                                 128),
+    "deepseek-v3-671b/prefill": ("deepseek-v3-671b", False, "prefill", 4,
+                                 16),
+    "deepseek-v3-671b/decode": ("deepseek-v3-671b", False, "decode", 4, 16),
+    "recurrentgemma-9b/decode": ("recurrentgemma-9b", True, "decode", 4,
+                                 16),
+    "seamless-m4t-medium/prefill": ("seamless-m4t-medium", True, "prefill",
+                                    4, 16),
+}
+
+
+def dryrun_serve_cfg(case):
+    """A ``DRYRUN_SERVE_CASES`` case's smoke config in fp32,
+    tensor-parallel, with the RgCSR FFN through K2 where it asks."""
+    from repro_torch.configs.base import SparsityConfig
+    arch, sparse = DRYRUN_SERVE_CASES[case][:2]
+    cfg = dataclasses.replace(sharded_cfg(arch, False), act_shard=True)
+    if sparse:
+        cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+            enabled=True, density=0.25, group_size=128, impl="kernel"))
+    return cfg
+
+
+def serve_step_cost(cfg, mesh, kind, batch, seq, device="cpu"):
+    """One serving step of ``cfg`` on ``mesh`` on this rank, on real
+    tensors, as ``launch.dryrun.serve_cost`` runs it on meta ones (the
+    same inputs' shapes, fresh caches of ``seq`` positions), counted by
+    ``launch.hlo_cost.analyze_hlo``: ``{"flops", "by_dtype",
+    "collectives"}``."""
+    from repro_torch.configs import input_specs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.hlo_cost import analyze_hlo
+    from repro_torch.launch.steps import (local_zeros, make_decode_step,
+                                          make_prefill_step,
+                                          shard_for_serving)
+    from repro_torch.models import LanguageModel
+    from repro_torch.sharding import Partitioner
+    from repro_torch.train.trainer import _attention_on
+    part = Partitioner(mesh, kind)
+    cfg = _attention_on(cfg, mesh)
+    model = shard_for_serving(LanguageModel(cfg, device=device, seed=0),
+                              part)
+    specs = input_specs(cfg, ShapeConfig("dryrun", seq, batch, kind))
+    gen = torch.Generator().manual_seed(0)
+    inputs = {k: (torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                dtype=v.dtype)
+                  if not v.is_floating_point()
+                  else torch.randn(v.shape, generator=gen, dtype=v.dtype))
+              for k, v in specs.items()}
+    enc_len = (seq if kind == "prefill" else 4096) if cfg.enc_dec else 0
+    caches = local_zeros(part, LanguageModel(cfg, device="meta").init_cache(
+        batch, seq, shape_kind=kind, enc_len=enc_len, device="meta"),
+        torch.device(device))
+    if kind == "prefill":
+        step = make_prefill_step(model, seq, kind, partitioner=part)
+        run = lambda: step(inputs, caches=caches)          # noqa: E731
+    else:
+        step = make_decode_step(model, kind, partitioner=part)
+        run = lambda: step(caches, inputs["tokens"])       # noqa: E731
+    cost = analyze_hlo(run, mesh.size())
+    return {"flops": cost.flops, "by_dtype": cost.flops_by_dtype,
+            "collectives": collective_summary(cost)}
+
+
 def dryrun_ranks(rank, world, device="cpu"):
     """One tensor-parallel train step of every ``DRYRUN_CASES`` case on a
-    (2, 2) mesh of real ranks (``Trainer(mesh=)``), counted by
-    ``launch.hlo_cost.analyze_hlo``: each case's product FLOPs, FLOPs by
-    dtype and collectives by kind and axis on this rank."""
+    (2, 2) mesh of real ranks (``Trainer(mesh=)``), then one serving step
+    of every ``DRYRUN_SERVE_CASES`` case (:func:`serve_step_cost`),
+    counted by ``launch.hlo_cost.analyze_hlo``: each case's product
+    FLOPs, FLOPs by dtype and collectives by kind and axis on this
+    rank."""
     from repro_torch.launch.hlo_cost import analyze_hlo
     from repro_torch.sharding import Partitioner
     from repro_torch.train.trainer import Trainer
@@ -673,4 +746,291 @@ def dryrun_ranks(rank, world, device="cpu"):
                            world)
         out[case] = {"flops": cost.flops, "by_dtype": cost.flops_by_dtype,
                      "collectives": collective_summary(cost)}
+    for case, (_, _, kind, batch, seq) in DRYRUN_SERVE_CASES.items():
+        out[case] = serve_step_cost(dryrun_serve_cfg(case), mesh, kind,
+                                    batch, seq, device)
+    return out
+
+
+# --------------------------------------------------------- serving on a mesh
+
+# case → (arch, RgCSR FFN through K2, mesh shape, shape kind, overrides):
+# the mesh prefill and decode steps against the port's one-device steps.
+# granite's kv heads (2) divide a model axis of 2 (heads) but not of 4
+# (repeat, the k/v cache cut over head-dim; seamless's cross ck/cv too);
+# 6 query heads do not divide 4 either (seq; MLA's too); G = 128 lanes
+# over 2 and 4 model ranks give K2 lane plans of 64 and 32 lanes;
+# minicpm3 is MLA (its latent cut over R), deepseek-v3 MLA with
+# whole-mesh MoE; long_decode holds batch 1, its cache's ring cut over
+# data
+SERVE_CASES = {
+    "granite-3-2b": ("granite-3-2b", True, (2, 2), "decode", {}),
+    "granite-3-2b/1x4": ("granite-3-2b", True, (1, 4), "decode", {}),
+    "granite-3-2b/seq": ("granite-3-2b", False, (1, 4), "prefill",
+                         {"n_heads": 6}),
+    "granite-3-2b/long": ("granite-3-2b", True, (2, 2), "long_decode", {}),
+    "minicpm3-4b": ("minicpm3-4b", True, (2, 2), "decode", {}),
+    "minicpm3-4b/long": ("minicpm3-4b", False, (2, 2), "long_decode", {}),
+    "minicpm3-4b/6heads": ("minicpm3-4b", False, (1, 4), "decode",
+                           {"n_heads": 6}),
+    "deepseek-v3-671b": ("deepseek-v3-671b", False, (2, 2), "decode", {}),
+    "deepseek-v3-671b/scatter": ("deepseek-v3-671b", False, (1, 4),
+                                 "decode", {"dispatch": "scatter"}),
+    "granite-moe-1b-a400m": ("granite-moe-1b-a400m", False, (2, 2),
+                             "decode", {}),
+    "mamba2-780m": ("mamba2-780m", False, (2, 2), "decode",
+                    {"ssm": MAMBA2_SSM}),
+    "recurrentgemma-9b": ("recurrentgemma-9b", True, (2, 2), "decode", {}),
+    "seamless-m4t-medium": ("seamless-m4t-medium", True, (2, 2), "decode",
+                            {}),
+    "seamless-m4t-medium/1x4": ("seamless-m4t-medium", False, (1, 4),
+                                "decode", {}),
+    "pixtral-12b": ("pixtral-12b", True, (2, 2), "decode", {}),
+}
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX = 4, 8, 3, 24
+# long_decode: one prompt longer than the smoke configs' 64-slot window
+SERVE_LONG_PROMPT = 70
+
+
+def serve_cfg(case):
+    """A ``SERVE_CASES`` case's smoke config in fp32, tensor-parallel, with
+    the RgCSR FFN through K2 (``impl="kernel"``) where it asks for one."""
+    from repro_torch.configs.base import SparsityConfig
+    arch, sparse, _, _, over = SERVE_CASES[case]
+    over = dict(over)
+    if "dispatch" in over:
+        over["moe"] = dataclasses.replace(get_smoke(arch).moe,
+                                          dispatch=over.pop("dispatch"))
+    cfg = dataclasses.replace(sharded_cfg(arch, False), act_shard=True,
+                              **over)
+    if sparse:
+        cfg = dataclasses.replace(cfg, sparsity=SparsityConfig(
+            enabled=True, density=0.25, group_size=128, impl="kernel"))
+    return cfg
+
+
+def serve_inputs(cfg, kind, device="cpu"):
+    """The prompt batch of a case (drawn from seed 0) and ``s_max``."""
+    from repro_torch.configs import concrete_inputs
+    if kind == "long_decode":
+        b, s = 1, SERVE_LONG_PROMPT
+    else:
+        b, s = SERVE_BATCH, SERVE_PROMPT + (cfg.frontend_tokens
+                                            if cfg.family == "vlm" else 0)
+    batch = concrete_inputs(cfg, batch=b, seq=s, kind="prefill", seed=0,
+                            device=device)
+    return batch, s + SERVE_STEPS + 1
+
+
+def _np_caches(caches):
+    """A cache tree as numpy leaves keyed by path."""
+    out = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}/")
+        else:
+            out[prefix[:-1]] = node.detach().float().cpu().numpy()
+    walk(caches, "")
+    return out
+
+
+def serve_one_device(cfg, kind, device="cpu"):
+    """The port's one-device prefill and ``SERVE_STEPS`` greedy decode
+    steps of ``cfg``: (logits of each step, tokens fed, caches after the
+    prefill and after the last step)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import LanguageModel
+    model = LanguageModel(cfg, device=device, seed=0)
+    batch, s_max = serve_inputs(cfg, kind, device)
+    with torch.no_grad():
+        logits, caches = make_prefill_step(model, s_max, kind)(batch)
+        first = [_np_caches(caches)]
+        steps, fed = [logits], []
+        decode = make_decode_step(model, kind)
+        for _ in range(SERVE_STEPS):
+            tok = torch.argmax(steps[-1][:, -1], -1).to(torch.int32)[:, None]
+            fed.append(tok)
+            logits, caches = decode(caches, tok)
+            steps.append(logits)
+    return steps, fed, first + [_np_caches(caches)], caches, s_max
+
+
+def serve_ranks(rank, world, device="cpu", cases=None):
+    """Every ``SERVE_CASES`` case (of ``cases``) on its mesh of the
+    ``world`` ranks: the one-device steps, then the mesh steps
+    (``make_prefill_step`` / ``make_decode_step`` with ``partitioner=``)
+    fed the same tokens; each step's logits gap (this rank's rows against
+    the one-device rows) relative to ``1 + max|one-device|``, the cache
+    slices' gap against ``Partitioner.local_caches`` of the one-device
+    caches and the slices gathered whole again
+    (``Partitioner.whole_caches``) against them, the decode steps from
+    the one-device prefill's caches sliced,
+    the lane plans built, and the resolved attention mode and unit
+    modes."""
+    from repro_torch.launch.steps import (_Binding, make_decode_step,
+                                          make_prefill_step,
+                                          shard_for_serving)
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.ffn import SparseLinear
+    from repro_torch.sharding import Partitioner, layout
+    from repro_torch.train.trainer import _attention_on
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    meshes = {}
+    for case, (_, _, shape, kind, _) in SERVE_CASES.items():
+        if cases is not None and case not in cases:
+            continue
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"),
+                                      device_type=dev.type)
+        mesh = meshes[shape]
+        part = Partitioner(mesh, kind)
+        cfg = _attention_on(serve_cfg(case), mesh)
+        steps, fed, want, whole, s_max = serve_one_device(cfg, kind, device)
+        batch, _ = serve_inputs(cfg, kind, device)
+        model = shard_for_serving(LanguageModel(cfg, device=device, seed=0),
+                                  part)
+        rows = part.batch_shardings(batch)["tokens"].placements()
+        prefill = make_prefill_step(model, s_max, kind, partitioner=part)
+        decode = make_decode_step(model, kind, partitioner=part)
+
+        def gap(got, ref):     # the real columns (the padding's: -1e30)
+            ref = layout.local_chunk(ref, mesh, rows)[..., :cfg.vocab]
+            return float((got[..., :cfg.vocab] - ref).abs().max()
+                         / (1.0 + ref.abs().max()))
+
+        def cache_gap(local, ref):
+            ref = _np_caches(part.local_caches(ref))
+            got = _np_caches(local)
+            assert sorted(got) == sorted(ref), (sorted(got), sorted(ref))
+            return max(float(np.abs(got[k] - ref[k]).max()
+                             / (1.0 + np.abs(ref[k]).max()))
+                       if got[k].size else 0.0 for k in got)
+        res = {"mode": cfg.attn_shard_mode, "units": sorted(
+            str(m) for m in set(_Binding(model, part.tensor_parallel(
+                model.spec()), True).modes.values()))}
+        logits, caches = prefill(batch)
+        res["logits"] = [gap(logits, steps[0])]
+        res["tokens"] = [bool(torch.equal(
+            torch.argmax(logits[:, -1], -1),
+            layout.local_chunk(torch.argmax(steps[0][:, -1], -1), mesh,
+                               rows)))]
+        prefill_caches = caches
+        for i, tok in enumerate(fed):
+            logits, caches = decode(caches, tok)
+            res["logits"].append(gap(logits, steps[i + 1]))
+        res["caches"] = [cache_gap(caches, whole)]
+        # and back: the ranks' slices gathered whole (a collective)
+        back, ref = (_np_caches(t) for t in (part.whole_caches(caches, whole),
+                                             whole))
+        res["whole"] = (sorted(back) == sorted(ref), max(
+            float(np.abs(back[k] - ref[k]).max()
+                  / (1.0 + np.abs(ref[k]).max())) for k in ref))
+        res["prefill_caches"] = prefill_caches is not None
+        # decode from the one-device prefill's caches, sliced
+        one = LanguageModel(cfg, device=device, seed=0)
+        with torch.no_grad():
+            _, c1 = make_prefill_step(one, s_max, kind)(batch)
+        caches = part.local_caches(c1)
+        for i, tok in enumerate(fed):
+            logits, caches = decode(caches, tok)
+            res["logits"].append(gap(logits, steps[i + 1]))
+        res["caches"].append(cache_gap(caches, whole))
+        res["lane_plans"] = [m.plan_builds for m in model.modules()
+                             if isinstance(m, SparseLinear)]
+        if res["lane_plans"]:
+            view = part.tensor_parallel(model.spec())
+            res["lanes"] = lane_checks(model, one, cfg, view,
+                                       _Binding(model, view, True), device)
+        out[case] = res
+    if cases is None:
+        out["raises"] = serve_raises(device)
+    return out
+
+
+def lane_checks(model, one, cfg, view, binding, device="cpu"):
+    """Layer 0's RgCSR ``w_out`` of ``model`` (laid out on a mesh) on this
+    rank's lanes: ``SparseLinear.lanes`` through K2 on the lane plan
+    (``impl="kernel"``, the plain version on CPU tensors) and through the
+    segment sum (``impl="ref"``) against the whole layer of ``one`` (the
+    one-device model), on an input drawn from seed 0 (the rank's ``d_ff``
+    slice of it); each gap relative to ``1 + max|whole|``."""
+    gen = torch.Generator().manual_seed(0)
+    whole_layer = one.layers[0].ffn.w_out
+    x = torch.randn(2, 3, whole_layer.d_in, generator=gen).to(device)
+    want = whole_layer(x)
+    h = x.chunk(view.size, -1)[view.rank]
+    block = model.layers[0]
+    out = {}
+    with torch.no_grad(), binding.step(model.tensors()), binding.bind(block):
+        layer = block.ffn.w_out
+        for impl in ("kernel", "ref"):
+            saved = layer.cfg
+            layer.cfg = dataclasses.replace(
+                saved, sparsity=dataclasses.replace(saved.sparsity,
+                                                    impl=impl))
+            try:
+                got = layer.lanes(h, view)
+            finally:
+                layer.cfg = saved
+            out[impl] = float((got - want).abs().max()
+                              / (1.0 + want.abs().max()))
+    return out
+
+
+def serve_raises(device="cpu"):
+    """The refusals of serving on a (1, 4) mesh, each ``ValueError``'s
+    message: an explicit attention mode the rules do not divide (2 kv
+    heads over 4 ranks), K2 lanes G/n that are no multiple of 32 (64 over
+    4), the paged pool, and a config without ``act_shard``."""
+    from repro_torch.configs.base import SparsityConfig
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          shard_for_serving)
+    from repro_torch.models import LanguageModel
+    from repro_torch.models.attention import PageGeometry
+    from repro_torch.sharding import Partitioner
+    from repro_torch.train.trainer import _attention_on
+    mesh = make_mesh((1, 4), ("data", "model"),
+                     device_type=torch.device(device).type)
+    part = Partitioner(mesh, "decode")
+    out = {}
+
+    def message(fn):
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return None
+
+    def mesh_model(cfg):
+        return shard_for_serving(LanguageModel(cfg, device=device, seed=0),
+                                 part)
+    base = serve_cfg("granite-3-2b")
+    batch, s_max = serve_inputs(base, "decode", device)
+    model = mesh_model(dataclasses.replace(base, attn_shard_mode="heads"))
+    out["mode"] = message(lambda: make_prefill_step(model, s_max, "decode",
+                                                    partitioner=part))
+    cfg = _attention_on(dataclasses.replace(base, sparsity=SparsityConfig(
+        enabled=True, density=0.25, group_size=64, impl="kernel")), mesh)
+    model = mesh_model(cfg)
+    step = make_prefill_step(model, s_max, "decode", partitioner=part)
+    out["lanes"] = message(lambda: step(batch))
+    cfg = _attention_on(base, mesh)
+    model = mesh_model(cfg)
+    one = LanguageModel(cfg, device=device, seed=0)
+    geom = PageGeometry(n_pages=9, page_size=4, pages_per_slot=6)
+    paged = part.local_caches(one.init_cache(SERVE_BATCH, 24, paging=geom))
+    decode = make_decode_step(model, "decode", partitioner=part)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32)
+    out["paged"] = message(lambda: decode(paged, tok))
+    model = mesh_model(dataclasses.replace(cfg, act_shard=False))
+    out["act_shard"] = message(lambda: make_decode_step(
+        model, "decode", partitioner=part))
     return out

@@ -280,6 +280,43 @@ def test_k2_cuda_matches_plain_at_sparse_linear_shapes(cuda, d, dtype, tol,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("piece_rows", [None, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("n,rank", [(2, 1), (4, 2)])
+@pytest.mark.parametrize("d", [1, 256])
+def test_k2_on_a_rank_s_lane_slice_plan_matches_plain(cuda, d, n, rank,
+                                                      dtype, tol,
+                                                      piece_rows):
+    """K2 on a tensor-parallel rank's lane plan of granite-3-2b's w_out
+    (``SparseLinear.lane_plan``): G = 128 over 2 and 4 model ranks, 64-
+    and 32-lane groups, against the plain version on the same slice; one
+    launch a call, one plan a (dtype, view)."""
+    params = _w_out_params(cuda)
+    lanes = 128 // n
+    part = {k: (v[:, rank * lanes:(rank + 1) * lanes].contiguous()
+                if k in ("values2d", "columns2d") else v)
+            for k, v in params.items()}
+    layer = ffn.SparseLinear(part, _granite(), d_in=8192, d_out=2048)
+    view = type("View", (), {"size": n, "rank": rank})()
+    plan = layer.lane_plan(dtype, view)
+    assert layer.lane_plan(dtype, view) is plan and layer.plan_builds == 1
+    assert plan.group_size == lanes and plan.values2d.shape == (
+        16 * 2048, lanes)
+    x = torch.from_numpy(_x(60 + d, 8192, d)).to(cuda, dtype)
+    before = launch_counts()["rgcsr_spmm"]
+    got = rgcsr_spmm_launch(plan, x, piece_rows=piece_rows)
+    assert launch_counts()["rgcsr_spmm"] == before + 1
+    args = (plan.values2d, plan.columns2d, plan.step_group)
+    want = rgcsr_spmm_plain(*args, x, n_groups=16)
+    scale = rgcsr_spmm_plain(plan.values2d.float().abs(), plan.columns2d,
+                             plan.step_group, x.float().abs(), n_groups=16)
+    diff = (got.float() - want.float()).abs()
+    assert got.shape == (16 * lanes, d) and got.dtype == dtype
+    assert bool((diff <= tol * (1 + scale)).all()), diff.max().item()
+
+
+@pytest.mark.gpu
 def test_sparse_linear_on_cuda_never_runs_the_plain_version(cuda,
                                                             monkeypatch):
     def refuse(*args, **kwargs):
