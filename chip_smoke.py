@@ -22,9 +22,11 @@ the card's memory):
    differ only in summation order and one final rounding) — K1 and K2 also
    with the split of long groups forced at small piece sizes, and K2 on one
    ``w_out`` layer of granite-3-2b (16 groups × 2,048 slot rows of 128
-   lanes, d_in 8,192) at the serving widths d ∈ {1, 4, 512}.  K1/K2 skip
-   padding (value 0 at column 0), which the plain versions sum as 0·x[0]:
-   with the finite x used here the two agree;
+   lanes, d_in 8,192) at the serving widths d ∈ {1, 4, 512}, and K3 also
+   on a plan whose 32-row segments hold every live-slot count from 0 to
+   K_pad = 16 (the counts the plan derives on the card checked too).
+   K1–K3 skip padding (value 0 at column 0), which the plain versions sum
+   as 0·x[0]: with the finite x used here the two agree;
 4. the main path: ``spmv``/``spmm`` on both RgCSR matrices with the default
    ``impl`` (and K3 for the Hybrid comparison format), held against a
    float64 scipy product within 1e-4, with the launch counters set to 0
@@ -40,10 +42,11 @@ the card's memory):
    call in a loop (``wait_ms``); whole calls of the main path with what
    their caller waits, their card time and their host time; all
    beside the least time the card could take (bytes over 3.35 TB/s, flops
-   over 67 TFLOP/s fp32): ``bound_ms`` for what the kernel must read — for
-   K1/K2 the slot rows of live segments that the plan's ``seg_slots``
-   counts, for K3 the plan's stored slots — plus x, y and the plan's
-   metadata, and ``nnz_bound_ms`` for the matrix's nonzeros alone;
+   over 67 TFLOP/s fp32): ``bound_ms`` for what the kernel must read — the
+   slot rows of live segments that the plan's ``seg_slots`` counts — plus
+   x, y and the plan's metadata (for K3 also ``stored_bound_ms``, the same
+   over every stored slot of the padded arrays), and ``nnz_bound_ms`` for
+   the matrix's nonzeros alone;
 6. serve: granite-3-2b at its published width and depth (40 layers) with
    the RgCSR FFN (density 0.25, G = 128, ``impl="kernel"``), random weights
    from ``SEED``, through ``Engine.generate`` — 4 prompts of 128 tokens, 32
@@ -689,6 +692,25 @@ def ell_head_csr(a, k1: int):
     keep = slot < k1
     ptr = np.concatenate([[0], np.cumsum(np.minimum(lens, k1))])
     return sp.csr_matrix((a.data[keep], a.indices[keep], ptr), shape=a.shape)
+
+
+def ell_counts_csr(k_max: int = 16, n_segments: int = 17 * 60 + 1,
+                   seed: int = SEED):
+    """CSR arrays ``(values, columns, row_ptr, shape)`` of a square matrix
+    whose 32-row segments hold, in turn, every live-slot count from 0 to
+    ``k_max`` — rows of random lengths up to the segment's count, one row
+    of exactly that length — and the counts, one per segment."""
+    rng = np.random.default_rng(seed)
+    n = n_segments * 32
+    counts = np.arange(n_segments) % (k_max + 1)
+    lens = rng.integers(0, np.repeat(counts, 32) + 1)
+    lens[np.arange(n_segments) * 32 + rng.integers(0, 32, n_segments)] = counts
+    row_ptr = np.concatenate([[0], np.cumsum(lens)])
+    slot = np.arange(row_ptr[-1]) - np.repeat(row_ptr[:-1], lens)
+    step = n // (k_max + 1)     # slot s of a row in [s·step, (s + 1)·step)
+    columns = (slot * step + rng.integers(0, step, len(slot))).astype(np.int32)
+    values = rng.standard_normal(len(slot)).astype(np.float32)
+    return (values, columns, row_ptr, (n, n)), counts
 
 
 def dense_equivalent(layer):
@@ -3430,11 +3452,11 @@ def main() -> int:
 
     def k3_check(label, plan, xv, dtype=torch.float32, tol=FP32_TOL,
                  key=None):
-        vals = plan.values2d.to(dtype)
+        plan = dataclasses.replace(plan, values2d=plan.values2d.to(dtype))
         xp = xv.to(dtype)
-        got = ell_spmv_launch(vals, plan.columns2d, xp)
-        want = ell_spmv_plain(vals, plan.columns2d, xp)
-        scale = ell_spmv_plain(vals.float().abs(), plan.columns2d,
+        got = ell_spmv_launch(plan, xp)
+        want = ell_spmv_plain(plan.values2d, plan.columns2d, xp)
+        scale = ell_spmv_plain(plan.values2d.float().abs(), plan.columns2d,
                                xp.float().abs())
         hold("ell_spmv", label, got, want, scale, tol, key)
 
@@ -3491,6 +3513,25 @@ def main() -> int:
              torch.bfloat16, BF16_TOL)
     k3_check("raj1_full hybrid-ell fp32", raj_ell_plan, x["raj1_full"],
              key="raj1_full")
+    # every live-slot count from 0 to K_pad = 16 (the loop crosses a batch)
+    csr, want_counts = ell_counts_csr()
+    mix_plan = ops.make_ell_plan(from_csr(*csr, "ellpack", device=dev))
+    got_counts = mix_plan.seg_slots.cpu().numpy()
+    want_counts = np.pad(want_counts, (0, len(got_counts) - len(want_counts)))
+    counts_ok = (mix_plan.values2d.shape[0] == 16
+                 and np.array_equal(got_counts, want_counts))
+    mix_shape = tuple(mix_plan.values2d.shape)
+    log(f"check ell_spmv counts of the mixed plan {mix_shape}: seg_slots from "
+        f"the card {'equal' if counts_ok else 'DIFFER from'} the CSR's "
+        f"({np.bincount(got_counts).tolist()} segments of count 0, 1, ...)")
+    if not counts_ok:
+        failures.append("ell_spmv mixed-count plan: seg_slots")
+    x_mix = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        csr[3][1]).astype(np.float32)).to(dev)
+    k3_check("mixed counts 0-16 fp32", mix_plan, x_mix)
+    k3_check("mixed counts 0-16 bf16", mix_plan, x_mix, torch.bfloat16,
+             BF16_TOL)
+    del mix_plan, x_mix
     k2_check(f"fem2d_2048 block cps1 d{D_SPMM} fp32", fem_plan,
              xm["fem2d_2048"], key="fem2d_2048")
     k2_check(f"fem2d_2048 block cps1 d{D_SPMM} bf16", fem_plan,
@@ -3601,9 +3642,11 @@ def main() -> int:
         return card_ms(fn, calls, dev, **kw)
 
     def entry(kernel, shape, run, plain, library, nbytes, flops, nnz_bytes,
-              nnz_flops, calls=50):
+              nnz_flops, calls=50, stored=None):
         """``nbytes``/``flops``: what the kernel must read and compute;
         ``nnz_bytes``/``nnz_flops``: the matrix's nonzeros alone;
+        ``stored``: bytes and flops over every stored slot, where the
+        kernel skips some (K3: ``stored_bound_ms``);
         ``library``: times of the PyTorch CSR call by index type.  ``ms``
         and ``library_ms`` are card times with the host hidden (inputs warm
         in L2 where they fit), ``cold_ms`` and ``library_cold_ms`` the same
@@ -3626,18 +3669,24 @@ def main() -> int:
              "library_cold_ms": min(v[1] for v in library.values()),
              **{f"library_{k}_ms": v[0] for k, v in library.items()}}
         e["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        if stored is not None:
+            e["stored_bound_ms"] = bound(*stored)[0]
         log(f"time {e['name']}: kernel {e['ms']:.4f} ms (cold "
             f"{e['cold_ms']:.4f}, caller waits {e['wait_ms']:.4f}), plain "
-            f"{e['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), nnz "
-            f"bound {e['nnz_bound_ms']:.4f} ms, library "
+            f"{e['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            + (f"stored bound {e['stored_bound_ms']:.4f} ms, "
+               if stored is not None else "")
+            + f"nnz bound {e['nnz_bound_ms']:.4f} ms, library "
             + ", ".join(f"{k} {v[0]:.4f} ms (cold {v[1]:.4f})"
                         for k, v in library.items())
             + f", peak {e['peak_gib']:.2f} GiB")
         entries.append(e)
 
     def live_slots(plan):
-        """Slots of the live segments (what K1 and K2 must read) and slots
-        that are not padding (the products the result needs)."""
+        """Slots of the live segments (what K1–K3 must read: each count of
+        ``seg_slots`` is that many slots of 32 lanes, or of 32 rows for
+        K3) and slots that are not padding (the products the result
+        needs)."""
         live = int(plan.seg_slots.sum()) * 32
         real = int(((plan.values2d != 0) | (plan.columns2d != 0)).sum())
         return live, real
@@ -3679,14 +3728,17 @@ def main() -> int:
               2 * a.nnz * D_SPMM, calls=10)
         ep = ell_plans[name]
         head = a if name == "fem2d_2048" else ell_head_csr(a, raj_hyb.k1)
+        ell_live = live_slots(ep)[0]
+        y_bytes = ep.values2d.shape[1] * 4
         entry("ell_spmv", name,
-              lambda: ell_spmv_launch(ep.values2d, ep.columns2d, xv),
+              lambda: ell_spmv_launch(ep, xv),
               lambda: ell_spmv_plain(ep.values2d, ep.columns2d, xv),
               library_times(head, xv, 50, dev),
-              ep.values2d.nbytes + ep.columns2d.nbytes + xv.nbytes
-              + ep.values2d.shape[1] * 4,
-              2 * ep.values2d.numel(),
-              head.nnz * 8 + xv.nbytes + a.shape[0] * 4, 2 * head.nnz)
+              ell_live * 8 + xv.nbytes + y_bytes + ep.seg_slots.nbytes,
+              2 * ell_live,
+              head.nnz * 8 + xv.nbytes + a.shape[0] * 4, 2 * head.nnz,
+              stored=(ep.values2d.nbytes + ep.columns2d.nbytes + xv.nbytes
+                      + y_bytes, 2 * ep.values2d.numel()))
     def host_ms(fn, calls):
         """Host time per call to enqueue ``calls`` back-to-back calls."""
         fn()

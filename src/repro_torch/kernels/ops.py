@@ -17,6 +17,10 @@ group hold anything but padding, so that the kernels skip trailing padding.
 ``RgCSRPlan.work_list`` cuts long groups into pieces for K1 or K2, built
 once per plan, kernel and piece size (see :class:`WorkList`).
 
+``EllPlan``, K3's, is byte-equal to the reference's too, and carries the
+same kind of count for each 32-row segment of the ELLPACK arrays: its
+``seg_slots``.
+
 ``PlanCache`` is the process-wide memo: SpMV-heavy paths fetch plans
 through ``get_plan`` instead of rebuilding host-side layouts per call.
 Entries are keyed on matrix identity + config and evicted when the matrix
@@ -1402,16 +1406,39 @@ def warm_plans_from_params(module, dtype=torch.float32) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _ell_seg_slots(values2d, columns2d):
+    """``(N_pad/32,)`` int32 on the plan's device: for each 32-row segment,
+    the number of leading slots in which some row of the segment holds a
+    slot that is not padding (value 0 with column 0) — a slot counts when
+    it or a later slot of the segment is live."""
+    k, n = values2d.shape
+    live = ((values2d != 0) | (columns2d != 0)).reshape(
+        k, n // SEGMENT, SEGMENT).any(-1)
+    return live.flip(0).int().cumsum(0).clamp_max_(1).sum(0).int()
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class EllPlan:
+    """K3's plan: the slot-major arrays padded for the TPU's tile, byte-equal
+    to the reference's, and the port's own ``seg_slots``, derived once from
+    the arrays when not given, so that K3 reads no slot past the last live
+    one of each 32-row segment."""
+
     values2d: Any   # (K_pad, N_pad)
     columns2d: Any  # (K_pad, N_pad)
     n_rows: int
     n_cols: int
+    seg_slots: Any = None   # (N_pad/32,) int32 live slots per segment
+
+    def __post_init__(self):
+        if self.seg_slots is None:
+            object.__setattr__(self, "seg_slots", _ell_seg_slots(
+                self.values2d, self.columns2d))
 
 
 def make_ell_plan(m: ELLPACK) -> EllPlan:
-    """Pad the slot-major arrays to ``(K % 8, N % 128)`` on their device."""
+    """Pad the slot-major arrays to ``(K % 8, N % 128)`` on their device and
+    count each segment's live slots there."""
     k, n = m.values.shape
     k_pad, n_pad = _pad_to(k, SUBLANES), _pad_to(n, LANES)
     vp = m.values.new_zeros((k_pad, n_pad))
@@ -1425,5 +1452,4 @@ def make_ell_plan(m: ELLPACK) -> EllPlan:
 def ell_spmv(plan: EllPlan, x):
     """y = A @ x via K3. x: (n_cols,) -> y: (n_rows,)."""
     _check_operand(plan, x, 1, "ell_spmv")
-    return ell_spmv_launch(plan.values2d, plan.columns2d,
-                           _gatherable(x))[: plan.n_rows]
+    return ell_spmv_launch(plan, _gatherable(x))[: plan.n_rows]

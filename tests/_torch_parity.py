@@ -26,6 +26,24 @@ def skewed(seed, n=300, m=280):
     return a
 
 
+def ell_counts_csr(seed, k_max, n_segments):
+    """CSR arrays ``(values, columns, row_ptr, shape)`` of a square matrix
+    whose 32-row segments hold, in turn, every live-slot count from 0 to
+    ``k_max`` — rows of random lengths up to the segment's count, one row
+    of exactly that length — and the counts, one per segment."""
+    rng = np.random.default_rng(seed)
+    n = n_segments * 32
+    counts = np.arange(n_segments) % (k_max + 1)
+    lens = rng.integers(0, np.repeat(counts, 32) + 1)
+    lens[np.arange(n_segments) * 32 + rng.integers(0, 32, n_segments)] = counts
+    row_ptr = np.concatenate([[0], np.cumsum(lens)])
+    slot = np.arange(row_ptr[-1]) - np.repeat(row_ptr[:-1], lens)
+    step = n // (k_max + 1)     # slot s of a row in [s·step, (s + 1)·step)
+    columns = (slot * step + rng.integers(0, step, len(slot))).astype(np.int32)
+    values = rng.standard_normal(len(slot)).astype(np.float32)
+    return (values, columns, row_ptr, (n, n)), counts
+
+
 def autotune_cost(plan) -> float:
     """The reference's ``deterministic_autotune`` cost model
     (tests/conftest.py), for either package's plan: a per-step cost, a

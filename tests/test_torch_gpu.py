@@ -8,11 +8,13 @@ installed::
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: fp32 within rtol = atol = 1e-5, bf16 within 3e-2; kernel and
-plain version both sum in fp32 and differ only in summation order.  K1 and
-K2 skip padding slots (value 0 at column 0) that the plain version sums as
+plain version both sum in fp32 and differ only in summation order.  K1–K3
+skip padding slots (value 0 at column 0) that the plain version sums as
 ``0·x[0]``; the two differ there only where ``x[0]`` is not finite, and
 these tests use finite x.  ``piece_rows`` forces the split of long groups
-at each piece size.
+at each piece size.  K3's tests alone::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py -k k3
 """
 import copy
 import dataclasses
@@ -26,11 +28,11 @@ import torch
 
 from _torch_dist import (BATCH, MOE_CASES, SEQ, moe_trainer, run_ranks,
                          sharded_cfg, sweep, train_config, train_ranks)
-from _torch_parity import rand_sparse, row_shards, skewed
+from _torch_parity import ell_counts_csr, rand_sparse, row_shards, skewed
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import SparsityConfig
-from repro_torch.core import ShardedRgCSR, from_dense, spmm, spmv
+from repro_torch.core import ShardedRgCSR, from_csr, from_dense, spmm, spmv
 from repro_torch.core.timing import time_us
 from repro_torch.kernels import (launch_counts, ops, plan_from_params,
                                  reset_launch_counts)
@@ -177,10 +179,78 @@ def test_k3_cuda_matches_plain(cuda):
     plan = ops.make_ell_plan(from_dense(a, "ellpack", device=cuda))
     x_pad = torch.from_numpy(_x(18, 1024)).to(cuda)
     before = launch_counts()["ell_spmv"]
-    got = ell_spmv_launch(plan.values2d, plan.columns2d, x_pad)
+    got = ell_spmv_launch(plan, x_pad)
     assert launch_counts()["ell_spmv"] == before + 1
     want = ell_spmv_plain(plan.values2d, plan.columns2d, x_pad)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _k3_mixed_plan(cuda, k_max, seed):
+    """A plan made on the card whose 32-row segments hold every live-slot
+    count from 0 to ``K_pad = k_max``, and its number of columns."""
+    csr, counts = ell_counts_csr(seed, k_max, 6 * (k_max + 1) + 5)
+    plan = ops.make_ell_plan(from_csr(*csr, "ellpack", device=cuda))
+    assert plan.values2d.shape[0] == k_max
+    got = plan.seg_slots.cpu().numpy()
+    np.testing.assert_array_equal(got[:len(counts)], counts)
+    assert not got[len(counts):].any()
+    return plan, csr[3][1]
+
+
+def _k3_close(got, plan, x, tol):
+    """Within ``tol · (1 + Σ|a·x|)`` of the plain version of ``plan``."""
+    want = ell_spmv_plain(plan.values2d, plan.columns2d, x).float()
+    scale = ell_spmv_plain(plan.values2d.float().abs(), plan.columns2d,
+                           x.float().abs()).float()
+    assert got.dtype == plan.values2d.dtype
+    err = (got.float() - want).abs()
+    assert bool((err <= tol * (1 + scale)).all()), err.max().item()
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k_max", [8, 16])
+@pytest.mark.parametrize("vdt,xdt", [(F32, F32), (F32, BF16), (BF16, F32),
+                                     (BF16, BF16)])
+def test_k3_mixed_counts_match_plain(cuda, k_max, vdt, xdt):
+    plan, n = _k3_mixed_plan(cuda, k_max, 60 + k_max)
+    plan = dataclasses.replace(plan, values2d=plan.values2d.to(vdt))
+    x = torch.from_numpy(_x(61, n)).to(cuda, xdt)
+    before = launch_counts()["ell_spmv"]
+    got = ell_spmv_launch(plan, x)
+    assert launch_counts()["ell_spmv"] == before + 1
+    _k3_close(got, plan, x, 1e-5 if vdt == xdt == F32 else 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k_max", [8, 16])
+def test_k3_reads_no_slot_past_the_counts(cuda, k_max):
+    """NaN written into every values slot past its segment's count, after
+    the counts are derived, leaves K3's result finite and equal to the
+    plain version of the clean plan."""
+    plan, n = _k3_mixed_plan(cuda, k_max, 70 + k_max)
+    count = plan.seg_slots.long().repeat_interleave(32)
+    past = torch.arange(k_max, device=cuda)[:, None] >= count[None, :]
+    poisoned = dataclasses.replace(
+        plan, values2d=plan.values2d.masked_fill(past, float("nan")))
+    assert poisoned.seg_slots is plan.seg_slots
+    x = torch.from_numpy(_x(71, n)).to(cuda)
+    got = ell_spmv_launch(poisoned, x)
+    assert bool(torch.isfinite(got).all())
+    _k3_close(got, plan, x, 1e-5)
+
+
+@pytest.mark.gpu
+def test_k3_refuses_counts_that_do_not_match(cuda):
+    plan, n = _k3_mixed_plan(cuda, 8, 80)
+    x = torch.from_numpy(_x(81, n)).to(cuda)
+    before = launch_counts()["ell_spmv"]
+    for seg in (plan.seg_slots[:-1], plan.seg_slots.cpu()):
+        with pytest.raises(ValueError, match="seg_slots|CUDA device"):
+            ell_spmv_launch(dataclasses.replace(plan, seg_slots=seg), x)
+    assert launch_counts()["ell_spmv"] == before
 
 
 @pytest.mark.gpu

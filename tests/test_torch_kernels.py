@@ -18,13 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import numpy_fields, rand_sparse, skewed
+from _torch_parity import ell_counts_csr, numpy_fields, rand_sparse, skewed
 
 import repro.core.formats as ref_formats
 import repro.kernels.ops as ref_ops
-from repro_torch.core import from_dense, from_numpy
+from repro_torch.core import from_csr, from_dense, from_numpy
 from repro_torch.kernels import launch_counts, ops
-from repro_torch.kernels.ell_spmv import ell_spmv_launch
+from repro_torch.kernels.ell_spmv import ell_spmv_launch, ell_spmv_plain
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch
 
@@ -144,11 +144,55 @@ def test_k3_plain_matches_reference_kernel(n, m, density):
     want = np.asarray(ref_ops.ell_spmv(
         ref_ops.make_ell_plan(ref_formats.from_dense(a, "ellpack")),
         jnp.asarray(x), interpret=True))
-    got = ops.ell_spmv(ops.make_ell_plan(from_dense(a, "ellpack",
-                                                    device="cpu")),
-                       torch.from_numpy(x)).numpy()
+    plan = ops.make_ell_plan(from_dense(a, "ellpack", device="cpu"))
+    got = ops.ell_spmv(plan, torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got, a @ x, rtol=1e-4, atol=1e-4)
+    padded = ell_spmv_launch(plan, torch.from_numpy(x)).numpy()
+    assert padded.shape == (plan.values2d.shape[1],)
+    np.testing.assert_array_equal(padded[:n], got)
+
+
+def _k3_by_rule(plan, x):
+    """K3's reading rule on the host: row r sums, in slot order, only the
+    slots below its segment's count."""
+    count = np.repeat(plan.seg_slots.numpy(), ops.SEGMENT)
+    vals = plan.values2d.float().numpy()
+    prods = vals * x[plan.columns2d.numpy()]
+    keep = np.arange(vals.shape[0])[:, None] < count[None, :]
+    return np.where(keep, prods, 0.0).sum(0)
+
+
+@pytest.mark.parametrize("k_max", [8, 16])
+def test_k3_rule_reads_no_slot_past_the_counts(k_max):
+    """Slots past each segment's count, poisoned with NaN after the counts
+    are derived, change nothing under K3's rule, which gives the plain
+    version's result on the clean plan; every count 0..K_pad occurs."""
+    csr, counts = ell_counts_csr(50 + k_max, k_max, 4 * (k_max + 1) + 3)
+    plan = ops.make_ell_plan(from_csr(*csr, "ellpack", device="cpu"))
+    assert plan.values2d.shape[0] == k_max
+    assert set(counts.tolist()) == set(range(k_max + 1))
+    x = _x(51, csr[3][1])
+    want = ell_spmv_plain(plan.values2d, plan.columns2d,
+                          torch.from_numpy(x)).numpy()
+    count = np.repeat(plan.seg_slots.numpy(), ops.SEGMENT)
+    past = np.arange(k_max)[:, None] >= count[None, :]
+    poisoned = dataclasses.replace(plan, values2d=torch.from_numpy(
+        np.where(past, np.nan, plan.values2d.numpy()).astype(np.float32)))
+    assert poisoned.seg_slots is plan.seg_slots
+    got = _k3_by_rule(poisoned, x)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k3_launcher_refuses_counts_that_do_not_match():
+    plan = ops.make_ell_plan(from_dense(rand_sparse(52, 200, 90, 0.05),
+                                        "ellpack", device="cpu"))
+    x = torch.zeros(90)
+    for seg in (plan.seg_slots[:-1], plan.seg_slots.long(),
+                plan.seg_slots[:, None]):
+        with pytest.raises(ValueError, match="seg_slots"):
+            ell_spmv_launch(dataclasses.replace(plan, seg_slots=seg), x)
 
 
 # ------------------------------------------------------- wrapper contracts
@@ -183,8 +227,10 @@ def test_launchers_refuse_tensors_neither_on_cpu_nor_cuda():
         rgcsr_spmv_launch(plan, x)
     with pytest.raises(ValueError, match="CUDA device"):
         rgcsr_spmm_launch(plan, x.reshape(128, 1))
+    ell = ops.EllPlan(values2d=vals, columns2d=cols, n_rows=128, n_cols=128,
+                      seg_slots=torch.zeros(4, dtype=torch.int32, **meta))
     with pytest.raises(ValueError, match="CUDA device"):
-        ell_spmv_launch(vals, cols, x)
+        ell_spmv_launch(ell, x)
 
 
 def test_wrappers_check_x_against_the_plan():

@@ -16,13 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import assert_same_fields, numpy_fields, rand_sparse, skewed
+from _torch_parity import (assert_same_fields, ell_counts_csr, numpy_fields,
+                           rand_sparse, skewed)
 
 import repro.core.formats as ref_formats
 import repro.kernels.ops as ref_ops
 from repro.kernels.autotune import spill_threshold_candidates
 from repro.core.suite import small_corpus
-from repro_torch.core import from_dense, from_numpy
+from repro_torch.core import ELLPACK, from_csr, from_dense, from_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels.ops import (PLAN_CACHE, PlanCache, get_plan,
                                      make_plan, plan_from_numpy)
@@ -120,6 +121,102 @@ def test_ell_plan_byte_equal_to_reference():
     ref = ref_ops.make_ell_plan(ref_formats.from_dense(a, "ellpack"))
     port = ops.make_ell_plan(from_dense(a, "ellpack", device="cpu"))
     assert_same_fields(ref, port)
+
+
+def _ell_counts_by_loop(plan):
+    """K3's counts, one 32-row segment at a time, from the definition: the
+    last slot of the segment holding anything but padding (value 0 at
+    column 0), plus one."""
+    vals = plan.values2d.float().numpy()
+    cols = plan.columns2d.numpy()
+    out = np.zeros(vals.shape[1] // ops.SEGMENT, np.int32)
+    for s in range(len(out)):
+        rows = slice(s * ops.SEGMENT, (s + 1) * ops.SEGMENT)
+        live = np.flatnonzero(((vals[:, rows] != 0)
+                               | (cols[:, rows] != 0)).any(1))
+        out[s] = live[-1] + 1 if len(live) else 0
+    return out
+
+
+def _empty_rows():
+    """Whole segments of rows with no entries, then ragged rows; 300 rows,
+    so the last segments of N_pad = 384 lie past the matrix."""
+    a = rand_sparse(41, 300, 150, 0.04)
+    a[:70] = 0.0
+    a[100:140:3] = 0.0
+    return a
+
+
+def _ell_pair(name):
+    """The same ELLPACK in both packages; ``hybrid`` is a Hybrid's ELL half
+    at its own k1."""
+    if name == "hybrid":     # every row holds at least two entries
+        a = skewed(43, n=500, m=300)
+        rows = np.arange(500)
+        a[rows, rows % 300] = a[rows, (7 * rows + 3) % 300] = 1.0
+        ref_h = ref_formats.from_dense(a, "hybrid")
+        port_h = from_dense(a, "hybrid", device="cpu")
+        assert ref_h.k1 == port_h.k1 > 0
+        return (ref_formats.ELLPACK(values=ref_h.ell_values,
+                                    columns=ref_h.ell_columns,
+                                    shape=ref_h.shape),
+                ELLPACK(values=port_h.ell_values, columns=port_h.ell_columns,
+                        shape=port_h.shape))
+    a = {"ragged": lambda: rand_sparse(42, 200, 170, 0.05),
+         "empty_rows": _empty_rows}[name]()
+    return (ref_formats.from_dense(a, "ellpack"),
+            from_dense(a, "ellpack", device="cpu"))
+
+
+@pytest.mark.parametrize("name", ["ragged", "empty_rows", "hybrid"])
+def test_ell_plan_seg_slots_count_live_slots(name):
+    ref_m, port_m = _ell_pair(name)
+    plan = ops.make_ell_plan(port_m)
+    assert_same_fields(ref_ops.make_ell_plan(ref_m), plan)
+    assert plan.seg_slots.dtype == torch.int32
+    assert tuple(plan.seg_slots.shape) == (plan.values2d.shape[1] // 32,)
+    want = _ell_counts_by_loop(plan)
+    np.testing.assert_array_equal(plan.seg_slots.numpy(), want)
+    n_real = -(-port_m.shape[0] // 32)
+    assert not want[n_real:].any()      # segments past the matrix: padding
+    if name == "empty_rows":
+        assert not want[:2].any() and want[3:n_real].all()
+
+
+def test_ell_plan_seg_slots_every_count():
+    csr, counts = ell_counts_csr(44, 16, 17 * 3 + 2)
+    plan = ops.make_ell_plan(from_csr(*csr, "ellpack", device="cpu"))
+    assert plan.values2d.shape == (16, 1792)
+    got = plan.seg_slots.numpy()
+    np.testing.assert_array_equal(got[:len(counts)], counts)
+    assert not got[len(counts):].any()
+    np.testing.assert_array_equal(got, _ell_counts_by_loop(plan))
+
+
+def test_ell_plan_counts_a_stored_zero_at_another_column():
+    """A stored 0.0 at a column other than 0 is live and extends its
+    segment's count; one at column 0 (always a row's first slot, as columns
+    are sorted) is padding, and a segment holding only that counts 0."""
+    lens = np.zeros(100, np.int64)
+    lens[[0, 1, 32, 70]] = 2, 3, 2, 1
+    row_ptr = np.concatenate([[0], np.cumsum(lens)])
+    # row 1 ends in a stored zero at column 9; row 70 is 0.0 at column 0
+    values = np.array([1, 2, 3, 4, 0, 5, 6, 0], np.float32)
+    columns = np.array([1, 2, 1, 2, 9, 3, 4, 0], np.int32)
+    plan = ops.make_ell_plan(from_csr(values, columns, row_ptr, (100, 64),
+                                      "ellpack", device="cpu"))
+    np.testing.assert_array_equal(plan.seg_slots.numpy(), [3, 2, 0, 0])
+    np.testing.assert_array_equal(plan.seg_slots.numpy(),
+                                  _ell_counts_by_loop(plan))
+
+
+def test_ell_plan_keeps_given_counts():
+    """``dataclasses.replace`` (a cast of the values) keeps the counts the
+    plan derived; they are derived again only where none are given."""
+    plan = ops.make_ell_plan(from_dense(rand_sparse(45, 70, 60, 0.05),
+                                        "ellpack", device="cpu"))
+    cast = dataclasses.replace(plan, values2d=plan.values2d.bfloat16())
+    assert cast.seg_slots is plan.seg_slots
 
 
 # --------------------------------------------------------------- PlanCache
