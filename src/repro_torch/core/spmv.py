@@ -7,7 +7,9 @@ the matrix lives on.  RgCSR matrices dispatch to the hand-written CUDA
 kernels (:mod:`repro_torch.kernels`) through the process-wide plan cache
 when their tensors are on a CUDA card.  :class:`ShardedRgCSR` matrices run
 row-sharded across the ranks of a ``DeviceMesh`` axis (``mesh=``), each
-rank computing its own rows.
+rank computing its own rows.  With a tracer active
+(``obs.trace.recording``) each :func:`spmv` or :func:`spmm` call is the
+span ``sparse.call`` on ``obs.trace.KERNELS``.
 
 On CUDA ``index_add_`` sums with atomics, so an oracle's result may differ
 from run to run in the last bits; compare against it with a tolerance.
@@ -29,6 +31,7 @@ from repro_torch.core.formats import (
     ShardedRgCSR,
     SlicedEllpack,
 )
+from repro_torch.obs import trace as obs_trace
 
 Matrix = Union[CSR, COO, ELLPACK, HybridEllCoo, BlockedCSR, RgCSR,
                SlicedEllpack, ShardedRgCSR]
@@ -237,19 +240,27 @@ def spmv(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
     each rank moves only its own shard's view to ``x``'s device, so the
     sharded matrix may, and at scale should, stay on the host.
     """
-    if isinstance(a, ShardedRgCSR):
-        from repro_torch.kernels import ops as kops
-        plan, axis = _sharded_dispatch(a, mesh, mesh_axis, chunks_per_step,
-                                       ordering, spill_threshold, x_mode,
-                                       shard_configs)
-        return kops.sharded_rgcsr_spmv(plan, x, mesh=mesh, axis=axis)
-    if _use_kernel(a, impl):
-        from repro_torch.kernels import ops as kops
-        plan = kops.get_plan(a, chunks_per_step=chunks_per_step,
-                             ordering=ordering,
-                             spill_threshold=spill_threshold)
-        return kops.rgcsr_spmv(plan, x)
-    return _SPMV[type(a)](a, x)
+    spans = obs_trace._active
+    if spans.enabled:
+        spans.begin("sparse.call", obs_trace.KERNELS, op="spmv")
+    try:
+        if isinstance(a, ShardedRgCSR):
+            from repro_torch.kernels import ops as kops
+            plan, axis = _sharded_dispatch(a, mesh, mesh_axis,
+                                           chunks_per_step, ordering,
+                                           spill_threshold, x_mode,
+                                           shard_configs)
+            return kops.sharded_rgcsr_spmv(plan, x, mesh=mesh, axis=axis)
+        if _use_kernel(a, impl):
+            from repro_torch.kernels import ops as kops
+            plan = kops.get_plan(a, chunks_per_step=chunks_per_step,
+                                 ordering=ordering,
+                                 spill_threshold=spill_threshold)
+            return kops.rgcsr_spmv(plan, x)
+        return _SPMV[type(a)](a, x)
+    finally:
+        if spans.enabled:
+            spans.end("sparse.call", obs_trace.KERNELS)
 
 
 def spmm(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
@@ -259,16 +270,24 @@ def spmm(a: Matrix, x, *, impl: str = "auto", chunks_per_step: int = 1,
     """``Y = A @ X`` (X dense ``(n, d)``) for any of the paper's formats,
     with the same PlanCache-backed kernel dispatch and sharded arguments
     as :func:`spmv`."""
-    if isinstance(a, ShardedRgCSR):
-        from repro_torch.kernels import ops as kops
-        plan, axis = _sharded_dispatch(a, mesh, mesh_axis, chunks_per_step,
-                                       ordering, spill_threshold, x_mode,
-                                       shard_configs)
-        return kops.sharded_rgcsr_spmm(plan, x, mesh=mesh, axis=axis)
-    if _use_kernel(a, impl):
-        from repro_torch.kernels import ops as kops
-        plan = kops.get_plan(a, chunks_per_step=chunks_per_step,
-                             ordering=ordering,
-                             spill_threshold=spill_threshold)
-        return kops.rgcsr_spmm(plan, x)
-    return _SPMM[type(a)](a, x)
+    spans = obs_trace._active
+    if spans.enabled:
+        spans.begin("sparse.call", obs_trace.KERNELS, op="spmm")
+    try:
+        if isinstance(a, ShardedRgCSR):
+            from repro_torch.kernels import ops as kops
+            plan, axis = _sharded_dispatch(a, mesh, mesh_axis,
+                                           chunks_per_step, ordering,
+                                           spill_threshold, x_mode,
+                                           shard_configs)
+            return kops.sharded_rgcsr_spmm(plan, x, mesh=mesh, axis=axis)
+        if _use_kernel(a, impl):
+            from repro_torch.kernels import ops as kops
+            plan = kops.get_plan(a, chunks_per_step=chunks_per_step,
+                                 ordering=ordering,
+                                 spill_threshold=spill_threshold)
+            return kops.rgcsr_spmm(plan, x)
+        return _SPMM[type(a)](a, x)
+    finally:
+        if spans.enabled:
+            spans.end("sparse.call", obs_trace.KERNELS)

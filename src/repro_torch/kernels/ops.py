@@ -28,6 +28,12 @@ is garbage-collected.
 
 Plans live on the matrix's device.  The wrappers launch the CUDA kernels for
 CUDA tensors and run the kernels' plain PyTorch versions for CPU tensors.
+
+With a tracer active (``obs.trace.recording``), the launch of K1 or K2
+in :func:`rgcsr_spmv` / :func:`rgcsr_spmm` is the span ``sparse.launch``
+on ``obs.trace.KERNELS``, and a ``PlanCache`` miss or a work list built
+records the instant ``host_build`` there (``what``: ``plan_cache`` or
+``work_list``, and its ``key``).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from repro_torch.kernels.ell_spmv import ell_spmv_launch
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch
 from repro_torch.kernels.rgcsr_spmv import (CHUNKS_PER_STEP_CHOICES, LANES,
                                             SUBLANES, rgcsr_spmv_launch)
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["RgCSRPlan", "make_plan", "rgcsr_spmv", "rgcsr_spmm",
            "EllPlan", "make_ell_plan", "ell_spmv", "plan_from_numpy",
@@ -305,6 +312,10 @@ class RgCSRPlan:
             cache["rows"] = np.diff(_host(self.group_step_ptr).astype(
                 np.int64)) * r
             cache["seg_slots"] = _host(self.seg_slots)
+        spans = obs_trace.active()
+        if spans.enabled:
+            spans.instant("host_build", obs_trace.KERNELS, what="work_list",
+                          key=repr(key))
         p = piece_rows or _piece_rows(cache["rows"], r, n_sm, part_bytes)
         work = cache[key] = _work_list(kernel, cache["rows"],
                                        cache["seg_slots"], p,
@@ -587,6 +598,10 @@ class PlanCache:
                 self.hits += 1
                 self._plans.move_to_end(key)
                 return plan
+        spans = obs_trace.active()
+        if spans.enabled:
+            spans.instant("host_build", obs_trace.KERNELS, what="plan_cache",
+                          key=repr(key[1:]))
         plan = build()
         with self._lock:
             if key not in self._plans:
@@ -693,7 +708,16 @@ def rgcsr_spmv(plan: RgCSRPlan, x, *, x_tile: int | None = None):
     segment sum); block plans slice the contiguous rows.
     """
     _check_operand(plan, x, 1, "rgcsr_spmv")
-    y_flat = rgcsr_spmv_launch(plan, _gatherable(x)).reshape(-1)
+    xg = _gatherable(x)
+    spans = obs_trace._active
+    if spans.enabled:
+        spans.begin("sparse.launch", obs_trace.KERNELS, kernel="rgcsr_spmv")
+    try:
+        y_flat = rgcsr_spmv_launch(plan, xg)
+    finally:
+        if spans.enabled:
+            spans.end("sparse.launch", obs_trace.KERNELS)
+    y_flat = y_flat.reshape(-1)
     if plan.ordering != "adaptive":
         return y_flat[: plan.n_rows]
     return _adaptive_finish_spmv(y_flat, x, plan)
@@ -706,7 +730,15 @@ def rgcsr_spmm(plan: RgCSRPlan, x, *, d_tile: int = LANES):
     kernel masks the d edge, so X is not padded.
     """
     _check_operand(plan, x, 2, "rgcsr_spmm")
-    y = rgcsr_spmm_launch(plan, _gatherable(x), d_tile=d_tile)
+    xg = _gatherable(x)
+    spans = obs_trace._active
+    if spans.enabled:
+        spans.begin("sparse.launch", obs_trace.KERNELS, kernel="rgcsr_spmm")
+    try:
+        y = rgcsr_spmm_launch(plan, xg, d_tile=d_tile)
+    finally:
+        if spans.enabled:
+            spans.end("sparse.launch", obs_trace.KERNELS)
     if plan.ordering != "adaptive":
         return y[: plan.n_rows]
     return _adaptive_finish_spmm(y, x, plan)

@@ -65,8 +65,11 @@ Observability (DESIGN.md §13):
                        the run's span timeline (request lifelines, prefill
                        and decode-chunk spans, fault/migration/restore
                        instants) as Chrome trace-event JSON at PATH —
-                       loadable in Perfetto or chrome://tracing.  The
-                       report also prints a span-timeline summary.
+                       loadable in Perfetto or chrome://tracing — with
+                       the port's host-layer spans beside them (the same
+                       Tracer is obs.trace.active for the run: session
+                       phases, fused dispatch, sparse call and launch).
+                       The report also prints a span-timeline summary.
   --metrics-json PATH  write the final stats dict (merged metrics-registry
                        view, including request_timing histogram states and
                        latency percentiles) as JSON — the file CI's
@@ -174,7 +177,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="the engines' device: cuda (the card) or cpu")
     args = ap.parse_args(argv)
+    if not args.trace_out:
+        return _serve(args, None)
+    from repro_torch.obs.trace import Tracer, recording
+    # the engines' events and the port's host-layer spans on one timeline
+    with recording(Tracer()) as tracer:
+        return _serve(args, tracer)
 
+
+def _serve(args, tracer) -> int:
+    """Serve ``args``'s requests; ``tracer`` (or None) records them."""
     from repro_torch.configs import get_config, get_smoke
     from repro_torch.serve import Engine, Request, Router, RouterConfig, \
         ServeConfig
@@ -199,10 +211,6 @@ def main(argv=None):
         fail_at.append(("page_nan" if args.corrupt_nan else "page",
                         args.corrupt_page))
     injector = FaultInjector(fail_at_steps=fail_at) if fail_at else None
-    tracer = None
-    if args.trace_out:
-        from repro_torch.obs.trace import Tracer
-        tracer = Tracer()
     write_mgr = SnapshotManager(args.snapshot_dir) \
         if args.snapshot_every > 0 else None
     rng = np.random.default_rng(0)

@@ -11,9 +11,11 @@ slot-major layout — ``values2d (S, G)`` and the frozen ``columns2d (S, G)``,
   kernel on a card, its plain PyTorch version for CPU tensors.  The module
   builds its :class:`~repro_torch.kernels.ops.RgCSRPlan` once (at load, by
   ``Engine``, or at first use) and keeps it; the plan is rebuilt only when
-  the values tensor is replaced or written in place.  K2 skips slots that
-  look like padding — value 0 at column 0 — so a weight that is exactly 0
-  at column 0 is skipped too, which changes nothing while x is finite.
+  the values tensor is replaced or written in place (with a tracer active,
+  ``obs.trace.recording``, each build records the instant ``host_build``
+  on ``obs.trace.KERNELS``).  K2 skips slots that look like padding —
+  value 0 at column 0 — so a weight that is exactly 0 at column 0 is
+  skipped too, which changes nothing while x is finite.
 - ``impl="ref"``: an ``index_add_`` segment sum over the slot-major storage,
   the counterpart of the reference's ``segment_sum`` oracle, taken in
   chunks of slot rows by :class:`SegmentSum`, whose backward gives the
@@ -49,6 +51,7 @@ from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_plain
 from repro_torch.models import shardlib
 from repro_torch.models.layers import Dense, ParamModule, dense_spec
 from repro_torch.models.spec import P
+from repro_torch.obs import trace as obs_trace
 from repro_torch.sharding import layout
 
 __all__ = ["ffn_spec", "ffn_apply", "gated_ffn_apply", "ffn_apply_stacked",
@@ -310,6 +313,10 @@ class SparseLinear(ParamModule):
         hit = self._plans.get(dtype)
         if hit is not None and hit[0] is src and hit[1] == version:
             return hit[2]
+        spans = obs_trace.active()
+        if spans.enabled:
+            spans.instant("host_build", obs_trace.KERNELS,
+                          what="sparse_linear_plan", key=repr(dtype))
         values = self.cast("values2d", dtype)
         plan = ops.plan_from_params(
             {"values2d": values, "columns2d": self.columns2d,
@@ -342,6 +349,10 @@ class SparseLinear(ParamModule):
         hit = self._lane_plans.get(key)
         if hit is not None and hit[0] == stamp:
             return hit[1]
+        spans = obs_trace.active()
+        if spans.enabled:
+            spans.instant("host_build", obs_trace.KERNELS,
+                          what="sparse_linear_plan", key=repr(key))
         n_groups = -(-self.d_out // self.cfg.sparsity.group_size)
         plan = ops.plan_from_params(
             {"values2d": self.cast("values2d", dtype).contiguous(),

@@ -17,15 +17,39 @@ slot (``slot0`` ...) plus ``session`` for engine-level work and
 Every emission site goes through a tracer attribute that defaults to the
 module-level :data:`NOOP` (a :class:`NullTracer`), so the serving hot
 path pays one attribute load + truthiness check when tracing is off.
+
+The port adds one process-wide slot for a tracer, :func:`active`
+(:data:`NOOP` until :func:`recording` installs one), for the code that has
+no engine to hang a tracer on, and for the spans that must stay off the
+engine's own tracer, whose event stream is the reference's event for
+event: the session's phases and the fused dispatch on ``(trace_label,
+"host")``, the sparse products' dispatch and launch on :data:`KERNELS`
+(``session.step`` ⊃ ``session.admit`` ⊃ ``session.prefill``,
+``session.schedule``, ``decode.dispatch`` ⊃ ``decode.wait``,
+``session.commit``; ``sparse.call`` ⊃ ``sparse.launch``; instants
+``host_build`` where a plan or work list is built).  Each such site
+reads the slot at the call and does nothing further while its
+``enabled`` is false; the per-product sites of the sparse path read
+:data:`_active` itself, one load and one branch, with no call.
+
+The default clock is the profiler's: :func:`time.time`, recorded in µs,
+is the epoch on which ``torch.profiler``'s kineto events give their
+nanoseconds, so a span and the device activity under it line up.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import time
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["NullTracer", "Tracer", "NOOP"]
+__all__ = ["NullTracer", "Tracer", "NOOP", "KERNELS", "active",
+           "recording", "close_open"]
 
 Track = Tuple[str, str]
+
+# the sparse layer's track on the active tracer
+KERNELS: Track = ("kernels", "host")
 
 
 class NullTracer:
@@ -61,6 +85,41 @@ class NullTracer:
 
 
 NOOP = NullTracer()
+_active: NullTracer = NOOP
+
+
+def active() -> NullTracer:
+    """The process-wide tracer (:data:`NOOP` unless :func:`recording`)."""
+    return _active
+
+
+@contextlib.contextmanager
+def recording(tracer: NullTracer):
+    """Install ``tracer`` as :func:`active` for the block, then put back
+    what was there."""
+    global _active
+    before, _active = _active, tracer
+    try:
+        yield tracer
+    finally:
+        _active = before
+
+
+def close_open(tracer: "Tracer", track: Track, since: int, **args) -> None:
+    """End, innermost first, every span that ``tracer`` began on ``track``
+    at or after event ``since`` and has not ended: the spans a raising call
+    left open."""
+    track = (str(track[0]), str(track[1]))
+    stack: List[str] = []
+    for ev in tracer.events[since:]:
+        if ev["track"] != track:
+            continue
+        if ev["ph"] == "B":
+            stack.append(ev["name"])
+        elif ev["ph"] == "E" and stack:
+            stack.pop()
+    for name in reversed(stack):
+        tracer.end(name, track, **args)
 
 
 class Tracer(NullTracer):
@@ -152,7 +211,5 @@ class Tracer(NullTracer):
         self._emit("e", "request", track, args, cat="request", uid=uid)
 
 
-def _default_clock() -> float:
-    import time
-
-    return time.time()
+# the profiler's clock, read with no frame of its own
+_default_clock = time.time

@@ -70,6 +70,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.models.recurrent import STATE_KEYS
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["sample_tokens", "make_decode_step", "build_fused_decode",
            "FusedDecode"]
@@ -127,7 +128,17 @@ class FusedDecode:
     ``block`` and ``logit_ok`` come back as numpy arrays of ``steps_ran``
     rows: row i holds the tokens sampled at step i and whether every
     last-position logit of that step was finite, per slot.
+
+    With a tracer active (``obs.trace.recording``) a call is the span
+    ``decode.dispatch`` on :attr:`host_track` (its session's), with
+    ``decode.wait`` inside from the first replay's launch on: the later
+    replays, which wait for queue space behind the card, the output copy
+    and the sync (without a graph, the read-back after the eager steps).
+    It ends with the steps that ran and the kernel launches of its replays
+    (:attr:`launches_per_replay` times the replays).
     """
+
+    host_track = ("replica0", "host")
 
     def __init__(self, model, cfg, caches, generator=None):
         self.model = model
@@ -277,6 +288,10 @@ class FusedDecode:
         if caches is not self.caches or cur_tok is not self.cur_tok:
             raise RuntimeError("fused decode: pass the runner's own caches "
                                "and cur_tok")
+        spans = obs_trace.active()
+        track = self.host_track
+        if spans.enabled:
+            spans.begin("decode.dispatch", track)
         self._check_pointers()
         n_steps = min(max(int(n_steps), 0), self.k_max)
         host = np.concatenate([[n_steps], np.asarray(remaining, np.int64),
@@ -285,7 +300,11 @@ class FusedDecode:
             self._host_in.numpy()[:] = host
             self.inputs.copy_(self._host_in, non_blocking=True)
             self.steps_ran.zero_()
-            for _ in range(n_steps):
+            if n_steps:
+                self.graph.replay()
+            if spans.enabled:
+                spans.begin("decode.wait", track)
+            for _ in range(n_steps - 1):
                 self.graph.replay()
             self.replays += n_steps
             for name, count in self.launches_per_replay.items():
@@ -301,11 +320,19 @@ class FusedDecode:
                     if not self._live():
                         break
                     self._step()
+            if spans.enabled:
+                spans.begin("decode.wait", track)
             out = self.outputs.cpu().numpy()
         steps = int(out[0])
+        if spans.enabled:
+            spans.end("decode.wait", track)
         k, n = self.k_max, self.n
         block = out[1:1 + k * n].reshape(k, n)[:steps].copy()
         ok = out[1 + k * n:].reshape(k, n)[:steps].astype(bool)
+        if spans.enabled:
+            spans.end("decode.dispatch", track, steps=steps, launches={
+                name: count * n_steps
+                for name, count in self.launches_per_replay.items()})
         return block, steps, self.cur_tok, self.generator, self.caches, ok
 
 
@@ -313,5 +340,5 @@ def build_fused_decode(model, cfg, caches, generator=None) -> FusedDecode:
     """The fused chunk runner for one engine config over ``caches`` (see
     :class:`FusedDecode`; on the card this captures its graph).  The
     engine's trace hook runs around it (``Engine._run_fused``), not in
-    it."""
+    it; the active tracer's ``decode.*`` spans are recorded in it."""
     return FusedDecode(model, cfg, caches, generator)

@@ -622,6 +622,8 @@ class EngineSession:
             else obs_trace.NOOP
         self.label = engine.trace_label
         self.track = (self.label, "session")
+        # the port's own spans (obs.trace.active), the fused dispatch's too
+        self.host_track = loop.host_track = (self.label, "host")
         self.metrics = obs_metrics.MetricsRegistry()
         self.stats = self.metrics.view(
             counters=("decode_steps", "decode_dispatches",
@@ -826,10 +828,11 @@ class EngineSession:
         for page in bad:
             alloc.quarantine(page)
 
-    def _admit(self) -> None:
+    def _admit(self, spans) -> None:
         """Fill free slots from the queue; a request finishing at prefill
         (EOS as its first token, or an exhausted budget) completes without
-        ever occupying the slot, so the next queued request slots in."""
+        ever occupying the slot, so the next queued request slots in.
+        ``spans``: the step's active tracer, for ``session.prefill``."""
         cfg, alloc = self.cfg, self.alloc
         deferred = False
         for slot in range(self.n):
@@ -898,6 +901,9 @@ class EngineSession:
                 site = self.prefill_count
                 self.prefill_count += 1
                 self.trace.begin("prefill", lane, tokens=len(tokens))
+                if spans.enabled:
+                    spans.begin("session.prefill", self.host_track,
+                                tokens=len(tokens))
                 try:
                     if self.injector is not None:
                         self.injector.check(site, site="prefill")
@@ -910,10 +916,15 @@ class EngineSession:
                 except Exception as e:  # noqa: BLE001 — isolate request
                     if self.strict:
                         raise
+                    if spans.enabled:
+                        spans.end("session.prefill", self.host_track,
+                                  error=True)
                     self.trace.end("prefill", lane, error=True)
                     self.trace.end("request", lane, status="failed")
                     self._finish_bad(req, "failed", repr(e))
                     continue
+                if spans.enabled:
+                    spans.end("session.prefill", self.host_track)
                 self.trace.end("prefill", lane)
                 if req.out is None:
                     req.out = []
@@ -1030,11 +1041,34 @@ class EngineSession:
         iterations don't count against ``max_steps``.  An armed replica or
         process fault inside the upcoming chunk splits the chunk at the
         fault step.
+
+        With a tracer active (``obs.trace.recording``) the call is the span
+        ``session.step`` on ``(trace_label, "host")``, and each iteration's
+        phases are spans inside it: ``session.admit`` (each request's
+        ``session.prefill`` in it), ``session.schedule`` up to the
+        dispatch (whose ``decode.*`` spans ``FusedDecode`` records) and
+        ``session.commit``.  Spans a raising step leaves open end with
+        ``error=True``.
         """
         if self.engine._session is not self:
             raise RuntimeError("a newer session of this engine took over "
                                "its serving state")
+        spans = obs_trace.active()
+        if not spans.enabled:
+            return self._step(max_steps, spans)
+        since = len(spans.events)
+        spans.begin("session.step", self.host_track)
+        try:
+            ran = self._step(max_steps, spans)
+        except BaseException:
+            obs_trace.close_open(spans, self.host_track, since, error=True)
+            raise
+        spans.end("session.step", self.host_track)
+        return ran
+
+    def _step(self, max_steps: int, spans) -> int:
         cfg = self.cfg
+        host = self.host_track
         ran = 0
         while ran < max_steps and (
                 self.queue or any(a is not None for a in self.active)):
@@ -1043,17 +1077,25 @@ class EngineSession:
                 # detected here frees/quarantines pages and re-enqueues
                 # its victims at the head
                 self._verify_integrity()
-            self._admit()
+            if spans.enabled:
+                spans.begin("session.admit", host)
+            self._admit(spans)
+            if spans.enabled:
+                spans.end("session.admit", host)
             if all(a is None for a in self.active):
                 if self.queue:
                     continue     # heads were rejected/timed out — refill
                 break            # the fill loop drained the queue
+            if spans.enabled:
+                spans.begin("session.schedule", host)
             self._sweep_deadlines()
             chunk = min(max(1, cfg.decode_chunk), max_steps - ran)
             if self.paged:
                 chunk = self._ensure_pages(chunk)
             self._record_live()  # chunk-boundary peak (pre-dispatch)
             if all(a is None for a in self.active):
+                if spans.enabled:
+                    spans.end("session.schedule", host)
                 continue         # deadline sweep / self-eviction emptied
             if self.injector is not None:
                 # process tier first (exact match), then replica tier;
@@ -1090,6 +1132,8 @@ class EngineSession:
             # more steps than that, so that without EOS every replay is
             # a live step
             n_steps = min(chunk, max(rem))
+            if spans.enabled:
+                spans.end("session.schedule", host)
             step_t0 = self.clock()
             block, steps_ran, _, _, _, ok_block = self.engine._fused_decode(
                 self.caches, self.cur_tok, rem, act, n_steps)
@@ -1102,6 +1146,8 @@ class EngineSession:
                                      / max(steps, 1)):
                 self.trace.instant("straggler_flagged", self.track,
                                    step=self.stats["decode_steps"])
+            if spans.enabled:
+                spans.begin("session.commit", host)
             for i in range(steps):
                 if all(a is None for a in self.active):
                     break        # decode faults emptied the batch early
@@ -1147,6 +1193,8 @@ class EngineSession:
             if self.kv_integrity:
                 self._record_checksums()
             self.trace.end("decode_chunk", self.track, steps=steps)
+            if spans.enabled:
+                spans.end("session.commit", host)
             if self.injector is not None and self.paged:
                 # silent corruption at rest: injected AFTER the boundary
                 # fingerprints, so the next iteration's verify flags it

@@ -410,6 +410,28 @@ def test_sparse_linear_on_cuda_never_runs_the_plain_version(cuda,
 
 
 @pytest.mark.gpu
+def test_sparse_linear_builds_one_work_list_per_new_width(cuda):
+    """``host_build`` through ``SparseLinear`` at two prefill widths: its
+    K2 plan once, then K2's work list once for each width it has not seen
+    (``part_bytes`` G·d·4), and nothing for a width it has."""
+    from repro_torch.obs import trace
+    layer = ffn.SparseLinear(_w_out_params(cuda), _granite(), d_in=8192,
+                             d_out=2048)
+    with trace.recording(trace.Tracer()) as tr:
+        for t in (96, 160, 96, 160):
+            layer(torch.from_numpy(_x(70 + t, t, 8192)).to(cuda))
+    builds = [ev["args"] for ev in tr.events if ev["name"] == "host_build"]
+    assert [b["what"] for b in builds] == ["sparse_linear_plan",
+                                           "work_list", "work_list"]
+    assert [b["key"] for b in builds[1:]] == [
+        repr(("rgcsr_spmm", torch.cuda.get_device_properties(
+            cuda).multi_processor_count, 128 * t * 4, None))
+        for t in (96, 160)]
+    assert sum(ev["name"] == "sparse.launch" and ev["ph"] == "B"
+               for ev in tr.events) == 4
+
+
+@pytest.mark.gpu
 def test_full_width_generate_launches_k2_once_per_layer_and_token(cuda):
     """Two layers of granite-3-2b at full width: K2 launches once per layer
     for the prefill and once per layer for each decode step; no other

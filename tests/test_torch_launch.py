@@ -117,6 +117,8 @@ def test_a_traced_failover_run_exports_a_valid_trace(capsys, tmp_path):
     stats = json.loads(metrics_path.read_text())
     assert export.validate_chrome_trace(doc) == []
     assert export.cross_check_counters(doc, stats) == []
+    assert any(ev["name"] == "decode.dispatch" and ev["ph"] == "B"
+               for ev in doc["traceEvents"])
     assert "migrate×1" in _line(out, "trace events:")
     assert _line(out, "trace written to").startswith(
         f"trace written to {trace_path}")
