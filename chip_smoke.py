@@ -11,7 +11,7 @@ the seconds into the run and the card's free and total memory, and a run
 that raises ends with ``chip_smoke: stopped in phase ...``, the phase and
 the card's memory):
 
-1. print the card (``nvidia-smi``) and build the three CUDA kernels from
+1. print the card (``nvidia-smi``) and build the four CUDA kernels from
    ``src/repro_torch/kernels/csrc/`` — one ``nvcc`` per source, all at once;
 2. build two matrices at their published sizes from CSR arrays:
    ``fem2d_2048`` (2-D 5-point Laplacian on a 2048×2048 grid: 4,194,304
@@ -46,7 +46,18 @@ the card's memory):
    slot rows of live segments that the plan's ``seg_slots`` counts — plus
    x, y and the plan's metadata (for K3 also ``stored_bound_ms``, the same
    over every stored slot of the padded arrays), and ``nnz_bound_ms`` for
-   the matrix's nonzeros alone;
+   the matrix's nonzeros alone; (b) the paged decode attention at
+   granite-3-2b's decode step (64 slots of lengths drawn from the
+   benchmark's chat deck, 8 kv heads of 4 query heads at head dim 64,
+   pages of 16, ``max_seq`` 2,048, bf16, one layer): against its plain
+   version (the chain it replaced: the whole table gathered, loaded and
+   ``attend``) within ``PAGED_ULPS`` rounding steps of bf16,
+   ``|got - want| <= PAGED_ULPS · eps · max(|want|, 2^-6)``, one launch
+   (``launches``, counted; ``launches_a_step`` is phase 7's bf16 session's
+   count over its decode steps); ``ms``, ``cold_ms``, ``wait_ms``, its
+   bound (the live K and V rows), the plain version's ms and
+   ``scaled_dot_product_attention`` on the gathered view
+   (``library_ms``); grep ``^paged_attention``;
 6. serve: granite-3-2b at its published width and depth (40 layers) with
    the RgCSR FFN (density 0.25, G = 128, ``impl="kernel"``), random weights
    from ``SEED``, through ``Engine.generate`` — 4 prompts of 128 tokens, 32
@@ -166,9 +177,11 @@ the card's memory):
    times, and one MoE layer's and its dispatch's (routing, dispatch and
    combine, without the experts' FFN) share of a decode step's busy time.
    (b) ``serve``: 16 requests on 8 slots with the graph, replays = decode
-   steps, streams against ``generate`` as in 11(b).  (c) Three AdamW
-   steps of 4 × 128 tokens through ``launch/train.py``, bf16 compute:
-   ``ce``, ``load_balance`` and ``router_z`` finite, peak memory.  (d)
+   steps, the paged attention launched once a layer a step and no other
+   kernel of the port, streams against ``generate`` as in 11(b).  (c)
+   Three AdamW steps of 4 × 128 tokens through ``launch/train.py``, bf16
+   compute: ``ce``, ``load_balance`` and ``router_z`` finite, peak
+   memory.  (d)
    deepseek-v3-671b at its smoke size only (its experts alone exceed one
    card): the dense prefix layer, sigmoid routing with a nonzero bias,
    the shared expert, MLA and MTP; the card's fp32 logits and loss terms
@@ -554,6 +567,13 @@ TWIN_RUNS = (("torch_quickstart", ()), ("torch_spmv_suite", ()),
 DRYRUN_CELLS = (("granite-3-2b", False), ("granite-moe-1b-a400m", True))
 DRYRUN_TIMEOUT_S = 600
 
+# phase 5 (b): the paged decode attention at granite-3-2b's decode step
+PAGED_SLOTS, PAGED_PAGE, PAGED_MAX_SEQ = 64, 16, 2048
+PAGED_ULPS = 2
+PAGED_META = ("src/repro_torch/kernels/csrc/paged_attention.cu",
+              "no TPU kernel: the JAX package's paged decode is plain jnp "
+              "(src/repro/models/attention.py)")
+
 KERNEL_META = {
     "rgcsr_spmv": ("src/repro_torch/kernels/csrc/rgcsr_spmv.cu",
                    "src/repro/kernels/rgcsr_spmv.py:82"),
@@ -859,6 +879,127 @@ def library_times(a, operand, calls, dev):
     return out
 
 
+# ----------------------------------------- phase 5 (b): paged attention
+
+
+def chat_lengths(n_slots: int, seed: int):
+    """Live lengths (index + 1) of ``n_slots`` busy slots of the benchmark's
+    chat cell in its steady state: a (prompt, answer) pair of the cell's
+    deck drawn in proportion to its answer (a slot spends that long
+    decoding it), then a point of its answer drawn uniformly."""
+    from perfbench.runners.closed_loop import length_pairs
+    traffic = json.loads((ROOT / "perfbench" / "traffic" /
+                          "chat.json").read_text())
+    pairs = length_pairs(traffic)
+    rng = np.random.default_rng(seed)
+    answers = np.array([a for _, a in pairs], dtype=np.float64)
+    picks = rng.choice(len(pairs), n_slots, p=answers / answers.sum())
+    return [min(pairs[i][0] + int(rng.integers(0, pairs[i][1])) + 1,
+                traffic["max_seq"]) for i in picks]
+
+
+def paged_attention_phase(dev, failures, tag):
+    """The paged decode attention at granite-3-2b's decode step: 64 slots
+    (8 kv heads of 4 query heads, head dim 64), pages of 16, max_seq 2,048,
+    bf16, the slots' lengths drawn from the chat cell's deck; one layer
+    (a step launches it once a layer).  Against its plain version (the
+    chain it replaced: the whole table gathered, loaded to bf16, and
+    ``attend``), its bound (the live K and V rows, q and the output over
+    3.35 TB/s) and ``scaled_dot_product_attention`` on the gathered view
+    (``library_ms``, the gather not counted; never called by the port).
+    Returns the ``{"kernels": ...}`` entry."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.paged_attention import (geometry,
+                                                     paged_attention,
+                                                     paged_attention_plain)
+    from repro_torch.models.attention import _paged_view
+    cfg = get_config(SERVE_ARCH)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    b, ps, pages = PAGED_SLOTS, PAGED_PAGE, PAGED_MAX_SEQ // PAGED_PAGE
+    lengths = chat_lengths(b, SEED + 32)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    shape = (1 + b * pages, ps, hkv, d)
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, 1, hq, d), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    table = (1 + torch.randperm(b * pages, generator=gen, device=dev)
+             ).reshape(b, pages).int()
+    index = torch.tensor(lengths, dtype=torch.int32, device=dev) - 1
+    live = sum(lengths)
+
+    def kernel():
+        return paged_attention(q, k, v, table, index)
+
+    def plain():
+        return paged_attention_plain(q, k, v, table, index)
+
+    kv = [_paged_view(pool, table.long()) for pool in (k, v)]
+    mask = (torch.arange(pages * ps, device=dev)[None, :]
+            < (index + 1)[:, None].long())[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True).transpose(1, 2)
+
+    before = launch_counts()["paged_attention"]
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    launched = launch_counts()["paged_attention"] - before
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    # the largest difference in rounding steps of bf16 at the output's own
+    # size (at most PAGED_ULPS passes)
+    steps = (diff / (torch.finfo(torch.bfloat16).eps * want.float().abs()
+                     .clamp(min=2 ** -6))).max().item()
+    geom = geometry(b, hkv, hq // hkv, d, ps, pages, 2, sm_count(dev))
+    nbytes = live * hkv * d * 2 * 2 + 2 * q.nbytes + table.nbytes \
+        + index.nbytes
+    b_ms, b_by = bound(nbytes, 4 * live * hq * d, BF16_FLOPS_PER_S)
+    e = {"name": f"paged_attention@{SERVE_ARCH} decode {b} slots",
+         "route": "cuda", "source": PAGED_META[0], "replaces": PAGED_META[1],
+         "launches": launched,
+         "part_pages": geom.part_pages, "parts": geom.parts,
+         "smem_bytes": geom.smem,
+         "live_tokens": live, "mean_length": live / b,
+         "max_abs_err": err, "max_err_steps": steps,
+         "ms": card_ms(kernel, 50, dev, hold=True),
+         "cold_ms": card_ms(kernel, 50, dev, cold=True),
+         "wait_ms": card_ms(kernel, 50, dev),
+         "plain_ms": card_ms(plain, 5, dev, hold=True),
+         "plain_cold_ms": card_ms(plain, 5, dev, cold=True),
+         "library_ms": card_ms(library, 10, dev, hold=True),
+         "library_cold_ms": card_ms(library, 10, dev, cold=True),
+         "bound_ms": b_ms, "bound_by": b_by}
+    e["roofline"] = e["bound_ms"] / e["ms"]
+    ok = launched == 1 and steps <= PAGED_ULPS
+    log(f"paged_attention {tag}: {b} slots, lengths {min(lengths)}-"
+        f"{max(lengths)} (mean {live / b:.1f}), parts of "
+        f"{geom.part_pages} pages, {geom.smem} B shared a CTA; kernel "
+        f"{e['ms']:.4f} ms (cold {e['cold_ms']:.4f}, caller waits "
+        f"{e['wait_ms']:.4f}) a layer; bound {b_ms:.4f} ms ({b_by}, "
+        f"{100 * e['roofline']:.1f} %); plain version (the chain it "
+        f"replaced) {e['plain_ms']:.4f} ms (cold {e['plain_cold_ms']:.4f}); "
+        f"sdpa on the gathered view {e['library_ms']:.4f} ms (cold "
+        f"{e['library_cold_ms']:.4f}); max_abs_err {err:.3e}, "
+        f"{steps:.3f} rounding steps of bf16 (at most {PAGED_ULPS}); "
+        f"launches {launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"paged_attention at the decode shape: err {err} "
+                        f"({steps} steps), launches {launched}")
+    return e
+
+
+def sm_count(dev) -> int:
+    import torch
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 # ------------------------------------------------- phase 15: sharded ranks
 
 
@@ -1052,7 +1193,8 @@ def shard_rank(rank, world, tmp, timeout_s):
             counts = launch_counts()
             out["launches"][name] = counts
             want = {"rgcsr_spmv": len(modes[name]),
-                    "rgcsr_spmm": len(modes[name]), "ell_spmv": 0}
+                    "rgcsr_spmm": len(modes[name]), "ell_spmv": 0,
+                    "paged_attention": 0}
             say(f"main {name}: launches {counts} (want {want})")
             if counts != want:
                 failures.append(f"{name} sharded launches {counts}")
@@ -1330,7 +1472,7 @@ def sharded_phase(dev, mats, x, xm, entries, failures, tag):
                         ok = (same_plan and same_raw and same
                               and torch.equal(full, got[0])
                               and c == {"rgcsr_spmv": 1, "rgcsr_spmm": 1,
-                                        "ell_spmv": 0}
+                                        "ell_spmv": 0, "paged_attention": 0}
                               and plan.e_max == 0)
                         log(f"sharded {name} {label} {x_mode} on one NCCL "
                             f"rank: plan arrays equal to the single-device "
@@ -3626,7 +3768,8 @@ def main() -> int:
     stats = PLAN_CACHE.stats()
     log(f"main path launch counts {counts}; plan cache {stats}; "
         f"peak memory {peak / 2**30:.2f} GiB; {time.perf_counter() - t0:.1f} s")
-    if counts != {"rgcsr_spmv": 4, "rgcsr_spmm": 2, "ell_spmv": 2}:
+    if counts != {"rgcsr_spmv": 4, "rgcsr_spmm": 2, "ell_spmv": 2,
+                  "paged_attention": 0}:
         failures.append(f"main path launch counts {counts}")
     if stats["misses"] != 2 or stats["hits"] != 4:
         failures.append(f"plan cache {stats}: want 2 misses then 4 hits")
@@ -3784,6 +3927,11 @@ def main() -> int:
               lambda: ops.rgcsr_spmm(p, xmr), 20)
     log(f"phase 5 in {time.perf_counter() - t0:.1f} s")
 
+    phase("5 (b) paged attention")
+    # ---- 5 (b). the paged decode attention at granite's decode step
+    paged_entry = paged_attention_phase(dev, failures, f"[{smi}]")
+    entries.append(paged_entry)
+
     phase("6 serve")
     # ---- 6. serve granite-3-2b with the RgCSR FFN through K2
     t0 = time.perf_counter()
@@ -3832,7 +3980,7 @@ def main() -> int:
     for h in hooks:
         h.remove()
     want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_layers * SERVE_NEW,
-                   "ell_spmv": 0}
+                   "ell_spmv": 0, "paged_attention": 0}
     want_widths = {SERVE_BATCH * SERVE_PROMPT: n_layers,
                    SERVE_BATCH: n_layers * (SERVE_NEW - 1)}
     builds = {lay.plan_builds for lay in sparse_layers}
@@ -4159,12 +4307,15 @@ def main() -> int:
     replays = eng._loop.replays - replays0
     tokens = sum(len(r.out) for r in reqs)
     want_k2 = n_layers * (st["decode_steps"] + prefills)
+    paged_entry["launches_a_step"] = sess_counts["paged_attention"] / max(
+        1, st["decode_steps"])
     k2_decode = sum(k for _, _, k in dispatches)   # launches at d = slots
     step_wait = sum(dt for dt, _, _ in dispatches) / max(
         1, sum(n for _, n, _ in dispatches)) * 1e3
     prefill_wait = float(np.mean([r.prefill_s for r in reqs])) * 1e3
     ok = (sess_counts == {"rgcsr_spmv": 0, "rgcsr_spmm": want_k2,
-                          "ell_spmv": 0}
+                          "ell_spmv": 0,
+                          "paged_attention": n_layers * st["decode_steps"]}
           and k2_decode == n_layers * st["decode_steps"]
           and prefill_k2 == [n_layers] * prefills
           and replays == st["decode_steps"]
@@ -4379,7 +4530,8 @@ def main() -> int:
           and st["replica_restarts"] == 1
           and fleet_counts == {"rgcsr_spmv": 0, "ell_spmv": 0,
                                "rgcsr_spmm": n_layers * (steps
-                                                         + len(prefill_k2))}
+                                                         + len(prefill_k2)),
+                               "paged_attention": n_layers * steps}
           and prefill_k2 == [n_layers] * len(prefill_k2)
           and k2_decode == n_layers * steps and replays == steps
           and [e._runner for e in fleet] == runners
@@ -4442,7 +4594,8 @@ def main() -> int:
         1, sum(n for seen in per for _, n, _ in seen)) * 1e3
     ok = (fleet_counts == {"rgcsr_spmv": 0, "ell_spmv": 0,
                            "rgcsr_spmm": n_layers * (sum(steps)
-                                                     + len(prefill_k2))}
+                                                     + len(prefill_k2)),
+                           "paged_attention": n_layers * sum(steps)}
           and k2_decode == n_layers * sum(steps) and replays == steps
           and prefill_k2 == [n_layers] * len(prefill_k2)
           and all(r.ok_like for r in reqs)
@@ -5160,7 +5313,7 @@ def main() -> int:
     for h in hooks:
         h.remove()
     want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_mla * SERVE_NEW,
-                   "ell_spmv": 0}
+                   "ell_spmv": 0, "paged_attention": 0}
     want_widths = {SERVE_BATCH * SERVE_PROMPT: n_mla,
                    SERVE_BATCH: n_mla * (SERVE_NEW - 1)}
     builds = {lay.plan_builds for lay in mla_layers}
@@ -5251,7 +5404,7 @@ def main() -> int:
         family_session(sess_eng, mla_cfg.vocab, SEED + 12, "mla session bf16")
     want_k2 = n_mla * (st["decode_steps"] + prefills)
     ok = (sess_counts == {"rgcsr_spmv": 0, "rgcsr_spmm": want_k2,
-                          "ell_spmv": 0}
+                          "ell_spmv": 0, "paged_attention": 0}
           and k2_decode == n_mla * st["decode_steps"]
           and prefill_k2 == [n_mla] * prefills
           and replays == st["decode_steps"]
@@ -5398,10 +5551,13 @@ def main() -> int:
         decode_chunk=SESS_CHUNK), params=engine.params)
     reqs, st, prefills, replays, sess_counts, _, _, _ = family_session(
         sess_eng, moe_cfg.vocab, SEED + 14, "moe session bf16")
-    ok = (not any(sess_counts.values()) and replays == st["decode_steps"]
+    want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": 0, "ell_spmv": 0,
+                   "paged_attention": n_moe * st["decode_steps"]}
+    ok = (sess_counts == want_counts and replays == st["decode_steps"]
           and st["completed"] == len(reqs))
     log(f"moe session bf16: replays {replays} = decode steps "
-        f"{st['decode_steps']}, no kernel of the port launched, completed "
+        f"{st['decode_steps']}, launch counts {sess_counts} (the paged "
+        f"attention once a layer a step, want {want_counts}), completed "
         f"{st['completed']} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("moe session: launches, replays or completions")
@@ -5658,7 +5814,7 @@ def main() -> int:
     for h in hooks:
         h.remove()
     want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_rg * SERVE_NEW,
-                   "ell_spmv": 0}
+                   "ell_spmv": 0, "paged_attention": 0}
     want_widths = {SERVE_BATCH * SERVE_PROMPT: n_rg,
                    SERVE_BATCH: n_rg * (SERVE_NEW - 1)}
     builds = {lay.plan_builds for lay in rg_layers}
@@ -5703,7 +5859,7 @@ def main() -> int:
     want_k2 = n_rg * (st["decode_steps"] + prefills)
     keys = [sorted(c) for c in sess_eng._loop.caches[:3]]
     ok = (sess_counts == {"rgcsr_spmv": 0, "rgcsr_spmm": want_k2,
-                          "ell_spmv": 0}
+                          "ell_spmv": 0, "paged_attention": 0}
           and k2_decode == n_rg * st["decode_steps"]
           and prefill_k2 == [n_rg] * prefills
           and replays == st["decode_steps"]
@@ -6193,7 +6349,8 @@ def main() -> int:
     enc_layers = [b.ffn.w_out for b in engine.model.encoder]
     dec_layers = [b.ffn.w_out for b in engine.model.layers]
     want_counts = {"rgcsr_spmv": 0,
-                   "rgcsr_spmm": n_enc + n_dec * SERVE_NEW, "ell_spmv": 0}
+                   "rgcsr_spmm": n_enc + n_dec * SERVE_NEW, "ell_spmv": 0,
+                   "paged_attention": 0}
     want_widths = {ENC_BATCH * ENC_FRAMES: n_enc,
                    ENC_BATCH * ENC_PROMPT: n_dec,
                    ENC_BATCH: n_dec * (SERVE_NEW - 1)}
@@ -6317,7 +6474,7 @@ def main() -> int:
                         f"warmed, want {n_p}")
     n_seq = p_cfg.frontend_tokens + VLM_PROMPT
     want_counts = {"rgcsr_spmv": 0, "rgcsr_spmm": n_p * SERVE_NEW,
-                   "ell_spmv": 0}
+                   "ell_spmv": 0, "paged_attention": 0}
     want_widths = {VLM_BATCH * n_seq: n_p,
                    VLM_BATCH: n_p * (SERVE_NEW - 1)}
     out, p_counts, p_widths = frontend_main_path(

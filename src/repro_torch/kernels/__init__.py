@@ -1,8 +1,10 @@
-"""Hand-written CUDA kernels for the paper's compute hot spot (SpMV/SpMM).
+"""Hand-written CUDA kernels for the paper's compute hot spot (SpMV/SpMM),
+and the serving step's paged decode attention.
 
 Layout: ``csrc/*.cu`` hold the kernels (built for ``sm_90a`` by
-``_build.py``); ``rgcsr_spmv.py`` / ``rgcsr_spmm.py`` / ``ell_spmv.py`` hold
-each kernel's launcher, plain PyTorch version and launch counter; ``ops.py``
+``_build.py``); ``rgcsr_spmv.py`` / ``rgcsr_spmm.py`` / ``ell_spmv.py`` /
+``paged_attention.py`` hold each kernel's launcher, plain PyTorch version
+and launch counter; ``ops.py``
 is the public API (plans, the process-wide ``PlanCache`` + wrappers);
 ``autotune.py`` searches kernel configs per matrix signature; ``ref.py``
 the oracles.  :func:`launch_counts` reports how many times each
@@ -37,7 +39,8 @@ from repro_torch.kernels.autotune import (  # noqa: F401
 
 def launch_counts() -> dict:
     """CUDA launches per kernel (``rgcsr_spmv``, ``rgcsr_spmm``,
-    ``ell_spmv``) since the last reset; plain-version runs do not count."""
+    ``ell_spmv``, ``paged_attention``) since the last reset; plain-version
+    runs do not count."""
     return dict(_build.launches)
 
 

@@ -27,7 +27,7 @@ __all__ = ["KERNELS", "BUILD_DIR", "build", "cuda_device", "sm_count",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("rgcsr_spmv", "rgcsr_spmm", "ell_spmv")
+KERNELS = ("rgcsr_spmv", "rgcsr_spmm", "ell_spmv", "paged_attention")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _DTYPE_TAGS = {"torch.float32": "f32", "torch.bfloat16": "bf16"}

@@ -3,9 +3,14 @@ with dense and paged KV caches, and cross-attention.
 
 The PyTorch counterpart of ``repro.models.attention``.
 Attention is plain tensor code in the reference (no Pallas kernel), and
-plain torch here; the arithmetic mirrors the reference's — logits in
-float32, masked positions set to ``-1e30`` before the softmax,
-probabilities cast to v's dtype — so that parity stays tight.
+plain torch here but for one path; the arithmetic mirrors the
+reference's — logits in float32, masked positions set to ``-1e30`` before
+the softmax, probabilities cast to v's dtype — so that parity stays
+tight.  The one path: a GQA decode step (one token) on a paged cache of
+bf16, fp16 or fp32 with no window goes to
+``kernels.paged_attention``, which reads each slot's live rows in place
+(the CUDA kernel on the card, its plain version on the CPU) with the
+same arithmetic, instead of gathering every slot's whole table.
 
 Cache protocol.  **Dense** layout::
 
@@ -113,6 +118,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import shardlib
 from repro_torch.models.layers import Dense, RMSNorm, dense_spec, rope
 from repro_torch.models.shardlib import shard_attn_qkv
@@ -746,6 +752,13 @@ def gqa_apply(layer: "GQA", cfg, x, positions, *, mode: str = "causal",
             q, k, v = shard_attn_qkv(cfg, q, k, v)
             mi = MaskInfo(causal=True, window=window, q_offset=index)
             y = attend(q, k, v, mask_info=mi)
+        elif ("block_table" in new_cache and s == 1 and not window
+              and cfg.kv_cache_dtype != "int8"):
+            # paged decode: each slot's live rows, read in place from the
+            # pool (the kernel on the card, its plain version on the CPU);
+            # the positions it reads are the ones the mask below admits
+            y = paged_attention(q, new_cache["k"], new_cache["v"],
+                                new_cache["block_table"], index)
         else:
             if "block_table" in new_cache:
                 # paged: gather each slot's pages into a slot-major dense

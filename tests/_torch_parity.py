@@ -44,6 +44,38 @@ def ell_counts_csr(seed, k_max, n_segments):
     return (values, columns, row_ptr, (n, n)), counts
 
 
+def paged_case(seed, lengths, hkv, group, dim, page_size=16, pages=4,
+               store=torch.float32, value=torch.float32, device="cpu"):
+    """A paged decode attention input: pools ``(n_pages, page_size, hkv,
+    dim)`` of ``store``, a block table of ``pages`` columns and the
+    ``index`` of each slot, and a roped query ``(B, 1, hkv·group, dim)``
+    of ``value``.  ``lengths[b]`` is slot b's index + 1 (past
+    ``pages · page_size``: an index that ran past the table); ``None`` is
+    a free slot, its table on the null page 0 at index 0 — ``0`` the same
+    slot with an index that has grown (free slots keep decoding).  Live
+    slots own distinct random pages, whole tables."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    n_pages = 1 + b * pages
+    shape = (n_pages, page_size, hkv, dim)
+    k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    table = (1 + rng.permutation(b * pages)).reshape(b, pages)
+    index = np.zeros(b, np.int64)
+    for i, n in enumerate(lengths):
+        if n is None or n == 0:
+            table[i] = 0
+            index[i] = 0 if n is None else int(rng.integers(1, 3 * pages
+                                                            * page_size))
+        else:
+            index[i] = n - 1
+    q = rng.standard_normal((b, 1, hkv * group, dim)).astype(np.float32)
+    return (torch.from_numpy(q).to(device=device, dtype=value),
+            k.to(device=device, dtype=store), v.to(device=device, dtype=store),
+            torch.from_numpy(table.astype(np.int32)).to(device),
+            torch.from_numpy(index.astype(np.int32)).to(device))
+
+
 def autotune_cost(plan) -> float:
     """The reference's ``deterministic_autotune`` cost model
     (tests/conftest.py), for either package's plan: a per-step cost, a

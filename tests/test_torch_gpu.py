@@ -16,6 +16,7 @@ at each piece size.  K3's tests alone::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py -k k3
 """
+import contextlib
 import copy
 import dataclasses
 import importlib
@@ -28,7 +29,8 @@ import torch
 
 from _torch_dist import (BATCH, MOE_CASES, SEQ, moe_trainer, run_ranks,
                          sharded_cfg, sweep, train_config, train_ranks)
-from _torch_parity import ell_counts_csr, rand_sparse, row_shards, skewed
+from _torch_parity import (ell_counts_csr, paged_case, rand_sparse,
+                           row_shards, skewed)
 
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.configs.base import SparsityConfig
@@ -36,11 +38,15 @@ from repro_torch.core import ShardedRgCSR, from_csr, from_dense, spmm, spmv
 from repro_torch.core.timing import time_us
 from repro_torch.kernels import (launch_counts, ops, plan_from_params,
                                  reset_launch_counts)
+from repro_torch.kernels import paged_attention as paged_module
 from repro_torch.kernels.ell_spmv import ell_spmv_launch, ell_spmv_plain
+from repro_torch.kernels.paged_attention import (geometry, paged_attention,
+                                                 paged_attention_plain)
 from repro_torch.kernels.rgcsr_spmm import rgcsr_spmm_launch, rgcsr_spmm_plain
 from repro_torch.kernels.rgcsr_spmv import rgcsr_spmv_launch, rgcsr_spmv_plain
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import LanguageModel, ffn, moe
+from repro_torch.models import LanguageModel, attention, ffn, moe
+from repro_torch.models.attention import _paged_view
 from repro_torch.models.spec import init_from_spec
 from repro_torch.serve import Engine, Request, Router, RouterConfig, \
     ServeConfig
@@ -253,6 +259,266 @@ def test_k3_refuses_counts_that_do_not_match(cuda):
     assert launch_counts()["ell_spmv"] == before
 
 
+# ------------------------------------------------ paged decode attention
+
+
+# Live lengths (index + 1) of a case's slots at page size 16 and 4 pages a
+# table: one token, a page boundary (16, 17), mid-page, the whole table, an
+# index past it, a free slot on the null page at index 0 and one whose
+# index has grown.
+PAGED_LENGTHS = [1, 16, 17, 9, 64, 90, None, 0]
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
+# Kernel and plain version round at the same points (K and V to the value
+# dtype, the probabilities to it before P · V, the output once) and sum in
+# fp32 in other orders.  So an output may land PAGED_ULPS rounding steps
+# of the value dtype apart at its own size, plus one step of the largest
+# term p_t·|v_t| (a probability whose rounding went the other way), plus
+# PAGED_F32 steps of fp32 at the largest |v| (the sums' order):
+#   |got - want| <= eps·(PAGED_ULPS·max(|want|, 2^-6) + max p · max|v|)
+#                   + PAGED_F32·eps32·max|v|.
+# And where the value dtype has 16 bits, at most PAGED_SHARE of the outputs
+# differ at all: a moved rounding point moves many more.
+PAGED_ULPS, PAGED_F32, PAGED_SHARE = 2, 32, 0.05
+
+
+@contextlib.contextmanager
+def _fp32_sums():
+    """The plain version's 16-bit P · V summed in fp32, as the kernel sums
+    it (cuBLAS may otherwise reduce it in 16 bits)."""
+    m = torch.backends.cuda.matmul
+    old = (m.allow_fp16_reduced_precision_reduction,
+           m.allow_bf16_reduced_precision_reduction)
+    m.allow_fp16_reduced_precision_reduction = False
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (m.allow_fp16_reduced_precision_reduction,
+         m.allow_bf16_reduced_precision_reduction) = old
+
+
+def _paged_bar(case, want):
+    """The bound above, per output element of ``case``."""
+    q, k, v, table, index = case
+    b, _, hq, d = q.shape
+    hkv, t = k.shape[2], table.shape[1] * k.shape[1]
+    live = torch.arange(t, device=q.device) < torch.clamp(
+        index.long() + 1, max=t)[:, None]                   # (B, T)
+    kk, vv = (_paged_view(pool, table.long()).to(q.dtype).float()
+              for pool in (k, v))                           # (B, T, Hkv, D)
+    logits = torch.einsum("bhgd,bthd->bhgt", q.float().reshape(
+        b, hkv, hq // hkv, d), kk) * d ** -0.5
+    p_max = torch.softmax(logits.masked_fill(
+        ~live[:, None, None], float("-inf")), -1).amax(-1)  # (B, Hkv, G)
+    v_max = vv.abs().masked_fill(~live[:, :, None, None], 0).amax(1)
+    v_max = v_max[:, :, None].expand(b, hkv, hq // hkv, d)
+    return (torch.finfo(want.dtype).eps * (
+        PAGED_ULPS * want.float().abs().clamp(min=2 ** -6)
+        + (p_max[..., None] * v_max).reshape(want.shape))
+        + PAGED_F32 * torch.finfo(torch.float32).eps
+        * v_max.reshape(want.shape))
+
+
+def _forced(case, part_pages):
+    """The launch geometry of ``case`` with ``part_pages`` pages a part."""
+    q, k, _, table, _ = case
+    hkv = k.shape[2]
+    return geometry(q.shape[0], hkv, q.shape[2] // hkv, q.shape[3],
+                    k.shape[1], table.shape[1], k.element_size(),
+                    torch.cuda.get_device_properties(
+                        q.device).multi_processor_count, part_pages)
+
+
+def _paged_close(case, part_pages=None):
+    """The kernel on ``case`` (one launcher call; ``part_pages`` forces the
+    pages a part) against its plain version on the same CUDA tensors."""
+    q, k, v, table, index = case
+    before = launch_counts()["paged_attention"]
+    got = paged_attention(*case) if part_pages is None else \
+        paged_module._launch(*case, _forced(case, part_pages))
+    with _fp32_sums():
+        want = paged_attention_plain(q, k, v, table, index)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got.float() - want.float()).abs()
+                 <= _paged_bar(case, want)).all())
+    if q.element_size() == 2:
+        assert (got != want).float().mean().item() <= PAGED_SHARE
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store,value", [(F32, F32), (BF16, BF16),
+                                         (F16, F16), (BF16, F32),
+                                         (F32, BF16)])
+@pytest.mark.parametrize("dim", [16, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 6, 16])
+def test_paged_attention_cuda_matches_plain(cuda, group, dim, store, value):
+    """Every length kind, with parts of 4 pages (a whole table: one launch
+    finishes every slot), 1 page (every slot past its first page through
+    the three launches), 3 (both kinds in one call) and the launcher's own
+    choice."""
+    case = paged_case(60 + group + dim, PAGED_LENGTHS, 2, group, dim,
+                      store=store, value=value, device=cuda)
+    for part_pages in (None, 4, 1, 3):
+        _paged_close(case, part_pages)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim", [8, 40, 48, 96, 256])
+def test_paged_attention_cuda_takes_every_head_dim(cuda, dim):
+    """Head dims whose D / 8 chunks are not a power of two (idle lanes)
+    and the widest, 256."""
+    case = paged_case(70 + dim, PAGED_LENGTHS, 2, 4, dim, store=BF16,
+                      value=BF16, device=cuda)
+    for part_pages in (4, 1):
+        _paged_close(case, part_pages)
+
+
+@pytest.mark.gpu
+def test_paged_attention_cuda_at_granite_decode_shape(cuda):
+    """granite-3-2b's decode step: 64 slots, 8 kv heads of 4 query heads
+    at head dim 64, pages of 16, max_seq 2,048, bf16; mixed lengths up to
+    the whole table and past it, two free slots.  The launcher cuts parts
+    of 256 rows there; one part a slot (a whole table) agrees as
+    closely."""
+    rng = np.random.default_rng(90)
+    lengths = [int(n) for n in rng.integers(1, 2049, 60)] + [
+        2048, 2100, None, 0]
+    case = paged_case(91, lengths, 8, 4, 64, pages=128, store=BF16,
+                      value=BF16, device=cuda)
+    assert geometry(64, 8, 4, 64, 16, 128, 2, 132).part_pages == 16
+    _paged_close(case)
+    _paged_close(case, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("part_pages", [4, 1])
+def test_paged_attention_is_bitwise_repeatable(cuda, part_pages):
+    case = paged_case(80, PAGED_LENGTHS, 2, 4, 64, store=BF16, value=BF16,
+                      device=cuda)
+    geom = _forced(case, part_pages)
+    a = paged_module._launch(*case, geom)
+    b = paged_module._launch(*case, geom)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_paged_attention_reads_no_row_past_the_live_length(cuda):
+    """NaN in every pool row no slot holds live — the rest of a slot's
+    last page, its later pages, the null page past position 0 — and the
+    result is finite and, part size for part size, bit for bit as before."""
+    case = paged_case(81, PAGED_LENGTHS[:6], 2, 4, 64, store=BF16,
+                      value=BF16, device=cuda)
+    q, k, v, table, index = case
+    geoms = [_forced(case, n) for n in (None, 4, 1)]
+    want = [paged_module._launch(*case, geom) for geom in geoms]
+    ps, t_max = k.shape[1], table.shape[1] * k.shape[1]
+    live = torch.zeros(k.shape[:2], dtype=torch.bool, device=cuda)
+    for b in range(len(index)):
+        for t in range(min(int(index[b]) + 1, t_max)):
+            live[int(table[b, t // ps]), t % ps] = True
+    for pool in (k, v):
+        pool[~live] = float("nan")
+    for geom, before in zip(geoms, want):
+        got = paged_module._launch(*case, geom)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, before)
+
+
+@pytest.mark.gpu
+def test_paged_attention_refuses_what_it_cannot_take(cuda):
+    before = launch_counts()["paged_attention"]
+    for dim, group in ((12, 4), (264, 1), (256, 32)):
+        case = paged_case(82, [5, 9], 1, group, dim, device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            paged_attention(*case)
+    q, k, v, table, index = paged_case(83, [5, 9], 2, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA device"):
+        paged_attention(q, k, v, table.cpu(), index)
+    with pytest.raises(ValueError, match="contiguous"):
+        paged_attention(torch.cat([q, q], -1)[..., :64], k, v, table,
+                        index)
+    assert launch_counts()["paged_attention"] == before
+
+
+def _smoke_bf16(**over):
+    """Smoke granite-3-2b in bf16 (compute and KV cache)."""
+    return dataclasses.replace(get_smoke("granite-3-2b"), dtype="bfloat16",
+                               kv_cache_dtype="bfloat16", **over)
+
+
+@pytest.mark.gpu
+def test_paged_decode_on_cuda_never_runs_the_plain_version(cuda,
+                                                           monkeypatch):
+    """bf16 paged GQA decode steps on the card go through the kernel, once
+    a layer a step, never through the plain version or the gathered view;
+    their logits agree with the same model's dense-cache steps."""
+    from repro_torch.serve import paging
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the paged decode ran its plain version or "
+                             "gathered the pool on a CUDA tensor")
+
+    cfg = _smoke_bf16()
+    model = LanguageModel(cfg, device=cuda)
+    prompt = torch.from_numpy(np.random.default_rng(84).integers(
+        0, 512, (1, 11)).astype(np.int32)).to(cuda)
+    geom = paging.geometry(64, 4, n_slots=2)
+    alloc = paging.PageAllocator(geom, n_slots=2)
+    assert alloc.admit(1, 11, geom.pages_per_slot)
+    with torch.inference_mode():
+        logits, dense = model.prefill({"tokens": prompt}, 64)
+        caches = model.init_cache(2, 64, paging=geom)
+        paging.commit_prefill(caches, dense, 1, 11, alloc.table, 4)
+        monkeypatch.setattr(paged_module, "paged_attention_plain", refuse)
+        monkeypatch.setattr(attention, "_paged_view", refuse)
+        tok = logits[:, -1].argmax(-1).int()
+        for step in range(4):
+            alloc.ensure(1, 12 + step)
+            paging.sync_block_tables(caches, alloc.table)
+            both = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+            both[1, 0] = tok[0]
+            before = launch_counts()["paged_attention"]
+            got, _ = model.decode_step(caches, both)
+            assert launch_counts()["paged_attention"] == \
+                before + cfg.n_layers
+            want, dense = model.decode_step(dense, tok[:, None])
+            for c in caches:
+                c["index"] += 1
+            w = want[0].float()
+            torch.testing.assert_close(got[1].float(), w, rtol=0, atol=5e-2
+                                       * (1 + w.abs().max().item()))
+            tok = want[:, -1].argmax(-1).int()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["paged", "dense"])
+def test_graph_launches_paged_attention_once_per_layer_and_live_step(
+        cuda, layout):
+    """bf16 serving, the chat cell's dtypes: each replay of the decode
+    graph launches the kernel once a layer on paged caches, never on
+    dense slabs; streams equal to generate() of each request alone."""
+    cfg = _smoke_bf16()
+    eng = Engine(cfg, ServeConfig(max_seq=64, n_slots=3, page_size=4,
+                                  kv_layout=layout, decode_chunk=4),
+                 device=cuda)
+    per_replay = cfg.n_layers if layout == "paged" else 0
+    assert eng._loop.launches_per_replay.get("paged_attention", 0) == \
+        per_replay
+    reset_launch_counts()
+    reqs = _session_requests(85, (8, 11, 9, 6, 12), 7)
+    eng.serve(reqs)
+    st = eng.paging_stats
+    assert launch_counts()["paged_attention"] == \
+        per_replay * st["decode_steps"]
+    for r in reqs:
+        assert r.ok_like and len(r.out) == 7
+
+
 @pytest.mark.gpu
 def test_auto_on_cuda_raises_outside_the_kernels_domain(cuda):
     """A CUDA matrix the kernels cannot take (G = 64) raises under the
@@ -444,7 +710,7 @@ def test_full_width_generate_launches_k2_once_per_layer_and_token(cuda):
     reset_launch_counts()
     out = engine.generate(prompts, max_new_tokens=8)
     assert launch_counts() == {"rgcsr_spmv": 0, "rgcsr_spmm": 2 * 8,
-                               "ell_spmv": 0}
+                               "ell_spmv": 0, "paged_attention": 0}
     assert out.shape == (2, 8) and (out >= 0).all() \
         and (out < cfg.vocab).all()
     assert [b.ffn.w_out.plan_builds for b in engine.model.layers] == [1, 1]
@@ -640,7 +906,8 @@ def test_graph_counts_k2_once_per_layer_and_live_step(cuda):
     cfg = _smoke_rgcsr()
     eng = Engine(cfg, ServeConfig(max_seq=64, n_slots=3, page_size=4,
                                   decode_chunk=4), device=cuda)
-    assert eng._loop.launches_per_replay == {"rgcsr_spmm": 2}
+    assert eng._loop.launches_per_replay == {"rgcsr_spmm": 2,
+                                             "paged_attention": 2}
     replays = eng._loop.replays
     reset_launch_counts()
     reqs = _session_requests(4, (8, 11, 9, 6, 12), 7)
@@ -649,7 +916,8 @@ def test_graph_counts_k2_once_per_layer_and_live_step(cuda):
     prefills = eng._session.prefill_count
     assert eng._loop.replays - replays == st["decode_steps"]
     assert launch_counts() == {"rgcsr_spmv": 0, "rgcsr_spmm": 2 * (
-        st["decode_steps"] + prefills), "ell_spmv": 0}
+        st["decode_steps"] + prefills), "ell_spmv": 0,
+        "paged_attention": 2 * st["decode_steps"]}
     assert st["decode_dispatches"] < st["decode_steps"]
 
 
@@ -736,7 +1004,8 @@ def test_router_replicas_share_one_model_and_keep_their_graphs(cuda):
     assert st["replica_faults"] == 1 and st["migrations"] >= 1
     assert [e._loop.graph for e in (first, second)] == graphs
     assert launch_counts() == {"rgcsr_spmv": 0, "rgcsr_spmm": 2 * (
-        st["decode_steps"] + len(prefills)), "ell_spmv": 0}
+        st["decode_steps"] + len(prefills)), "ell_spmv": 0,
+        "paged_attention": 2 * st["decode_steps"]}
     assert [m.plan_builds for m in first.model.modules()
             if isinstance(m, ffn.SparseLinear)] == [1, 1]
     for r in reqs:
@@ -911,8 +1180,9 @@ def test_frontend_families_on_the_card_match_the_cpu(cuda, arch):
     assert not any(n for c in cpu_counts for n in c.values())
     n_pre = cfg.n_layers + (cfg.n_enc_layers if cfg.enc_dec else 0)
     assert card_counts == [{"rgcsr_spmv": 0, "rgcsr_spmm": n_pre,
-                            "ell_spmv": 0}] + [
-        {"rgcsr_spmv": 0, "rgcsr_spmm": cfg.n_layers, "ell_spmv": 0}] * 3
+                            "ell_spmv": 0, "paged_attention": 0}] + [
+        {"rgcsr_spmv": 0, "rgcsr_spmm": cfg.n_layers, "ell_spmv": 0,
+         "paged_attention": 0}] * 3
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g, w, rtol=0,
@@ -996,7 +1266,7 @@ def test_sharded_spmv_on_one_nccl_rank_is_the_single_device_path(cuda,
             ym = spmm(sm, xm, mesh=mesh, x_mode=x_mode)
             torch.cuda.synchronize()
             assert launch_counts() == {"rgcsr_spmv": 1, "rgcsr_spmm": 1,
-                                       "ell_spmv": 0}
+                                       "ell_spmv": 0, "paged_attention": 0}
             assert torch.equal(y, ops.rgcsr_spmv(single, x))
             assert torch.equal(ym, ops.rgcsr_spmm(single, xm))
             full = ops.gather_sharded_rows(

@@ -20,6 +20,7 @@ from _torch_serving import (assert_same_serving, engines, oracle, pair,
 from repro.models import LanguageModel as RefModel
 from repro.models import attention as ref_attention
 from repro.serve import paging as ref_paging
+from repro_torch.kernels import paged_attention as paged_module
 from repro_torch.models import LanguageModel, attention
 from repro_torch.serve import paging
 
@@ -195,6 +196,29 @@ def test_paged_decode_matches_the_reference(prompt_len):
         np.testing.assert_allclose(cache["k"].numpy(),
                                    np.asarray(ref_body["k"][i]),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("prompt_len", [PS * 3, PS * 3 + 1, PS * 3 - 1, 10])
+def test_paged_decode_on_cpu_runs_the_plain_paged_attention(prompt_len,
+                                                            monkeypatch):
+    """gqa_apply's paged decode (one token, no window, fp32 KV) goes through
+    the paged decode attention, which on CPU tensors is its plain version:
+    once a layer a step; and the steps keep
+    ``test_paged_decode_matches_the_reference``'s bars."""
+    calls = []
+    plain = paged_module.paged_attention_plain
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(paged_module, "paged_attention_plain", spy)
+    n_layers = pair()[2].n_layers
+    *steps, _ = _decode_both(prompt_len)
+    assert len(calls) == n_layers * len(steps)
+    for want, got, one in steps:
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got, one, rtol=1e-5, atol=1e-5)
 
 
 def test_paged_decode_int8_and_null_page_isolation():
